@@ -8,6 +8,7 @@ import torch
 
 from tpulc_torch.codecs.bwt import driver
 from tpulc_torch.codecs.huffman import decode_kernels as dk
+from tpulc_torch.codecs.huffman import driver as hdrv
 from tpulc_torch.codecs.huffman.device_tables import canonical_decode_params
 from tpulc_torch.primitives import mtf_kernels as mk
 
@@ -47,22 +48,76 @@ def test_k1_k2_k4_equal_plain(cuda):
         assert torch.equal(got[1].cpu(), want[1])
 
 
-def test_k3_equals_plain(cuda):
-    rng = np.random.default_rng(1)
-    nsub, cs, L = 500, 128, 15
-    words = rng.integers(0, 1 << 32, size=8000, dtype=np.uint64).astype(np.uint32)
-    total = 8000 * 32 - 77
-    offs = np.sort(rng.integers(0, total + 64, nsub)).astype(np.int32)
+def _walk_args(seed, B=3, ccap=256, L=15):
+    """K3/K7 inputs: B streams with ragged ends, 4 tables, random picks."""
+    rng = np.random.default_rng(seed)
+    W = 3000
+    words = rng.integers(0, 1 << 32, size=(B, W), dtype=np.uint64).astype(
+        np.uint32)
+    tbits = np.array([W * 32 - 77 - 500 * j for j in range(B)], np.int32)
+    offs = np.sort(rng.integers(0, W * 32 + 64, B * ccap)).astype(np.int32)
     lens = torch.from_numpy(rng.integers(1, L + 1, size=(4, 257)))
     lim, base, _ = canonical_decode_params(lens, L)
-    pick = torch.from_numpy(rng.integers(0, 4, nsub))
-    args = (torch.from_numpy(words.view(np.int32)), torch.from_numpy(offs),
-            total, lim[pick].contiguous(), base[pick].contiguous(), cs, L)
-    want = dk.huffman_walk_plain(*args)
-    got = dk.huffman_walk(*[a.to(cuda) if torch.is_tensor(a) else a
-                            for a in args])
+    tab = torch.from_numpy(rng.integers(0, 4, B * ccap).astype(np.int32))
+    return (torch.from_numpy(words.view(np.int32)), torch.from_numpy(tbits),
+            torch.from_numpy(offs), lim, base, tab)
+
+
+def _on(dev, args):
+    return [a.to(dev) if torch.is_tensor(a) else a for a in args]
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_k3_equals_plain(cuda, packed):
+    args = (*_walk_args(1), 128, 15)
+    want = dk.huffman_walk_plain(*args, packed=packed)
+    n = dk.huffman_walk.launches
+    got = dk.huffman_walk(*_on(cuda, args), packed=packed)
+    torch.cuda.synchronize()
+    assert dk.huffman_walk.launches == n + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_k7_equals_plain(cuda):
+    args = (*_walk_args(2, L=12), 128, 12)
+    want = dk.huffman_walk_v1_plain(*args)
+    got = dk.huffman_walk_v1(*_on(cuda, args))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("valid", [True, False])
+def test_k8_equals_plain(cuda, valid):
+    words, tbits, offs, lim, base, _ = _walk_args(3, L=12)
+    T = offs.shape[0] // dk.TILE
+    pick = torch.arange(T) % lim.shape[0]
+    lj = (lim[pick].long() << (12 - torch.arange(13))).int()
+    if not valid:  # non-nested limits: the corrupt-table contract
+        lj = torch.from_numpy(np.random.default_rng(4).integers(
+            0, 1 << 12, size=(T, 13)).astype(np.int32))
+    blk = torch.arange(offs.shape[0]) // (offs.shape[0] // words.shape[0])
+    left = torch.clamp(tbits[blk] - offs, max=128 * 12).int()
+    args = (words, offs, left, lj.contiguous(), base[pick].contiguous(), 128, 12)
+    want = dk.huffman_walk_flat_plain(*args)
+    got = dk.huffman_walk_flat(*_on(cuda, args))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kw", [{}, {"chunk_syms": 256}, {"aligned": False}],
+                         ids=["v2", "v1", "selfsync"])
+def test_huffman_on_card_matches_cpu(cuda, kw):
+    """The card writes the CPU path's bytes, and every decoder decodes
+    them on the card."""
+    with open("tests/data/pg1661.txt", "rb") as f:
+        data = f.read(150000)
+    on_card = hdrv.compress(data, block_size=1 << 16, device="cuda", **kw)
+    assert on_card == hdrv.compress(data, block_size=1 << 16, device="cpu",
+                                    **kw)
+    for kernel in hdrv.KERNELS:
+        assert hdrv.decompress(on_card, device="cuda", kernel=kernel) == data
+    assert hdrv.compress(b"", device="cuda") == hdrv.compress(b"",
+                                                              device="cpu")
 
 
 @pytest.mark.parametrize("name", ["pg1661_150k", "periodic", "tiny",

@@ -63,9 +63,10 @@ def test_walk_matches_tpulc_on_a_multitable_bz_block():
 
     lim, base, ss = canonical_decode_params(torch.from_numpy(lengths), L)
     sel_t = torch.from_numpy(sel_p).long()
-    ci = huffman_walk(torch.from_numpy(words.view(np.int32).copy()),
-                      torch.from_numpy(offs_p), tb, lim[sel_t].contiguous(),
-                      base[sel_t].contiguous(), CS, L)
+    ci = huffman_walk(torch.from_numpy(words.view(np.int32).copy())[None],
+                      torch.tensor([tb], dtype=torch.int32),
+                      torch.from_numpy(offs_p), lim, base,
+                      sel_t.to(torch.int32), CS, L)
     flat = ci.reshape(-1)[:cap].clamp(0, ALPHABET - 1).long()
     ctx = torch.repeat_interleave(sel_t, CS)[:cap]
     got = ss.reshape(-1)[ctx * ALPHABET + flat].numpy()
@@ -107,8 +108,10 @@ def test_walk_contract_and_corrupt_guard(corrupt):
     if corrupt:  # no length ever matches: every step is the 1-bit guard
         lim = np.zeros_like(lim)
     got = huffman_walk_plain(
-        torch.from_numpy(words.view(np.int32)), torch.from_numpy(offs),
-        total_bits, torch.from_numpy(lim), torch.from_numpy(base), cs, L)
+        torch.from_numpy(words.view(np.int32))[None],
+        torch.tensor([total_bits], dtype=torch.int32), torch.from_numpy(offs),
+        torch.from_numpy(lim), torch.from_numpy(base),
+        torch.arange(nsub, dtype=torch.int32), cs, L)
     want = _walk_ref(words, offs, total_bits, lim, base, cs, L)
     np.testing.assert_array_equal(got.numpy(), want)
     if corrupt:
@@ -117,10 +120,15 @@ def test_walk_contract_and_corrupt_guard(corrupt):
 
 def test_walk_wrapper_checks_shapes():
     z = torch.zeros(4, dtype=torch.int32)
+    w = torch.zeros((1, 4), dtype=torch.int32)
+    tb = torch.zeros(1, dtype=torch.int32)
     tab = torch.zeros((4, L + 1), dtype=torch.int32)
     with pytest.raises(ValueError):
-        huffman_walk(z, z, 0, tab[:, :4].contiguous(), tab, CS, L)
+        huffman_walk(w, tb, z, tab[:, :4].contiguous(), tab, z, CS, L)
     with pytest.raises(ValueError):
-        huffman_walk(z, z, 0, tab, tab, 127, L)
+        huffman_walk(w, tb, z, tab, tab, z, 127, L)
     with pytest.raises(ValueError):
-        huffman_walk(z.long(), z, 0, tab, tab, CS, L)
+        huffman_walk(w.long(), tb, z, tab, tab, z, CS, L)
+    with pytest.raises(ValueError):  # 4 chunks over 3 streams
+        huffman_walk(torch.zeros((3, 4), dtype=torch.int32),
+                     torch.zeros(3, dtype=torch.int32), z, tab, tab, z, CS, L)

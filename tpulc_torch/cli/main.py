@@ -1,14 +1,16 @@
 """tpulc_torch command-line driver (port of `tpulc/cli/main.py`).
 
 Usage:
-    python -m tpulc_torch.cli compress   -c bz -i IN -o OUT [-b BLOCKSIZE]
+    python -m tpulc_torch.cli compress   [-c huffman] -i IN -o OUT [-b 1048576]
                                          [--device cuda|cpu] [--timings]
     python -m tpulc_torch.cli decompress -i IN -o OUT [--device cuda|cpu]
     python -m tpulc_torch.cli info       -i IN
 
-The container is tpulc's, so either CLI decodes what the other wrote.
-Codecs other than bz and store are not ported yet; asking for one
-exits with status 2 and names the ROADMAP item that ports it.
+The container is tpulc's and so are the defaults (huffman, 1 MiB
+blocks), so either CLI decodes what the other wrote, and the same
+codec arguments write the same bytes.  Codecs other than huffman, bz and
+store are not ported yet; asking for one exits with status 2 and names
+the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -30,11 +32,11 @@ def _parse(argv):
     p = argparse.ArgumentParser(prog="tpulc_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     c = sub.add_parser("compress")
-    c.add_argument("-c", "--codec", default="bz",
+    c.add_argument("-c", "--codec", default="huffman",
                    choices=sorted(available_codecs()))
     c.add_argument("-i", "--input", required=True)
     c.add_argument("-o", "--output", required=True)
-    c.add_argument("-b", "--block-size", type=int, default=900_000)
+    c.add_argument("-b", "--block-size", type=int, default=1 << 20)
     d = sub.add_parser("decompress")
     d.add_argument("-i", "--input", required=True)
     d.add_argument("-o", "--output", required=True)

@@ -310,7 +310,8 @@ def _parse_block(payload: bytes):
 def walk_args(payload: bytes, cap: int, dev: torch.device):
     """Parse and validate one block payload; put K3's inputs on `dev`.
 
-    Returns (parsed block, K3 arguments — `huffman_walk(*args)` — the
+    Returns (parsed block, K3 arguments — `huffman_walk(*args)`: one
+    stream, the K tables and the selectors as table indices — the
     per-chunk table selectors int64[ccap], and the K tables' canonical
     symbol orders int32[K, ALPHABET])."""
     parsed = _parse_block(payload)
@@ -333,10 +334,10 @@ def walk_args(payload: bytes, cap: int, dev: torch.device):
     offs_p = np.full(ccap, tb, np.int32)
     offs_p[: bit_offsets.shape[0]] = bit_offsets
     sel_t = torch.from_numpy(sel_p).to(dev)
-    args = (torch.from_numpy(words.view(np.int32).copy()).to(dev),
-            torch.from_numpy(offs_p).to(dev), tb,
-            lim[sel_t].contiguous(), base[sel_t].contiguous(),
-            CHUNK_SYMS, MAX_LEN)
+    args = (torch.from_numpy(words.view(np.int32).copy()).to(dev)[None],
+            torch.tensor([tb], dtype=torch.int32, device=dev),
+            torch.from_numpy(offs_p).to(dev), lim, base,
+            sel_t.to(torch.int32), CHUNK_SYMS, MAX_LEN)
     return parsed, args, sel_t, ss
 
 

@@ -1,10 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled with nvcc for `sm_90a` into ONE
+Every `csrc/*.cu` file is compiled with nvcc for `sm_90a` into its own
 shared library with a plain C interface and loaded with ctypes (no
-PyTorch headers: a build takes seconds, not minutes).  The build runs at
-first use, never at import, into `tpulc_torch/_build/` (git-ignored),
-named by a hash of the sources and flags so an edited source rebuilds.
+PyTorch headers: a build takes seconds, not minutes).  The nvcc runs
+for all sources start together, so the build takes as long as the
+slowest file.  It runs at first use, never at import, into
+`tpulc_torch/_build/` (git-ignored); each library is named by a hash of
+its source, the headers and the flags, so an edited source rebuilds.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check()` raises on anything but 0, because a
@@ -19,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -32,10 +35,15 @@ _SIGNATURES = {
     "tplc_mtf_recency": [_P, _P, _I, _I, _P],
     "tplc_mtf_encode_lockstep": [_P, _P, _P, _P, _I, _I, _P],
     "tplc_mtf_lockstep": [_P, _P, _P, _P, _I, _I, _P],
-    "tplc_huffman_walk": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "tplc_huffman_walk": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I,
+                          _I, _I, _P],
+    "tplc_huffman_walk_v1": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P,
+                             _I, _I, _P],
+    "tplc_huffman_walk_flat": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
+                               _P],
 }
 
-_lib: ctypes.CDLL | None = None
+_lib: types.SimpleNamespace | None = None
 
 
 def _nvcc() -> str:
@@ -49,44 +57,71 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources() -> list[str]:
-    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
-                  if f.endswith(".cu") or f.endswith(".cuh"))
+def _sources() -> tuple[list[str], list[str]]:
+    names = sorted(os.listdir(_CSRC))
+    return ([os.path.join(_CSRC, f) for f in names if f.endswith(".cu")],
+            [os.path.join(_CSRC, f) for f in names if f.endswith(".cuh")])
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, building it on first use."""
+def _so_path(src: str, headers: list[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in [src, *headers]:
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + f.read())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(_BUILD, f"lib{stem}_{h.hexdigest()[:16]}.so")
+
+
+def library() -> types.SimpleNamespace:
+    """The C entry points of every kernel library, building on first use."""
     global _lib
     if _lib is not None:
         return _lib
-    srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        with open(s, "rb") as f:
-            h.update(os.path.basename(s).encode() + f.read())
+    srcs, headers = _sources()
     os.makedirs(_BUILD, exist_ok=True)
-    so = os.path.join(_BUILD, f"libtpulc_torch_{h.hexdigest()[:16]}.so")
-    if not os.path.exists(so):
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-        os.close(fd)
-        try:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[s for s in srcs if s.endswith(".cu")]]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
-            os.replace(tmp, so)
-        finally:
+    sos = [_so_path(s, headers) for s in srcs]
+    jobs = []
+    try:
+        for src, so in zip(srcs, sos):
+            if os.path.exists(so):
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+            os.close(fd)
+            jobs.append((src, so, tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        errors = []
+        for src, so, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{os.path.basename(src)} "
+                              f"({proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, so)
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+    finally:
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    lib = ctypes.CDLL(so)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    fns = {}
+    for so in sos:
+        dll = ctypes.CDLL(so)
+        for name, argtypes in _SIGNATURES.items():
+            if name in fns or not hasattr(dll, name):
+                continue
+            fn = getattr(dll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    missing = sorted(set(_SIGNATURES) - set(fns))
+    if missing:
+        raise RuntimeError(f"kernel entry points not found: {missing}")
+    _lib = types.SimpleNamespace(**fns)
+    return _lib
 
 
 def stream_of(t) -> int:

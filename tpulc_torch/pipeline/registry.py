@@ -1,7 +1,7 @@
 """Codec registry: the codec ids of `tpulc/pipeline/registry.py:12-18`
 (the container's codec byte), resolving to the port's drivers.
 
-Only `bz` and `store` are ported so far; the other ids resolve to a
+`store`, `huffman` and `bz` are ported so far; the other ids resolve to a
 `NotImplementedError` that names the ROADMAP item porting them, so a
 container written by tpulc with another codec is recognised, not
 misread.
@@ -29,7 +29,6 @@ _NAMES = {
 
 # codec id -> ROADMAP queue-1 item that ports it
 _NOT_PORTED = {
-    CODEC_HUFFMAN: "queue 1 item 9 (huffman codec)",
     CODEC_BSC: "queue 1 item 10 (bsc)",
     CODEC_LZSS: "queue 1 item 11 (LZ codecs)",
     CODEC_LZSS_CULZSS: "queue 1 item 11 (LZ codecs)",
@@ -53,6 +52,9 @@ def get_codec(name_or_id: str | int):
     cid = _NAMES[name_or_id] if isinstance(name_or_id, str) else name_or_id
     if cid == CODEC_STORE:
         from tpulc_torch.codecs import store as driver
+        return driver
+    if cid == CODEC_HUFFMAN:
+        from tpulc_torch.codecs.huffman import driver
         return driver
     if cid == CODEC_BZ:
         from tpulc_torch.codecs.bwt import driver

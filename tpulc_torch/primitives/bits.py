@@ -1,4 +1,5 @@
-"""Bit packing (port of `tpulc/primitives/bits.py:pack_bits`).
+"""Bit packing and peeking (port of `tpulc/primitives/bits.py`:
+`pack_bits`, `peek_bits`).
 
 Bit order (the whole framework's convention): MSB-first within a 32-bit
 word, words in increasing order.
@@ -11,6 +12,10 @@ most two words, fields are disjoint, so OR equals add, and two
 build the stream.  The arithmetic runs in int64 holding uint32 values
 (PyTorch's uint32 shifts are only partly supported), masked to 32 bits;
 the wire converts to little-endian uint32 at the end.
+
+tpulc's `byte_windows` / `peek_bits_bw` (a 4x-memory layout that saves
+one TPU gather per probe) are not ported: a GPU gather of the word pair
+is cheap.
 """
 
 from __future__ import annotations
@@ -21,29 +26,32 @@ M32 = 0xFFFFFFFF
 
 
 def pack_bits(codes: torch.Tensor, lengths: torch.Tensor, out_words: int):
-    """Pack variable-length codes into a dense MSB-first bitstream.
+    """Pack variable-length codes into dense MSB-first bitstreams.
 
     Args:
-      codes: integer [N], each code right-aligned in its low
+      codes: integer [..., N], each code right-aligned in its low
         `lengths[i]` bits (value < 2**lengths[i]; the OR-as-add assembly
         relies on it).
-      lengths: integer [N], bit length per code in [0, 32].
+      lengths: integer [..., N], bit length per code in [0, 32].
       out_words: output size in 32-bit words, with
-        ``out_words*32 >= sum(lengths)``.
+        ``out_words*32 >= sum(lengths)`` along the last axis.
+
+    Leading axes are independent streams (tpulc `vmap`s the 1-D form).
 
     Returns:
-      (words int64[out_words] holding uint32 values, total_bits int64
-      0-dim tensor) — bit-identical to tpulc's (uint32 words, int32).
+      (words int64[..., out_words] holding uint32 values, total_bits
+      int64[...]) — bit-identical to tpulc's (uint32 words, int32).
     """
     dev = codes.device
-    n = codes.shape[0]
+    lead = codes.shape[:-1]
+    n = codes.shape[-1]
     if n == 0:
-        return (torch.zeros(out_words, dtype=torch.int64, device=dev),
-                torch.zeros((), dtype=torch.int64, device=dev))
-    codes = codes.to(torch.int64) & M32
-    lengths = lengths.to(torch.int64)
-    off = torch.cumsum(lengths, 0) - lengths
-    total_bits = off[-1] + lengths[-1]
+        return (torch.zeros(*lead, out_words, dtype=torch.int64, device=dev),
+                torch.zeros(lead, dtype=torch.int64, device=dev))
+    codes = codes.reshape(-1, n).to(torch.int64) & M32
+    lengths = lengths.reshape(-1, n).to(torch.int64)
+    off = torch.cumsum(lengths, 1) - lengths
+    total_bits = off[:, -1] + lengths[:, -1]
     word = off >> 5
     bit = off & 31
     # field occupies bits [bit, bit+len) of `word`, spilling into word+1
@@ -55,8 +63,32 @@ def pack_bits(codes: torch.Tensor, lengths: torch.Tensor, out_words: int):
     lo = torch.where(live, lo, 0)
     hi = torch.where(live, hi, 0)
     # +2: a zero-length item at the very end may index out_words + 1
-    words = torch.zeros(out_words + 2, dtype=torch.int64, device=dev)
-    words.scatter_add_(0, word, lo)
-    words.scatter_add_(0, word + 1, hi)
-    return words[:out_words] & M32, total_bits
+    words = torch.zeros(codes.shape[0], out_words + 2, dtype=torch.int64,
+                        device=dev)
+    words.scatter_add_(1, word, lo)
+    words.scatter_add_(1, word + 1, hi)
+    return ((words[:, :out_words] & M32).reshape(*lead, out_words),
+            total_bits.reshape(lead))
 
+
+def peek_bits(words: torch.Tensor, bitpos: torch.Tensor,
+              width: int) -> torch.Tensor:
+    """Read `width` (1..32) bits at absolute MSB-first bit positions.
+
+    `words` is int64[W] holding uint32 values (as `pack_bits` returns);
+    `bitpos` holds non-negative positions.  Bits past the stream read as
+    zero (tpulc pads the stream with zero words instead).  Returns int64
+    values right-aligned in the low `width` bits.
+    """
+    W = words.shape[0]
+    pos = bitpos.to(torch.int64)
+    wi = pos >> 5
+    b = pos & 31
+
+    def word(i):
+        return torch.where(i < W, words[i.clamp(max=W - 1)], 0)
+
+    if W == 0:
+        return torch.zeros_like(pos)
+    merged = ((word(wi) << b) & M32) | (word(wi + 1) >> (32 - b))
+    return merged >> (32 - width)
