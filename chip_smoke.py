@@ -26,7 +26,24 @@ Phases (any failure exits non-zero before the last line is printed):
    again with kernel="v1" and "flat" (K7 and K8 counted the same way);
    pg1661 x 6 at 1 MiB equal to tpulc's container; MB/s from warm
    repeats, decode-only GB/s per decoder on device-resident parsed
-   input, the self-sync decode's time, and peak device memory.
+   input, the self-sync decode's time, and peak device memory;
+7. the group-rank coder's kernels (K5 model walk, K6 decode FSM) against
+   their plain versions on real grids at both bsc shapes: pg1661 x 6 at
+   4 MiB blocks (1,024 lanes after LZP) and the first 25 MiB block of
+   100 MB of word soup (25,600 lanes); bit-identical, timed as in
+   phase 3 (the plain versions once: they take seconds);
+8. the bsc -e2 main path, counted as in phase 4: pg1661 x 6 at 4 MiB
+   blocks (exact round trip, ratio 21.281, tpulc's sha256, K1, K2, K4,
+   K5 and K6 launched, the card's container equal to the CPU path's on
+   50 KB, MB/s from warm repeats), then 100,000,000 B of bench.py's
+   word soup at 25 MiB blocks (4 blocks, exact round trip, K5 and K6
+   launched once per block, MB/s, stage times, peak device memory).
+
+Every kernel entry carries its bound: the larger of the bytes it must
+move (each input read once, each output written once) over 3.35 TB/s
+and its integer operations over 67 T op/s (the H100 SXM figures of
+NVIDIA's data sheet), and, where one PyTorch call computes the same
+function (K1: `scatter_reduce_` "amax"), that call's time.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -55,6 +72,31 @@ HUFF_MAX_LEN = 12
 HUFF_BYTES = 59_030_504
 HUFF_SHA256 = "65530b4906eaf5f8098dbc2a2866e6ce41d43294cdbe438098a7428e78a555fb"
 HUFF_X6_SHA256 = "8ad209108c27f84d686c37ec34076dba64b2394f48f855d66632d9b582a88282"
+# bsc -e2 (bench.py's bsc_e2 setting) on pg1661 x 6 at 4 MiB blocks:
+# tpulc's container (JAX reference, CPU run)
+BSC_BLOCK = 4 << 20
+BSC_RATIO = 21.281
+BSC_SHA256 = "8fc81d25cff86f7dd3b5838e17d92333e3b04a8bb0731ae12d5baac9bc26e82b"
+# bsc -e2 at bsc's default 25 MiB blocks on bench.py's make_soup bytes
+SOUP_SIZE = 100_000_000
+SOUP_BLOCK = 25 << 20
+SOUP_SHA256 = "93286634ddbf920ee02839cd0a6640a9808ad85df88fdd3d2c402849534066b4"
+SOUP_WORDS = [
+    b"the", b"of", b"and", b"compression", b"lossless", b"entropy",
+    b"transform", b"block", b"sorting", b"data", b"parallel", b"encode",
+    b"decode", b"huffman", b"window", b"match", b"stream", b"symbol",
+]
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s; float32/int32
+# operations/s outside the tensor cores
+HBM_BPS = 3.35e12
+SCALAR_OPS = 67e12
+# integer operations per step, counted from the kernel sources: a K3/K7/
+# K8 symbol costs its L-deep length classifier plus ~10; a K5 event ~50
+# (model pick, family, mix, two adaptations, coarse select chain); a K6
+# event ~140 (contexts, model pick, mix, rANS step, adaptations, FSM)
+HUFF_OPS = 10
+K5_OPS = 50
+K6_OPS = 140
 
 
 def require(cond: bool, msg: str) -> None:
@@ -69,9 +111,47 @@ def corpus(here: str, size: int = CORPUS_SIZE) -> bytes:
     return (raw * (size // len(raw) + 1))[:size]
 
 
-def time_ms(torch, fn, reps: int = 5) -> float:
+def soup(size: int) -> bytes:
+    """bench.py's make_soup(size), vectorised: the same word draws from
+    default_rng(12345), one space after each word, cut to size."""
+    import numpy as np
+
+    rng = np.random.default_rng(12345)
+    lens = np.array([len(w) + 1 for w in SOUP_WORDS])
+    idx = rng.integers(len(SOUP_WORDS), size=size // 3 + 1)
+    ln = lens[idx]
+    end = np.cumsum(ln)
+    n = int(np.searchsorted(end, size)) + 1
+    idx, ln, end = idx[:n], ln[:n], end[:n]
+    table = np.full((len(SOUP_WORDS), lens.max()), ord(" "), np.uint8)
+    for i, w in enumerate(SOUP_WORDS):
+        table[i, : len(w)] = np.frombuffer(w, np.uint8)
+    out = np.empty(int(end[-1]), np.uint8)
+    start = end - ln
+    for k in range(lens.max()):
+        m = ln > k
+        out[start[m] + k] = table[idx[m], k]
+    return out[:size].tobytes()
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the scalar rate, whichever is larger."""
+    tb, to = nbytes / HBM_BPS, ops / SCALAR_OPS
+    return {"bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def nbytes(x) -> int:
+    if isinstance(x, (tuple, list)):
+        return sum(nbytes(y) for y in x)
+    return x.numel() * x.element_size() if hasattr(x, "numel") else 0
+
+
+def time_ms(torch, fn, reps: int = 5, warm: bool = True) -> float:
     """Median CUDA-event time of fn() in ms, after one warm-up call."""
-    fn()
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -90,24 +170,37 @@ def max_abs_err(torch, got, want) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
-def check_kernels(torch, checks) -> list[dict]:
-    """Each (name, source, replaces, kernel, plain, args, shape) against
-    its plain version on the same card tensors; launches are filled in
-    from the main path's run later."""
+def check_kernels(torch, checks: list[dict]) -> list[dict]:
+    """Each check (name, src, replaces, kern, plain, args, shape, ops,
+    and optionally bytes, library, plain_reps) against its plain version
+    on the same card tensors.  `bytes` defaults to every tensor argument
+    read once plus the output written once; `library` is one PyTorch
+    call computing the same function, timed beside the kernel.
+    Launches are filled in from the main path's run later."""
     kernels = []
-    for name, src, replaces, kern, plain, args, shape in checks:
+    for c in checks:
+        kern, plain, args = c["kern"], c["plain"], c["args"]
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
+        moved = c.get("bytes") or nbytes(list(args)) + nbytes(got)
         del got, want
         ms = time_ms(torch, lambda: kern(*args))
-        plain_ms = time_ms(torch, lambda: plain(*args))
-        print(f"kernel {name}: shape {shape} max_abs_err {err} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
-        require(err == 0, f"{name} disagrees with its plain version")
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": 0,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        reps = c.get("plain_reps", 5)
+        plain_ms = time_ms(torch, lambda: plain(*args), reps, reps > 1)
+        library_ms = None
+        if c.get("library") is not None:
+            library_ms = time_ms(torch, c["library"])
+        b = bound(moved, c["ops"])
+        print(f"kernel {c['name']}: shape {c['shape']} max_abs_err {err} "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+              f"{library_ms} ms bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}: {moved} B, {c['ops']} ops)", flush=True)
+        require(err == 0, f"{c['name']} disagrees with its plain version")
+        kernels.append({"name": c["name"], "route": "cuda",
+                        "source": c["src"], "replaces": c["replaces"],
+                        "launches": 0, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, **b, "library_ms": library_ms})
     return kernels
 
 
@@ -162,6 +255,10 @@ def main() -> int:
     cuda_lib.library()
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
           f"{' '.join(cuda_lib.NVCC_FLAGS)})", flush=True)
+    for src, log in sorted(cuda_lib.build_log.items()):
+        for line in log.splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                print(f"ptxas {src}: {line.strip()}")
 
     # 3. kernels vs plain at the main path's shapes
     data = corpus(here)
@@ -178,21 +275,42 @@ def main() -> int:
     ).payloads[0]
     _, walk, _, _ = driver.walk_args(payload, cap, dev)
     mtf_shape = "x".join(map(str, d.shape))
+    # K1's library twin: one scatter_reduce_ "amax" of the step index
+    # into a -1-filled [nchunks, 256]
+    d_long = d.long()
+    iota = torch.arange(d.shape[1], device=dev,
+                        dtype=torch.int32).expand_as(d).contiguous()
+
+    def k1_library():
+        out = torch.full((d.shape[0], 256), -1, dtype=torch.int32,
+                         device=dev)
+        return out.scatter_reduce_(1, d_long, iota, "amax",
+                                   include_self=True)
+
+    require(torch.equal(k1_library(), mk.mtf_recency(d)),
+            "scatter_reduce_ differs from K1")
+    walk_syms = walk[2].shape[0] * walk[6]
     kernels = check_kernels(torch, [
-        ("mtf_recency", "tpulc_torch/csrc/mtf.cu",
-         "tpulc/primitives/mtf_pallas.py:215",
-         mk.mtf_recency, mk.mtf_recency_plain, (d,), mtf_shape),
-        ("mtf_encode_lockstep", "tpulc_torch/csrc/mtf.cu",
-         "tpulc/primitives/mtf_pallas.py:156",
-         mk.mtf_encode_lockstep, mk.mtf_encode_lockstep_plain, (table0, d),
-         mtf_shape),
-        ("huffman_walk", "tpulc_torch/csrc/huffman_walk.cu",
-         "tpulc/codecs/huffman/pallas_decode.py:362",
-         dk.huffman_walk, dk.huffman_walk_plain, walk,
-         f"{walk[2].shape[0]}x{walk[6]}"),
-        ("mtf_lockstep", "tpulc_torch/csrc/mtf.cu",
-         "tpulc/primitives/mtf_pallas.py:89",
-         mk.mtf_lockstep, mk.mtf_lockstep_plain, (table0, ranks), mtf_shape),
+        dict(name="mtf_recency", src="tpulc_torch/csrc/mtf.cu",
+             replaces="tpulc/primitives/mtf_pallas.py:215",
+             kern=mk.mtf_recency, plain=mk.mtf_recency_plain, args=(d,),
+             shape=mtf_shape, ops=d.numel() + 256 * d.shape[0],
+             library=k1_library),
+        dict(name="mtf_encode_lockstep", src="tpulc_torch/csrc/mtf.cu",
+             replaces="tpulc/primitives/mtf_pallas.py:156",
+             kern=mk.mtf_encode_lockstep, plain=mk.mtf_encode_lockstep_plain,
+             args=(table0, d), shape=mtf_shape,
+             ops=int((2 * ranks.long() + 2).sum())),
+        dict(name="huffman_walk", src="tpulc_torch/csrc/huffman_walk.cu",
+             replaces="tpulc/codecs/huffman/pallas_decode.py:362",
+             kern=dk.huffman_walk, plain=dk.huffman_walk_plain, args=walk,
+             shape=f"{walk[2].shape[0]}x{walk[6]}",
+             ops=walk_syms * (walk[7] + HUFF_OPS)),
+        dict(name="mtf_lockstep", src="tpulc_torch/csrc/mtf.cu",
+             replaces="tpulc/primitives/mtf_pallas.py:89",
+             kern=mk.mtf_lockstep, plain=mk.mtf_lockstep_plain,
+             args=(table0, ranks), shape=mtf_shape,
+             ops=int((ranks.long() + 2).sum())),
     ])
 
     # 4. the main path, counted
@@ -257,6 +375,7 @@ def main() -> int:
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         }}))
     huffman_phases(torch, here, dev, kernels)
+    bsc_phases(torch, here, dev, kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -292,18 +411,22 @@ def huffman_phases(torch, here: str, dev, kernels: list) -> None:
     wargs, _ = hdec.walk_args(*group, chunk, L)
     fargs, _ = hdec.flat_args(*group, chunk, L)
     shape = f"{wargs[2].shape[0]}x{chunk}"
+    ops = wargs[2].shape[0] * chunk * (L + HUFF_OPS)
     kernels += check_kernels(torch, [
-        ("huffman_walk_packed", "tpulc_torch/csrc/huffman_walk.cu",
-         "tpulc/codecs/huffman/pallas_decode.py:362",
-         partial(dk.huffman_walk, packed=True),
-         partial(dk.huffman_walk_plain, packed=True), wargs, shape),
-        ("huffman_walk_v1", "tpulc_torch/csrc/huffman_v1.cu",
-         "tpulc/codecs/huffman/pallas_decode.py:143",
-         dk.huffman_walk_v1, dk.huffman_walk_v1_plain, wargs, shape),
-        ("huffman_walk_flat", "tpulc_torch/csrc/huffman_flat.cu",
-         "tpulc/codecs/huffman/pallas_decode.py:560",
-         dk.huffman_walk_flat, dk.huffman_walk_flat_plain, fargs,
-         f"{fargs[1].shape[0]}x{chunk}"),
+        dict(name="huffman_walk_packed", src="tpulc_torch/csrc/huffman_walk.cu",
+             replaces="tpulc/codecs/huffman/pallas_decode.py:362",
+             kern=partial(dk.huffman_walk, packed=True),
+             plain=partial(dk.huffman_walk_plain, packed=True), args=wargs,
+             shape=shape, ops=ops),
+        dict(name="huffman_walk_v1", src="tpulc_torch/csrc/huffman_v1.cu",
+             replaces="tpulc/codecs/huffman/pallas_decode.py:143",
+             kern=dk.huffman_walk_v1, plain=dk.huffman_walk_v1_plain,
+             args=wargs, shape=shape, ops=ops),
+        dict(name="huffman_walk_flat", src="tpulc_torch/csrc/huffman_flat.cu",
+             replaces="tpulc/codecs/huffman/pallas_decode.py:560",
+             kern=dk.huffman_walk_flat, plain=dk.huffman_walk_flat_plain,
+             args=fargs, shape=f"{fargs[1].shape[0]}x{chunk}",
+             ops=fargs[1].shape[0] * chunk * (L + HUFF_OPS)),
     ])
     del wargs, fargs
 
@@ -374,6 +497,164 @@ def huffman_phases(torch, here: str, dev, kernels: list) -> None:
         "timing": "median of 3 warm runs, host clock, synchronized",
         "peak_mem_bytes": peak,
     }}), flush=True)
+
+
+def grc_grid(torch, bsc, data: bytes, block: int, dev):
+    """K5's inputs as the bsc -e2 path builds them for the first block
+    of `data` (filter, LZP, masked BWT + MTF, lane pre-pass, event grid,
+    wired inits) -> (gmb, init, cinit, nsteps, lane_bits)."""
+    import numpy as np
+
+    from tpulc_torch.codecs.bsclike import grc
+    from tpulc_torch.codecs.bsclike.filters import apply_filter_np
+    from tpulc_torch.codecs.bwt.masked import forward_ranks_anchored
+    from tpulc_torch.gold.lzp import lzp_encode
+
+    blk = np.frombuffer(data[:block], np.uint8)
+    fb = bsc._filter_byte_for(blk, "auto")
+    if fb:
+        blk = apply_filter_np(blk, fb)
+    stage = np.frombuffer(lzp_encode(blk) or blk.tobytes(), np.uint8)
+    padded = np.zeros(bsc._tcap_for(stage.shape[0], bsc._cap_for(block)),
+                      np.uint8)
+    padded[: stage.shape[0]] = stage
+    ranks, _, _, _ = forward_ranks_anchored(
+        torch.from_numpy(padded).to(dev), stage.shape[0], bsc.ANCHOR_STRIDE)
+    lane_bits, _ = grc.grc_lane_bits(ranks, stage.shape[0])
+    nsteps = int(lane_bits.max())
+    gmb, _ = grc._binarize(ranks, stage.shape[0], grc.bucket_bits(nsteps))
+    init, cinit, _ = grc._stats_quant(gmb)
+    return gmb, init.contiguous(), cinit.contiguous(), nsteps, lane_bits
+
+
+def bsc_phases(torch, here: str, dev, kernels: list) -> None:
+    """Phases 7 and 8; appends K5 and K6 (soup shape) to `kernels`."""
+    from tpulc_torch.codecs.bsclike import driver as bsc
+    from tpulc_torch.codecs.bsclike import grc
+    from tpulc_torch.codecs.bsclike import grc_kernels as gk
+    from tpulc_torch.pipeline.container import Container
+    from tpulc_torch.primitives import mtf_kernels as mk
+    from tpulc_torch.utils import timing
+
+    pg6 = corpus(here)
+    big = soup(SOUP_SIZE)
+    require(hashlib.sha256(big).hexdigest() == SOUP_SHA256,
+            "the word soup differs from bench.py's make_soup")
+
+    # 7. K5 and K6 against their plain versions on both shapes' grids
+    for label, data, block in (("pg1661x6_4MiB", pg6, BSC_BLOCK),
+                               ("soup_25MiB", big, SOUP_BLOCK)):
+        gmb, init, cinit, nsteps, lane_bits = grc_grid(torch, bsc, data,
+                                                       block, dev)
+        W, L = gmb.shape
+        payload = Container.from_bytes(bsc.compress(
+            data[:block], block_size=block, coder=2, device="cuda")
+        ).payloads[0]
+        require(payload[bsc._HEAD.size - 1] == bsc.CODER_GRC,
+                f"{label}: block 0 is not a group-rank payload")
+        nwords = int.from_bytes(payload[16:20], "little")
+        _, k6 = bsc.grc_block_args(payload, block, dev)
+        lanes = k6[0].shape[0]
+        entries = check_kernels(torch, [
+            dict(name="grc_walk_probs", src="tpulc_torch/csrc/grc_walk.cu",
+                 replaces="tpulc/codecs/bsclike/grc_pallas.py:171",
+                 kern=gk.grc_walk_probs, plain=gk.grc_walk_probs_plain,
+                 args=(gmb, init, cinit, nsteps), shape=f"{W}x{L}",
+                 bytes=4 * (nsteps * L + W * L + grc.NM + grc.NFAM),
+                 ops=K5_OPS * nsteps * L, plain_reps=1),
+            dict(name="grc_decode_walk", src="tpulc_torch/csrc/grc_decode.cu",
+                 replaces="tpulc/codecs/bsclike/grc_pallas.py:438",
+                 kern=gk.grc_decode_walk, plain=gk.grc_decode_walk_plain,
+                 args=k6, shape=f"{lanes}x{k6[0].shape[1]}",
+                 bytes=2 * nwords + 4 * (lanes + grc.NM + grc.NFAM)
+                 + 4 * lanes * grc.GCHUNK,
+                 ops=K6_OPS * int(lane_bits.sum()), plain_reps=1),
+        ])
+        print(json.dumps({f"grc_kernels_{label}": {
+            "lanes": L, "grid_width": W, "nsteps": nsteps,
+            "events": int(lane_bits.sum()), "words": nwords,
+            "entries": entries}}), flush=True)
+        del gmb, k6
+    kernels += entries   # the full-width (soup) shape
+
+    # 8. the bsc -e2 main path, counted
+    path = {"mtf_recency": mk.mtf_recency,
+            "mtf_encode_lockstep": mk.mtf_encode_lockstep,
+            "mtf_lockstep": mk.mtf_lockstep,
+            "grc_walk_probs": gk.grc_walk_probs,
+            "grc_decode_walk": gk.grc_decode_walk}
+
+    def round_trip(data, block):
+        c = bsc.compress(data, block_size=block, coder=2, device="cuda")
+        return c, bsc.decompress(c, device="cuda")
+
+    def warm(data, block, reps):
+        cs, ds, stages = [], [], None
+        for i in range(reps):
+            timer = timing.enable() if i == 0 else None
+            c, tc = synced(torch, lambda: bsc.compress(
+                data, block_size=block, coder=2, device="cuda"))
+            back, td = synced(torch, lambda: bsc.decompress(c, device="cuda"))
+            if timer is not None:
+                stages = timer.report(total_bytes=len(data))
+                timing.disable()
+            require(back == data, "warm round trip is not exact")
+            cs.append(tc)
+            ds.append(td)
+        c_s, d_s = statistics.median(cs), statistics.median(ds)
+        mb = len(data) / 1e6
+        return {"compress_s": c_s, "decompress_s": d_s,
+                "compress_MBps": mb / c_s, "decompress_MBps": mb / d_s,
+                "roundtrip_MBps": mb / (c_s + d_s),
+                "timing": f"median of {reps} warm runs, host clock, "
+                          "synchronized",
+                "stages_first_warm_run": stages}
+
+    (comp, back), dt, counts = counted(torch, path,
+                                       lambda: round_trip(pg6, BSC_BLOCK))
+    sha = hashlib.sha256(comp).hexdigest()
+    ratio = len(pg6) / len(comp)
+    print(f"bsc -e2 pg1661 x 6: {dt:.3f} s, {len(comp)} B, sha256 {sha}, "
+          f"launches {counts}", flush=True)
+    require(back == pg6, "bsc round trip is not exact")
+    require(round(ratio, 3) == BSC_RATIO, f"bsc ratio {ratio} != {BSC_RATIO}")
+    require(sha == BSC_SHA256, "bsc container differs from tpulc's")
+    require(all(v > 0 for v in counts.values()),
+            f"a kernel of the bsc path never launched: {counts}")
+    small = pg6[:50_000]
+    on_card = bsc.compress(small, block_size=1 << 16, coder=2, device="cuda")
+    on_cpu = bsc.compress(small, block_size=1 << 16, coder=2, device="cpu")
+    require(on_card == on_cpu, "bsc card and CPU containers differ")
+    require(bsc.decompress(on_cpu, device="cuda") == small,
+            "card fails to decode the CPU bsc container")
+    print(json.dumps({"bsc_e2_pg1661x6": {
+        "input_bytes": len(pg6), "block_size": BSC_BLOCK,
+        "container_bytes": len(comp), "ratio": ratio, "sha256": sha,
+        "sha256_equals_tpulc": sha == BSC_SHA256, "launches": counts,
+        "first_roundtrip_s": dt, **warm(pg6, BSC_BLOCK, 3)}}), flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    (comp, back), dt, counts = counted(torch, path,
+                                       lambda: round_trip(big, SOUP_BLOCK))
+    peak = torch.cuda.max_memory_allocated()
+    nblocks = len(Container.from_bytes(comp).payloads)
+    print(f"bsc -e2 soup 100 MB: {dt:.3f} s, {len(comp)} B, {nblocks} "
+          f"blocks, launches {counts}", flush=True)
+    require(back == big, "bsc soup round trip is not exact")
+    require(nblocks == 4, f"soup gave {nblocks} blocks, not 4")
+    require(counts["grc_walk_probs"] == nblocks
+            and counts["grc_decode_walk"] == nblocks,
+            f"K5/K6 not launched once per block: {counts}")
+    for k in kernels:
+        if k["name"] in ("grc_walk_probs", "grc_decode_walk"):
+            k["launches"] = counts[k["name"]]
+    reps = 3 if dt < 60 else 1
+    print(json.dumps({"bsc_e2_soup100MB": {
+        "input_bytes": SOUP_SIZE, "block_size": SOUP_BLOCK,
+        "blocks": nblocks, "container_bytes": len(comp),
+        "ratio": SOUP_SIZE / len(comp), "launches": counts,
+        "first_roundtrip_s": dt, "peak_mem_bytes": peak,
+        **warm(big, SOUP_BLOCK, reps)}}), flush=True)
 
 
 if __name__ == "__main__":

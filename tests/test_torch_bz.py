@@ -93,12 +93,13 @@ def test_store_matches_tpulc():
 
 
 def test_registry_serves_bz_and_store_only():
-    """bz, store and (since the huffman slice) huffman resolve; the
-    codecs not ported yet name their ROADMAP item."""
+    """bz, store and (since the huffman and bsc slices) huffman and bsc
+    resolve; the codecs not ported yet name their ROADMAP item."""
     assert get_codec("bz") is driver
     assert get_codec(0) is store
     assert get_codec("huffman").__name__ == "tpulc_torch.codecs.huffman.driver"
-    for name in ("lzss", "culzss", "bsc", "bzip2"):
+    assert get_codec("bsc").__name__ == "tpulc_torch.codecs.bsclike.driver"
+    for name in ("lzss", "culzss", "bzip2"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_codec(name)
 

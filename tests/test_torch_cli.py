@@ -1,5 +1,6 @@
 """The port's CLI against tpulc's: given tpulc's argv (no -c, no -b: both
-default to huffman with 1 MiB blocks; and `-c bz -b 65536`), it writes
+default to huffman with 1 MiB blocks; `-c bz -b 65536`; `-c bsc -e 2
+-b 65536`), it writes
 tpulc's bytes, and `info` reports the same on either package's output.
 The port's argv adds `--device cpu`, its only option tpulc lacks,
 because this check runs without a card."""
@@ -15,8 +16,9 @@ from tpulc_torch.cli.main import main as port_main
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("extra", [[], ["-c", "bz", "-b", "65536"]],
-                         ids=["defaults", "bz"])
+@pytest.mark.parametrize("extra", [[], ["-c", "bz", "-b", "65536"],
+                                   ["-c", "bsc", "-e", "2", "-b", "65536"]],
+                         ids=["defaults", "bz", "bsc_e2"])
 def test_same_argv_same_bytes(tmp_path, capsys, extra):
     src = tmp_path / "in.txt"
     with open("tests/data/pg1661.txt", "rb") as f:
@@ -34,7 +36,7 @@ def test_same_argv_same_bytes(tmp_path, capsys, extra):
         assert main(["info", "-i", str(path)]) == 0
         infos.append(json.loads(capsys.readouterr().out))
     assert infos[0] == infos[1] == infos[2]
-    assert infos[0]["codec"] == ("bz" if extra else "huffman")
+    assert infos[0]["codec"] == (extra[1] if extra else "huffman")
     assert infos[0]["block_size"] == (65536 if extra else 1 << 20)
     back = tmp_path / "back.txt"
     assert port_main(["decompress", "-i", str(theirs), "-o", str(back),

@@ -134,3 +134,77 @@ def test_bz_on_card_matches_cpu(cuda, name):
     assert on_card == driver.compress(data, block_size=bs, device="cpu")
     assert driver.decompress(on_card, device="cuda") == data
     assert driver.decompress(on_card, device="cpu") == data
+
+
+def _grc_case(seed, cap=8192):
+    """A real group-rank grid and stream: MTF ranks of a BWT'd text
+    block, with m < cap so the last lanes are short or empty."""
+    from tpulc_torch.codecs.bsclike import grc
+    from tpulc_torch.codecs.bwt.masked import forward_ranks_anchored
+
+    with open("tests/data/pg1661.txt", "rb") as f:
+        raw = f.read()[seed * 10000: seed * 10000 + cap - 700]
+    block = torch.zeros(cap, dtype=torch.uint8)
+    block[: len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    ranks, _, _, _ = forward_ranks_anchored(block, len(raw), 1024)
+    lb, _ = grc.grc_lane_bits(ranks, len(raw))
+    nsteps = int(lb.max())
+    W = grc.bucket_bits(nsteps)
+    gmb, _ = grc._binarize(ranks, len(raw), W)
+    init, cinit, _ = grc._stats_quant(gmb)
+    enc = grc.grc_encode(ranks, len(raw), W)
+    return ranks, len(raw), gmb, init, cinit, nsteps, enc
+
+
+def test_k5_equals_plain(cuda):
+    from tpulc_torch.codecs.bsclike import grc_kernels as gk
+
+    _, _, gmb, init, cinit, nsteps, _ = _grc_case(1)
+    want = gk.grc_walk_probs_plain(gmb, init, cinit, nsteps)
+    n = gk.grc_walk_probs.launches
+    got = gk.grc_walk_probs(*_on(cuda, (gmb, init, cinit)), nsteps)
+    torch.cuda.synchronize()
+    assert gk.grc_walk_probs.launches == n + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["stream", "cut"])
+def test_k6_equals_plain(cuda, cut):
+    """On a real stream, and on the same stream cut to 7 word columns
+    and a third of its steps (clamped reads, early stop)."""
+    from tpulc_torch.codecs.bsclike import grc_kernels as gk
+
+    ranks, m, _, _, _, nsteps, enc = _grc_case(2)
+    words, _, states, inits, cinits, _ = enc
+    w16 = words.to(torch.int16) if not cut else \
+        words[:, :7].contiguous().to(torch.int16)
+    s32 = torch.where(states >= 1 << 31, states - (1 << 32),
+                      states).to(torch.int32)
+    steps = nsteps // 3 if cut else nsteps
+    args = (w16, s32, inits.int(), cinits.int())
+    want = gk.grc_decode_walk_plain(*args, m, steps, 1024)
+    n = gk.grc_decode_walk.launches
+    got = gk.grc_decode_walk(*_on(cuda, args), m, steps, 1024)
+    torch.cuda.synchronize()
+    assert gk.grc_decode_walk.launches == n + 1
+    assert torch.equal(got.cpu(), want)
+    if not cut:
+        assert torch.equal(want.reshape(-1)[:m], ranks[:m])
+
+
+@pytest.mark.parametrize("name", ["pg1661_50k", "records", "tiny"])
+def test_bsc_on_card_matches_cpu(cuda, name):
+    """The card writes the CPU path's bsc -e2 bytes and both decode
+    them."""
+    from tpulc_torch.codecs.bsclike import driver as bsc
+
+    with open("tests/data/pg1661.txt", "rb") as f:
+        text = f.read(50000)
+    rec = (np.tile(np.arange(12, dtype=np.uint8), 3000)
+           + np.random.default_rng(3).integers(0, 3, 36000).astype(np.uint8))
+    data = {"pg1661_50k": text, "records": rec.tobytes(),
+            "tiny": b"x"}[name]
+    on_card = bsc.compress(data, block_size=1 << 16, coder=2, device="cuda")
+    assert on_card == bsc.compress(data, block_size=1 << 16, coder=2,
+                                   device="cpu")
+    assert bsc.decompress(on_card, device="cuda") == data

@@ -1,0 +1,226 @@
+"""The port's group-rank coder (`tpulc_torch.codecs.bsclike.grc` and the
+plain versions of K5 and K6 in `grc_kernels`) against tpulc's on the
+same numpy rank streams: every integer output equal (tolerance 0).
+
+tpulc's Pallas walks run in interpret mode, as `tests/test_grc.py`
+runs them; the port's plain versions are what its wrappers run for CPU
+tensors."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpulc.codecs.bsclike import grc as tg
+from tpulc.codecs.bsclike import grc_pallas as tgp
+from tpulc.codecs.bsclike.rans_adaptive import bucket_bits as t_bucket_bits
+from tpulc_torch.codecs.bsclike import grc as pg
+from tpulc_torch.codecs.bsclike import grc_kernels as pk
+
+torch.set_num_threads(1)
+
+# tpulc calls these inside its jitted encoder; jit them here too
+_t_binarize = jax.jit(tg._binarize, static_argnames=("W", "chunk", "bs"))
+_t_stats_quant = jax.jit(tg._stats_quant)
+_t_walk_probs = jax.jit(tg._walk_probs)
+
+
+def _mk_ranks(n, seed=0, p_run=0.3, p_rank=0.5):
+    """Copy of `tests/test_grc.py:_mk_ranks`."""
+    rng = np.random.default_rng(seed)
+    r = np.zeros(n, np.int32)
+    i = 0
+    while i < n:
+        i += int(rng.geometric(p_run))
+        if i < n:
+            r[i] = int(np.clip(rng.geometric(p_rank), 1, 255))
+            i += 1
+    return r
+
+
+CASES = {
+    "dense": dict(p_run=0.9, p_rank=0.3),
+    "sparse": dict(p_run=0.05, p_rank=0.7),
+    "mixed": dict(p_run=0.3, p_rank=0.5),
+}
+
+
+def _ranks(name, cap=4096, m=3777):
+    r = _mk_ranks(cap, seed=sorted(CASES).index(name) * 101 + 5,
+                  **CASES[name])
+    r[m:] = 0
+    return r, m
+
+
+def _extreme(name, cap=2048):
+    return {
+        "allzero": np.zeros(cap, np.int32),
+        "allmax": np.full(cap, 255, np.int32),
+        "alternate": np.where(np.arange(cap) % 2 == 0, 1, 2).astype(np.int32),
+    }[name], cap
+
+
+def _stream(name):
+    return _extreme(name) if name in ("allzero", "allmax", "alternate") \
+        else _ranks(name)
+
+
+STREAMS = [*CASES, "allzero", "allmax", "alternate"]
+
+
+@pytest.mark.parametrize("name", STREAMS)
+def test_grc_encode_equals_tpulc(name):
+    ranks, m = _stream(name)
+    lb, ns = tg.grc_lane_bits(jnp.asarray(ranks), jnp.int32(m))
+    plb, pns = pg.grc_lane_bits(torch.from_numpy(ranks), m)
+    assert np.array_equal(plb.numpy(), np.asarray(lb)) and pns == int(ns)
+    maxbits = int(plb.max())
+    W = t_bucket_bits(max(maxbits, 1))
+    assert pg.bucket_bits(max(maxbits, 1)) == W
+    ref = tg.grc_encode(jnp.asarray(ranks), jnp.int32(m), W)
+    got = pg.grc_encode(torch.from_numpy(ranks), m, W)
+    for a, b, what in zip(ref, got, ("words", "counts", "states", "inits",
+                                     "cinits", "tot")):
+        assert np.array_equal(b.numpy().astype(np.int64),
+                              np.asarray(a).astype(np.int64)), what
+    if name in CASES:  # the extreme streams' decodes run 20k steps
+        dec = pg.grc_decode(got[0], got[2], m, got[3], got[4], maxbits,
+                            ranks.shape[0])
+        assert np.array_equal(dec.numpy()[:m], ranks[:m])
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_binarize_and_stats_equal_tpulc(name):
+    """The event grid (port: time-major) equals tpulc's with the full
+    start bucket and with a bucket below cap; so do the wired inits."""
+    ranks, m = _ranks(name)
+    lb, ns = pg.grc_lane_bits(torch.from_numpy(ranks), m)
+    W = pg.bucket_bits(max(int(lb.max()), 1))
+    gmb, lane_bits = pg._binarize(torch.from_numpy(ranks), m, W)
+    assert np.array_equal(lane_bits.numpy(), lb.numpy())
+    bs = 1 << max(10, (ns - 1).bit_length())
+    assert bs < ranks.shape[0]
+    for b in (None, bs):
+        tgmb, tlb = _t_binarize(jnp.asarray(ranks), jnp.int32(m), W=W, bs=b)
+        assert np.array_equal(gmb.T.numpy(), np.asarray(tgmb))
+        assert np.array_equal(lane_bits.numpy(), np.asarray(tlb))
+    ti, tc, tt = _t_stats_quant(tgmb)
+    pi, pc, pt = pg._stats_quant(gmb)
+    assert np.array_equal(pi.numpy(), np.asarray(ti))
+    assert np.array_equal(pc.numpy(), np.asarray(tc))
+    assert np.array_equal(pt.numpy(), np.asarray(tt))
+
+
+def _walk_inputs(name):
+    ranks, m = _ranks(name)
+    lb, _ = pg.grc_lane_bits(torch.from_numpy(ranks), m)
+    nsteps = int(lb.max())
+    W = pg.bucket_bits(nsteps)
+    gmb, _ = pg._binarize(torch.from_numpy(ranks), m, W)
+    init, cinit, _ = pg._stats_quant(gmb)
+    return ranks, m, gmb, init, cinit, nsteps, W
+
+
+@pytest.mark.parametrize("name", ["dense", "mixed"])
+def test_walk_probs_plain_equals_tpulc_walks(name):
+    """K5's plain version against tpulc's XLA walk (rows < nsteps, the
+    rows its rANS reads) and its Pallas kernel in interpret mode on the
+    kernel's padded grid (every row)."""
+    _, _, gmb, init, cinit, nsteps, W = _walk_inputs(name)
+    L = gmb.shape[1]
+    probs = pk.grc_walk_probs_plain(gmb, init, cinit, nsteps)
+    assert torch.equal(probs, pk.grc_walk_probs(gmb, init, cinit, nsteps))
+    assert not probs[nsteps:].any()
+    xla = np.asarray(_t_walk_probs(
+        jnp.asarray(gmb.T.numpy()), jnp.asarray(init.numpy()),
+        jnp.asarray(cinit.numpy()),
+        jnp.full((L,), nsteps, jnp.int32))).astype(np.int64)
+    assert np.array_equal(probs.numpy()[:nsteps].T, xla[:, :nsteps])
+    Wp = -(-W // tgp.T_BLOCK) * tgp.T_BLOCK
+    Lp = -(-L // tgp.NL) * tgp.NL
+    gp = np.zeros((Wp, Lp), np.int32)
+    gp[:W, :L] = gmb.numpy()
+    pallas = tgp.grc_walk_probs_pallas(
+        jnp.asarray(gp), jnp.asarray(init.numpy()),
+        jnp.asarray(cinit.numpy()), jnp.int32(nsteps), interpret=True)
+    ours = pk.grc_walk_probs_plain(torch.from_numpy(gp), init, cinit, nsteps)
+    assert np.array_equal(ours.numpy(), np.asarray(pallas))
+
+
+@pytest.mark.parametrize("name", ["sparse", "mixed"])
+def test_decode_walk_plain_equals_tpulc_decoders(name):
+    """K6's plain version against tpulc's XLA decoder and its Pallas
+    kernel in interpret mode: the whole [cap] output."""
+    ranks, m = _ranks(name)
+    cap = ranks.shape[0]
+    maxbits = int(pg.grc_lane_bits(torch.from_numpy(ranks), m)[0].max())
+    words, counts, states, inits, cinits, _ = tg.grc_encode(
+        jnp.asarray(ranks), jnp.int32(m), t_bucket_bits(maxbits))
+    args = (words, counts, states, jnp.int32(m), inits, cinits,
+            jnp.int32(maxbits), cap)
+    xla = np.asarray(tg.grc_decode(*args))
+    pallas = np.asarray(tgp.grc_decode_pallas(*args, interpret=True))
+    ours = pg.grc_decode(torch.from_numpy(np.asarray(words).astype(np.int32)),
+                         torch.from_numpy(np.asarray(states).astype(np.int64)),
+                         m, torch.from_numpy(np.asarray(inits).astype(np.int32)),
+                         torch.from_numpy(np.asarray(cinits).astype(np.int32)),
+                         maxbits, cap)
+    assert np.array_equal(ours.numpy(), xla)
+    assert np.array_equal(ours.numpy(), pallas)
+    assert np.array_equal(ours.numpy()[:m], ranks[:m])
+
+
+def test_decode_walk_clamps_reads_and_stops_at_nsteps():
+    """A stream cut short: reads clamp at the last word column, lanes
+    stop after nsteps, and the plain version equals tpulc's XLA decoder
+    on the same truncated words."""
+    ranks, m = _ranks("mixed")
+    cap = ranks.shape[0]
+    maxbits = int(pg.grc_lane_bits(torch.from_numpy(ranks), m)[0].max())
+    words, counts, states, inits, cinits, _ = tg.grc_encode(
+        jnp.asarray(ranks), jnp.int32(m), t_bucket_bits(maxbits))
+    cut = np.asarray(words)[:, :7]
+    steps = maxbits // 3
+    xla = np.asarray(tg.grc_decode(jnp.asarray(cut), counts, states,
+                                   jnp.int32(m), inits, cinits,
+                                   jnp.int32(steps), cap))
+    ours = pk.grc_decode_walk_plain(
+        torch.from_numpy(np.ascontiguousarray(cut).view(np.int16)),
+        torch.from_numpy(np.asarray(states).view(np.int32).copy()),
+        torch.from_numpy(np.asarray(inits).astype(np.int32)),
+        torch.from_numpy(np.asarray(cinits).astype(np.int32)), m, steps,
+        pg.GCHUNK)
+    assert np.array_equal(ours.numpy().reshape(-1), xla)
+
+
+def test_inits_pack_round_trip_equals_tpulc():
+    rng = np.random.default_rng(3)
+    tot = (rng.random(pg.NM) < 0.2).astype(np.int64) * 5
+    ones = (tot > 0) * 2
+    inits = pg.quantize_inits(ones, tot)
+    assert np.array_equal(inits, tg.quantize_inits(ones, tot))
+    blob = pg.pack_inits(inits, tot)
+    assert blob == tg.pack_inits(inits, tot)
+    out, off = pg.unpack_inits(b"xx" + blob, 2)
+    assert off == 2 + len(blob)
+    assert np.array_equal(out[tot > 0], inits[tot > 0])
+    assert (out[tot == 0] == pg.SCALE // 2).all()
+
+
+def test_wrappers_check_their_inputs():
+    g = torch.zeros((8, 4), dtype=torch.int32)
+    init = torch.full((pg.NM,), 2048, dtype=torch.int32)
+    cinit = torch.full((pg.NFAM,), 2048, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pk.grc_walk_probs(g.long(), init, cinit, 4)
+    with pytest.raises(ValueError):
+        pk.grc_walk_probs(g, init[:-1], cinit, 4)
+    with pytest.raises(ValueError):
+        pk.grc_walk_probs(g.T, init, cinit, 4)
+    w = torch.zeros((4, 64), dtype=torch.int16)
+    s = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pk.grc_decode_walk(w.int(), s, init, cinit, 10, 5, 1024)
+    with pytest.raises(ValueError):
+        pk.grc_decode_walk(w, s[:3], init, cinit, 10, 5, 1024)

@@ -1,6 +1,8 @@
-"""The port stands alone: importing every tpulc_torch module pulls in
-neither jax nor triton (the card's machine has no jax), and asking for
-CUDA without a card raises instead of running on the CPU."""
+"""The port stands alone: importing every tpulc_torch module (the bsc
+slice's `gold/lzp.py`, `codecs/bsclike/*` and `codecs/bwt/masked.py`
+among them) pulls in neither jax nor triton nor tpulc (the card's
+machine has no jax) and builds nothing, and asking for CUDA without a
+card raises instead of running on the CPU."""
 
 import os
 import subprocess
@@ -27,7 +29,17 @@ bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "triton", "tpulc"))
 print("BAD", bad)
 print("BUILT", tpulc_torch.cuda_lib._lib is not None)
+import tpulc_torch.gold.lzp as lzp
+print("LZP_BUILT", lzp._lib is not None)
+print("MODULES", sorted(m.name for m in pkgutil.walk_packages(
+    tpulc_torch.__path__, "tpulc_torch.")))
 """
+
+BSC_SLICE = ["tpulc_torch.gold.lzp", "tpulc_torch.codecs.bsclike.driver",
+             "tpulc_torch.codecs.bsclike.filters",
+             "tpulc_torch.codecs.bsclike.grc",
+             "tpulc_torch.codecs.bsclike.grc_kernels",
+             "tpulc_torch.codecs.bwt.masked"]
 
 
 def test_import_pulls_in_no_jax_triton_or_tpulc():
@@ -37,6 +49,9 @@ def test_import_pulls_in_no_jax_triton_or_tpulc():
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     assert "BUILT False" in r.stdout  # nothing compiles at import
+    assert "LZP_BUILT False" in r.stdout
+    for name in BSC_SLICE:
+        assert repr(name) in r.stdout, name
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
@@ -47,4 +62,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
         driver.compress(b"abc", block_size=1024)
     with pytest.raises(RuntimeError):
         store.decompress(store.compress(b"abc", device="cpu"))
+    from tpulc_torch.codecs.bsclike import driver as bsc
+
+    with pytest.raises(RuntimeError):
+        bsc.compress(b"abc", coder=2)
     assert device_mod.resolve("cpu").type == "cpu"

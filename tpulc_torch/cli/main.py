@@ -3,14 +3,16 @@
 Usage:
     python -m tpulc_torch.cli compress   [-c huffman] -i IN -o OUT [-b 1048576]
                                          [--device cuda|cpu] [--timings]
+                                         [bsc: -e 2 --no-lzp --filter F]
     python -m tpulc_torch.cli decompress -i IN -o OUT [--device cuda|cpu]
     python -m tpulc_torch.cli info       -i IN
 
 The container is tpulc's and so are the defaults (huffman, 1 MiB
 blocks), so either CLI decodes what the other wrote, and the same
-codec arguments write the same bytes.  Codecs other than huffman, bz and
-store are not ported yet; asking for one exits with status 2 and names
-the ROADMAP item that ports it.
+codec arguments write the same bytes.  Ported: huffman, bz, store and
+bsc's `-e 2` on the BWT sorter; asking for anything else (another codec,
+bsc's default `-e 1`, an ST sorter) exits with status 2 and names the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -37,6 +39,19 @@ def _parse(argv):
     c.add_argument("-i", "--input", required=True)
     c.add_argument("-o", "--output", required=True)
     c.add_argument("-b", "--block-size", type=int, default=1 << 20)
+    c.add_argument("--no-lzp", action="store_true",
+                   help="bsc: disable the LZP preprocessor")
+    c.add_argument("-m", "--sorter", default="bwt",
+                   choices=["bwt", "st3", "st4", "st5", "st6", "st7", "st8",
+                            "st8w"],
+                   help="bsc: block sorter (only bwt is ported)")
+    c.add_argument("--filter", default="none", dest="filter_mode",
+                   help="bsc: preprocessing filter "
+                        "(none|reverse|reorder:N|auto); `none` passes "
+                        "nothing, so the codec's default `auto` applies")
+    c.add_argument("-e", "--coder", type=int, default=1, choices=[1, 2],
+                   help="bsc: entropy coder — 1 static context rANS (not "
+                        "ported yet), 2 the group-rank coder (best ratio)")
     d = sub.add_parser("decompress")
     d.add_argument("-i", "--input", required=True)
     d.add_argument("-o", "--output", required=True)
@@ -74,6 +89,24 @@ def _info(data: bytes) -> int:
     return 0
 
 
+def _bsc_kwargs(args) -> dict:
+    """tpulc's CLI passes a bsc option only when it differs from the
+    CLI default (`tpulc/cli/main.py:114-121`), so the same argv writes
+    the same bytes."""
+    if args.codec != "bsc":
+        return {}
+    kw = {}
+    if args.no_lzp:
+        kw["use_lzp"] = False
+    if args.sorter != "bwt":
+        kw["sorter"] = args.sorter
+    if args.filter_mode != "none":
+        kw["filter_mode"] = args.filter_mode
+    if args.coder != 1:
+        kw["coder"] = args.coder
+    return kw
+
+
 def main(argv=None) -> int:
     args = _parse(argv if argv is not None else sys.argv[1:])
     with open(args.input, "rb") as f:
@@ -94,7 +127,7 @@ def main(argv=None) -> int:
         if args.cmd == "compress":
             codec = get_codec(args.codec)
             out = codec.compress(data, block_size=args.block_size,
-                                 device=args.device)
+                                 device=args.device, **_bsc_kwargs(args))
             dt = time.perf_counter() - t0
             ratio = len(data) / max(len(out), 1)
             print(f"compressed {len(data)} -> {len(out)} bytes "

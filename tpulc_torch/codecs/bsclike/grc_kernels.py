@@ -1,0 +1,305 @@
+"""The group-rank coder's model walks K5 and K6: wrappers, launch counts
+and plain versions.
+
+The counterparts of `tpulc/codecs/bsclike/grc_pallas.py`:
+
+  K5 `grc_walk_probs`   `grc_walk_probs_pallas`, CUDA source
+                        `csrc/grc_walk.cu`: the encode-side forward
+                        model walk;
+  K6 `grc_decode_walk`  `grc_decode_pallas`, `csrc/grc_decode.cu`: the
+                        per-lane decode FSM.
+
+Design notes are in the CUDA sources.  A CPU tensor runs the plain
+PyTorch version; a CUDA tensor launches the kernel (adding one to the
+wrapper's `launches`) or raises.
+
+Contract of K5: `gmb` int32[W, L] is the event grid, time-major (record
+``(model + 1) * 2 + bit``, 0 = empty slot); `init` int32[NM] and
+`cinit` int32[NFAM] seed every lane's fine and coarse counters.  Row t
+< nsteps of the int32[W, L] output is the mixed probability before
+event t (an empty slot holds model 0's mix and updates nothing); rows
+at or past nsteps hold 0.  Model ids are clamped to [0, NM): a record
+past ``2 * NM + 1`` reads model NM-1 (tpulc's encoder never writes one).
+
+Contract of K6: `words` int16[L, Wc] holds each lane's uint16 stream,
+`states` int32[L] the final encoder states (uint32 bit patterns),
+`init`/`cinit` as for K5.  Lane l decodes ``nsym = clip(m - l*chunk,
+0, chunk)`` symbols in at most nsteps steps into row l of a zeroed
+int32[L, chunk]; a word read clamps at column Wc-1.  uint32 rANS
+arithmetic wraps mod 2^32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpulc_torch import cuda_lib
+from tpulc_torch.codecs.bsclike.grc import (
+    B_L0,
+    B_RE,
+    B_RM,
+    B_RT,
+    B_UE,
+    B_UM,
+    B_UT,
+    MAX_EK,
+    NFAM,
+    NM,
+    PROB_BITS,
+    RANS_L,
+    RATE_C,
+    RATE_F,
+    SCALE,
+    _bitlen,
+    _ctx_regs,
+    _rq_of,
+    fam_of_model,
+)
+
+M32 = 0xFFFFFFFF
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
+    if t.dtype != dtype or not t.is_contiguous() or t.dim() != len(shape) \
+            or any(s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: need contiguous {dtype} of shape {shape}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+
+
+def _device(*tensors: torch.Tensor) -> torch.device:
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _mix(pf, pc, pi):
+    return ((19 * pf + 7 * pc + 6 * pi) >> 5).clamp(8, SCALE - 8)
+
+
+def _adapt(p, bit, rate):
+    return (p + (((bit << PROB_BITS) - p) >> rate)).clamp(8, SCALE - 8)
+
+
+# --------------------------------------------------------------- K5
+
+def grc_walk_probs_plain(gmb: torch.Tensor, init: torch.Tensor,
+                         cinit: torch.Tensor, nsteps: int) -> torch.Tensor:
+    """K5's contract in plain PyTorch: `grc._walk_probs` with the model
+    state indexed by gather/scatter instead of one-hot reductions."""
+    W, L = gmb.shape
+    dev = gmb.device
+    fam = torch.from_numpy(fam_of_model()).to(dev, torch.int64)
+    init64 = init.to(torch.int64)
+    pstate = init64.expand(L, NM).clone()
+    cstate = cinit.to(torch.int64).expand(L, NFAM).clone()
+    lanes = torch.arange(L, device=dev)
+    probs = torch.zeros((W, L), dtype=torch.int32, device=dev)
+    for t in range(min(nsteps, W)):
+        e = gmb[t].to(torch.int64)
+        mdl = ((e >> 1) - 1).clamp(0, NM - 1)
+        upd = e > 0
+        bit = e & 1
+        f = fam[mdl]
+        pf = pstate[lanes, mdl]
+        pc = cstate[lanes, f]
+        probs[t] = _mix(pf, pc, init64[mdl]).to(torch.int32)
+        pstate[lanes, mdl] = torch.where(upd, _adapt(pf, bit, RATE_F), pf)
+        cstate[lanes, f] = torch.where(upd, _adapt(pc, bit, RATE_C), pc)
+    return probs
+
+
+def grc_walk_probs(gmb: torch.Tensor, init: torch.Tensor,
+                   cinit: torch.Tensor, nsteps: int) -> torch.Tensor:
+    """K5 wrapper (see the module docstring)."""
+    _check("gmb", gmb, torch.int32, (None, None))
+    _check("init", init, torch.int32, (NM,))
+    _check("cinit", cinit, torch.int32, (NFAM,))
+    if _device(gmb, init, cinit).type == "cpu":
+        return grc_walk_probs_plain(gmb, init, cinit, nsteps)
+    lib = cuda_lib.library()
+    W, L = gmb.shape
+    probs = torch.empty_like(gmb)
+    with torch.cuda.device(gmb.device):
+        cuda_lib.check(lib.tplc_grc_walk_probs(
+            gmb.data_ptr(), init.data_ptr(), cinit.data_ptr(),
+            probs.data_ptr(), W, L, max(0, min(nsteps, W)),
+            cuda_lib.stream_of(gmb)), "grc_walk_probs")
+    grc_walk_probs.launches += 1
+    return probs
+
+
+grc_walk_probs.launches = 0
+
+
+# --------------------------------------------------------------- K6
+
+def grc_decode_walk_plain(words: torch.Tensor, states: torch.Tensor,
+                          init: torch.Tensor, cinit: torch.Tensor, m: int,
+                          nsteps: int, chunk: int) -> torch.Tensor:
+    """K6's contract in plain PyTorch: `grc.grc_decode`'s `body2` over
+    all lanes, uint32 arithmetic in int64 masked to 32 bits.  Stops
+    early once every lane is done (an inactive lane never changes)."""
+    L, Wc = words.shape
+    dev = words.device
+    fam = torch.from_numpy(fam_of_model()).to(dev, torch.int64)
+    init64 = init.to(torch.int64)
+    pstate = init64.expand(L, NM).clone()
+    cstate = cinit.to(torch.int64).expand(L, NFAM).clone()
+    lanes = torch.arange(L, device=dev)
+    w64 = words.to(torch.int64) & 0xFFFF
+    nsym = (m - lanes * chunk).clamp(0, chunk)
+    out = torch.zeros((L, chunk + 1), dtype=torch.int32, device=dev)
+    z = torch.zeros(L, dtype=torch.int64, device=dev)
+    x = states.to(torch.int64) & M32
+    rpos, opos, phase, lvl, val, mleft = z, z, z, z, z, z
+    ek, kval, kleft, r, prev_r, prev2_r, prev_e = z, z, z, z, z, z, z
+    prev_k, prev2_k = z + 1, z + 1
+    for t in range(nsteps):
+        if t % 256 == 0 and not bool((opos < nsym).any()):
+            break
+        active = opos < nsym
+        cR4, cRun, hE, cR4c, cR0 = _ctx_regs(prev_r, prev2_r, prev_k,
+                                            prev2_k, prev_e)
+        rq = _rq_of(r)
+        mdl = torch.where(
+            phase == 0, B_L0, torch.where(
+                phase == 1, B_RT + cR4 * 16 + cRun * 4 + hE, torch.where(
+                    phase == 2, B_RE + (lvl.clamp(1, 6) - 1) * 4 + cR4c,
+                    torch.where(
+                        phase == 3,
+                        B_RM + (ek.clamp(1, 7) - 1) * 64 + val.clamp(max=63),
+                        torch.where(
+                            phase == 4, B_UT + rq * 32 + cRun * 8 + cR0,
+                            torch.where(
+                                phase == 5,
+                                B_UE + (lvl.clamp(1, MAX_EK - 1) - 1) * 4
+                                + rq,
+                                B_UM + (ek.clamp(1, MAX_EK) - 1) * 32
+                                + kval.clamp(max=31)))))))
+        mdl = mdl.clamp(0, NM - 1)
+        f = fam[mdl]
+        pf = pstate[lanes, mdl]
+        pc = cstate[lanes, f]
+        pe = _mix(pf, pc, init64[mdl])
+        f0 = SCALE - pe
+        slot = x & (SCALE - 1)
+        bit = (slot >= f0).to(torch.int64)
+        b1 = bit == 1
+        fq = torch.where(b1, pe, f0)
+        cq = torch.where(b1, f0, 0)
+        x_new = (fq * (x >> PROB_BITS) + slot - cq) & M32
+        need = active & (x_new < RANS_L)
+        w = w64[lanes, rpos.clamp(max=Wc - 1)]
+        x = torch.where(active, torch.where(
+            need, ((x_new << 16) | w) & M32, x_new), x)
+        rpos = rpos + need.to(torch.int64)
+        pstate[lanes, mdl] = torch.where(active, _adapt(pf, bit, RATE_F), pf)
+        cstate[lanes, f] = torch.where(active, _adapt(pc, bit, RATE_C), pc)
+
+        is0, is1, is2, is3 = phase == 0, phase == 1, phase == 2, phase == 3
+        is4, is5, is6 = phase == 4, phase == 5, phase == 6
+        # rank side
+        r_n = torch.where(is0 & b1, 0, torch.where(is1 & b1, 1, r))
+        to_ut = (is0 | is1) & b1
+        to_rt = is0 & ~b1
+        to_re = is1 & ~b1
+        lvl_n = torch.where(to_re, 1, lvl)
+        re_cont = is2 & b1
+        lvl_n = torch.where(re_cont, lvl + 1, lvl_n)
+        re_to_rm_hi = re_cont & (lvl_n == 7)
+        enter_rm = re_to_rm_hi | (is2 & ~b1)
+        ek_rank = torch.where(re_to_rm_hi, 7, lvl)
+        ek_n = torch.where(enter_rm, ek_rank, ek)
+        val_n = torch.where(is3, val * 2 + bit,
+                            torch.where(enter_rm, 1, val))
+        mleft_n = torch.where(is3, mleft - 1,
+                              torch.where(enter_rm, ek_rank, mleft))
+        rm_done = is3 & (mleft_n == 0)
+        r_n = torch.where(rm_done, val_n, r_n)
+        to_ut = to_ut | rm_done
+        # run side
+        ut_one = is4 & b1
+        to_ue = is4 & ~b1
+        lvl_n = torch.where(to_ue, 1, lvl_n)
+        ue_cont = is5 & b1
+        lvl_n = torch.where(ue_cont, lvl + 1, lvl_n)
+        ue_to_um_hi = ue_cont & (lvl_n == MAX_EK)
+        enter_um = ue_to_um_hi | (is5 & ~b1)
+        ek_run = torch.where(ue_to_um_hi, MAX_EK, lvl)
+        ek_n = torch.where(enter_um, ek_run, ek_n)
+        kval_n = torch.where(is6, kval * 2 + bit,
+                             torch.where(enter_um, 1, kval))
+        kleft_n = torch.where(is6, kleft - 1,
+                              torch.where(enter_um, ek_run, kleft))
+        um_done = is6 & (kleft_n == 0)
+        k_done = torch.where(ut_one, 1, torch.where(um_done, kval_n, 0))
+        complete = active & (ut_one | um_done)
+        k_done = torch.minimum(k_done.clamp(min=0),
+                               (nsym - opos).clamp(min=1))
+        # emit the group's rank at opos (column `chunk` is a dump slot)
+        put = complete & (r_n > 0)
+        out[lanes, torch.where(put, opos, chunk)] = torch.where(
+            put, r_n, 0).to(torch.int32)
+        opos_n = torch.where(complete, opos + k_done, opos)
+        prev2_r_n = torch.where(complete, prev_r, prev2_r)
+        prev2_k_n = torch.where(complete, prev_k, prev2_k)
+        prev_r_n = torch.where(complete, r_n, prev_r)
+        prev_k_n = torch.where(complete, k_done, prev_k)
+        prev_e_n = torch.where(
+            complete, torch.where(r_n > 0, _bitlen(r_n) - 1, 0), prev_e)
+        phase_n = torch.where(
+            complete, 1, torch.where(
+                to_rt, 1, torch.where(
+                    to_re, 2, torch.where(
+                        enter_rm, 3, torch.where(
+                            to_ut, 4, torch.where(
+                                to_ue, 5, torch.where(enter_um, 6,
+                                                      phase)))))))
+
+        def keep(new, old):
+            return torch.where(active, new, old)
+
+        opos, phase, lvl = keep(opos_n, opos), keep(phase_n, phase), \
+            keep(lvl_n, lvl)
+        val, mleft, ek = keep(val_n, val), keep(mleft_n, mleft), \
+            keep(ek_n, ek)
+        kval, kleft = keep(kval_n, kval), keep(kleft_n, kleft)
+        r = keep(torch.where(complete, 0, r_n), r)
+        prev_r, prev2_r = keep(prev_r_n, prev_r), keep(prev2_r_n, prev2_r)
+        prev_k, prev2_k = keep(prev_k_n, prev_k), keep(prev2_k_n, prev2_k)
+        prev_e = keep(prev_e_n, prev_e)
+    return out[:, :chunk].contiguous()
+
+
+def grc_decode_walk(words: torch.Tensor, states: torch.Tensor,
+                    init: torch.Tensor, cinit: torch.Tensor, m: int,
+                    nsteps: int, chunk: int) -> torch.Tensor:
+    """K6 wrapper (see the module docstring)."""
+    _check("words", words, torch.int16, (None, None))
+    L, Wc = words.shape
+    _check("states", states, torch.int32, (L,))
+    _check("init", init, torch.int32, (NM,))
+    _check("cinit", cinit, torch.int32, (NFAM,))
+    if Wc < 1 or chunk < 1:
+        raise ValueError("need at least one word column and chunk >= 1")
+    if _device(words, states, init, cinit).type == "cpu":
+        return grc_decode_walk_plain(words, states, init, cinit, m, nsteps,
+                                     chunk)
+    lib = cuda_lib.library()
+    out = torch.zeros((L, chunk), dtype=torch.int32, device=words.device)
+    m = int(np.clip(m, 0, L * chunk))
+    with torch.cuda.device(words.device):
+        cuda_lib.check(lib.tplc_grc_decode(
+            words.data_ptr(), states.data_ptr(), init.data_ptr(),
+            cinit.data_ptr(), out.data_ptr(), L, Wc, m, max(0, nsteps),
+            chunk, cuda_lib.stream_of(words)), "grc_decode_walk")
+    grc_decode_walk.launches += 1
+    return out
+
+
+grc_decode_walk.launches = 0

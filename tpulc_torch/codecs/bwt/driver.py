@@ -56,7 +56,11 @@ from tpulc_torch.codecs.huffman.device_tables import (
 from tpulc_torch.device import resolve
 from tpulc_torch.pipeline.container import Container
 from tpulc_torch.pipeline.registry import CODEC_BZ
-from tpulc_torch.primitives.bits import pack_bits
+from tpulc_torch.primitives.bits import (
+    pack_bits,
+    pack_fields_np,
+    unpack_fields_np,
+)
 from tpulc_torch.primitives.checksum import adler32_np
 from tpulc_torch.primitives.mtf import mtf_decode, mtf_encode
 from tpulc_torch.utils import timing
@@ -76,25 +80,6 @@ ANCHOR_STRIDE = 512
 
 def _cap_for(block_size: int) -> int:
     return -(-block_size // 256) * 256  # MTF-chunk and CHUNK_SYMS multiple
-
-
-def _pack_fields_np(vals: np.ndarray, width: int) -> bytes:
-    """uint values (< 2^width) -> MSB-first bit-packed bytes."""
-    v = vals.astype(np.uint32)
-    bits = (
-        (v[:, None] >> np.arange(width - 1, -1, -1, dtype=np.uint32)) & 1
-    ).astype(np.uint8)
-    return np.packbits(bits.reshape(-1)).tobytes()
-
-
-def _unpack_fields_np(buf: bytes, width: int, count: int) -> np.ndarray:
-    if count == 0:
-        return np.zeros(0, np.int64)
-    bits = np.unpackbits(
-        np.frombuffer(buf, np.uint8), count=count * width
-    ).reshape(count, width).astype(np.uint32)
-    w = np.arange(width - 1, -1, -1, dtype=np.uint32)
-    return (bits << w).sum(axis=1).astype(np.int64)
 
 
 def _fields_bytes(count: int, width: int) -> int:
@@ -223,9 +208,9 @@ def _compress_block(block: torch.Tensor, n: int) -> bytes:
     payload += b"".join(_nibbles(lk) for lk in lens)
     payload += struct.pack("<I", used_chunks)
     payload += struct.pack("<I", int(offs[0]))
-    payload += _pack_fields_np(np.diff(offs), DELTA_BITS)
+    payload += pack_fields_np(np.diff(offs), DELTA_BITS)
     if use_mt:
-        payload += _pack_fields_np(
+        payload += pack_fields_np(
             remap[sels[:used_chunks]].astype(np.uint32), SEL_BITS)
     if mode & 1:
         a = anchors_np.astype(np.uint32)
@@ -283,7 +268,7 @@ def _parse_block(payload: bytes):
     (off0,) = struct.unpack("<I", payload[off: off + 4])
     off += 4
     db = _fields_bytes(nchunks - 1, DELTA_BITS)
-    deltas = _unpack_fields_np(payload[off: off + db], DELTA_BITS,
+    deltas = unpack_fields_np(payload[off: off + db], DELTA_BITS,
                                nchunks - 1)
     off += db
     bit_offsets = (
@@ -292,7 +277,7 @@ def _parse_block(payload: bytes):
     sel = None
     if mode & 2:
         sb = _fields_bytes(nchunks, SEL_BITS)
-        sel = _unpack_fields_np(payload[off: off + sb], SEL_BITS,
+        sel = unpack_fields_np(payload[off: off + sb], SEL_BITS,
                                 nchunks).astype(np.uint8)
         off += sb
     anchors = None

@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers and the stream as void*)
@@ -41,9 +41,14 @@ _SIGNATURES = {
                              _I, _I, _P],
     "tplc_huffman_walk_flat": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
                                _P],
+    "tplc_grc_walk_probs": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "tplc_grc_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: types.SimpleNamespace | None = None
+# source file name -> nvcc's output of the last build (ptxas registers,
+# shared memory and spills per kernel); empty for a library found built
+build_log: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -97,6 +102,7 @@ def library() -> types.SimpleNamespace:
                 errors.append(f"{os.path.basename(src)} "
                               f"({proc.returncode}):\n{log}")
             else:
+                build_log[os.path.basename(src)] = log
                 os.replace(tmp, so)
         if errors:
             raise RuntimeError("nvcc failed: " + "\n".join(errors))

@@ -1,7 +1,8 @@
 """Codec registry: the codec ids of `tpulc/pipeline/registry.py:12-18`
 (the container's codec byte), resolving to the port's drivers.
 
-`store`, `huffman` and `bz` are ported so far; the other ids resolve to a
+`store`, `huffman`, `bz` and `bsc` (its `-e2` path) are ported so far;
+the other ids resolve to a
 `NotImplementedError` that names the ROADMAP item porting them, so a
 container written by tpulc with another codec is recognised, not
 misread.
@@ -29,7 +30,6 @@ _NAMES = {
 
 # codec id -> ROADMAP queue-1 item that ports it
 _NOT_PORTED = {
-    CODEC_BSC: "queue 1 item 10 (bsc)",
     CODEC_LZSS: "queue 1 item 11 (LZ codecs)",
     CODEC_LZSS_CULZSS: "queue 1 item 11 (LZ codecs)",
     CODEC_BZIP2: "queue 1 item 12 (bzip2 codec)",
@@ -58,6 +58,9 @@ def get_codec(name_or_id: str | int):
         return driver
     if cid == CODEC_BZ:
         from tpulc_torch.codecs.bwt import driver
+        return driver
+    if cid == CODEC_BSC:
+        from tpulc_torch.codecs.bsclike import driver
         return driver
     if cid in _NOT_PORTED:
         raise NotImplementedError(

@@ -20,9 +20,31 @@ is cheap.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
+
+
+def pack_fields_np(vals: np.ndarray, width: int) -> bytes:
+    """Host wire fields: uint values (< 2^width) -> MSB-first bit-packed
+    bytes (the bz and bsc payloads' deltas, selectors and anchors)."""
+    v = vals.astype(np.uint32)
+    bits = (
+        (v[:, None] >> np.arange(width - 1, -1, -1, dtype=np.uint32)) & 1
+    ).astype(np.uint8)
+    return np.packbits(bits.reshape(-1)).tobytes()
+
+
+def unpack_fields_np(buf: bytes, width: int, count: int) -> np.ndarray:
+    """Inverse of `pack_fields_np` -> int64[count]."""
+    if count == 0:
+        return np.zeros(0, np.int64)
+    bits = np.unpackbits(
+        np.frombuffer(buf, np.uint8), count=count * width
+    ).reshape(count, width).astype(np.uint32)
+    w = np.arange(width - 1, -1, -1, dtype=np.uint32)
+    return (bits << w).sum(axis=1).astype(np.int64)
 
 
 def pack_bits(codes: torch.Tensor, lengths: torch.Tensor, out_words: int):
