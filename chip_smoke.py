@@ -27,17 +27,22 @@ Phases (any failure exits non-zero before the last line is printed):
    pg1661 x 6 at 1 MiB equal to tpulc's container; MB/s from warm
    repeats, decode-only GB/s per decoder on device-resident parsed
    input, the self-sync decode's time, and peak device memory;
-7. the group-rank coder's kernels (K5 model walk, K6 decode FSM) against
-   their plain versions on real grids at both bsc shapes: pg1661 x 6 at
-   4 MiB blocks (1,024 lanes after LZP) and the first 25 MiB block of
-   100 MB of word soup (25,600 lanes); bit-identical, timed as in
-   phase 3 (the plain versions once: they take seconds);
+7. the group-rank coder's kernels (K5 model walk, the reverse-rANS
+   emission that reads K5's output, K6 decode FSM) against their plain
+   versions on real grids at both bsc shapes: pg1661 x 6 at 4 MiB
+   blocks (1,024 lanes after LZP) and the first 25 MiB block of 100 MB
+   of word soup (25,600 lanes); bit-identical, timed as in phase 3 (the
+   plain versions once: they take seconds); then K5 and K6 at 32, 64
+   and 94 lanes a block (each output equal), with ns a step and waves;
 8. the bsc -e2 main path, counted as in phase 4: pg1661 x 6 at 4 MiB
-   blocks (exact round trip, ratio 21.281, tpulc's sha256, K1, K2, K4,
-   K5 and K6 launched, the card's container equal to the CPU path's on
-   50 KB, MB/s from warm repeats), then 100,000,000 B of bench.py's
-   word soup at 25 MiB blocks (4 blocks, exact round trip, K5 and K6
-   launched once per block, MB/s, stage times, peak device memory).
+   blocks (exact round trip, ratio 21.281, tpulc's sha256, K1, K2, K4
+   launched, K5, the emission and K6 once per block, the card's
+   container equal to the CPU path's on 50 KB, MB/s from warm repeats),
+   then 100,000,000 B of bench.py's word soup at 25 MiB blocks (4
+   blocks, exact round trip, K5, the emission and K6 once per block,
+   MB/s, stage times, peak device memory, and a torch.profiler trace of
+   one warm compress and one warm decompress: device-busy share and the
+   top device times).
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
@@ -93,10 +98,13 @@ SCALAR_OPS = 67e12
 # integer operations per step, counted from the kernel sources: a K3/K7/
 # K8 symbol costs its L-deep length classifier plus ~10; a K5 event ~50
 # (model pick, family, mix, two adaptations, coarse select chain); a K6
-# event ~140 (contexts, model pick, mix, rANS step, adaptations, FSM)
+# event ~140 (contexts, model pick, mix, rANS step, adaptations, FSM); an
+# emission event ~35 (coding interval, renormalisation test, a 32-bit
+# divide of ~20, the state update)
 HUFF_OPS = 10
 K5_OPS = 50
 K6_OPS = 140
+EMIT_OPS = 35
 
 
 def require(cond: bool, msg: str) -> None:
@@ -541,12 +549,15 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
     require(hashlib.sha256(big).hexdigest() == SOUP_SHA256,
             "the word soup differs from bench.py's make_soup")
 
-    # 7. K5 and K6 against their plain versions on both shapes' grids
+    # 7. K5, the emission and K6 against their plain versions on both
+    # shapes' grids
     for label, data, block in (("pg1661x6_4MiB", pg6, BSC_BLOCK),
                                ("soup_25MiB", big, SOUP_BLOCK)):
         gmb, init, cinit, nsteps, lane_bits = grc_grid(torch, bsc, data,
                                                        block, dev)
         W, L = gmb.shape
+        events = int(lane_bits.sum())
+        probs = gk.grc_walk_probs(gmb, init, cinit, nsteps)
         payload = Container.from_bytes(bsc.compress(
             data[:block], block_size=block, coder=2, device="cuda")
         ).payloads[0]
@@ -561,20 +572,29 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
                  kern=gk.grc_walk_probs, plain=gk.grc_walk_probs_plain,
                  args=(gmb, init, cinit, nsteps), shape=f"{W}x{L}",
                  bytes=4 * (nsteps * L + W * L + grc.NM + grc.NFAM),
-                 ops=K5_OPS * nsteps * L, plain_reps=1),
+                 ops=K5_OPS * events, plain_reps=1),
+            dict(name="grc_reverse_rans", src="tpulc_torch/csrc/grc_rans.cu",
+                 replaces="tpulc/codecs/bsclike/grc.py:754 (XLA loop, no "
+                          "pallas_call)",
+                 kern=gk.grc_reverse_rans, plain=gk.grc_reverse_rans_plain,
+                 args=(gmb, probs, nsteps), shape=f"{W}x{L}",
+                 bytes=8 * nsteps * L + 4 * L * (W + 2) + 16 * L,
+                 ops=EMIT_OPS * events, plain_reps=1),
             dict(name="grc_decode_walk", src="tpulc_torch/csrc/grc_decode.cu",
                  replaces="tpulc/codecs/bsclike/grc_pallas.py:438",
                  kern=gk.grc_decode_walk, plain=gk.grc_decode_walk_plain,
                  args=k6, shape=f"{lanes}x{k6[0].shape[1]}",
                  bytes=2 * nwords + 4 * (lanes + grc.NM + grc.NFAM)
                  + 4 * lanes * grc.GCHUNK,
-                 ops=K6_OPS * int(lane_bits.sum()), plain_reps=1),
+                 ops=K6_OPS * events, plain_reps=1),
         ])
         print(json.dumps({f"grc_kernels_{label}": {
             "lanes": L, "grid_width": W, "nsteps": nsteps,
-            "events": int(lane_bits.sum()), "words": nwords,
-            "entries": entries}}), flush=True)
-        del gmb, k6
+            "events": events, "words": nwords,
+            "entries": entries,
+            "block_lanes": lanes_sweep(torch, gk, gmb, init, cinit, nsteps,
+                                       k6, entries)}}), flush=True)
+        del gmb, probs, k6
     kernels += entries   # the full-width (soup) shape
 
     # 8. the bsc -e2 main path, counted
@@ -582,7 +602,9 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
             "mtf_encode_lockstep": mk.mtf_encode_lockstep,
             "mtf_lockstep": mk.mtf_lockstep,
             "grc_walk_probs": gk.grc_walk_probs,
+            "grc_reverse_rans": gk.grc_reverse_rans,
             "grc_decode_walk": gk.grc_decode_walk}
+    grc_path = ("grc_walk_probs", "grc_reverse_rans", "grc_decode_walk")
 
     def round_trip(data, block):
         c = bsc.compress(data, block_size=block, coder=2, device="cuda")
@@ -621,6 +643,9 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
     require(sha == BSC_SHA256, "bsc container differs from tpulc's")
     require(all(v > 0 for v in counts.values()),
             f"a kernel of the bsc path never launched: {counts}")
+    nblocks = len(Container.from_bytes(comp).payloads)
+    require(all(counts[k] == nblocks for k in grc_path),
+            f"K5/emission/K6 not launched once per block: {counts}")
     small = pg6[:50_000]
     on_card = bsc.compress(small, block_size=1 << 16, coder=2, device="cuda")
     on_cpu = bsc.compress(small, block_size=1 << 16, coder=2, device="cpu")
@@ -642,11 +667,10 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
           f"blocks, launches {counts}", flush=True)
     require(back == big, "bsc soup round trip is not exact")
     require(nblocks == 4, f"soup gave {nblocks} blocks, not 4")
-    require(counts["grc_walk_probs"] == nblocks
-            and counts["grc_decode_walk"] == nblocks,
-            f"K5/K6 not launched once per block: {counts}")
+    require(all(counts[k] == nblocks for k in grc_path),
+            f"K5/emission/K6 not launched once per block: {counts}")
     for k in kernels:
-        if k["name"] in ("grc_walk_probs", "grc_decode_walk"):
+        if k["name"] in grc_path:
             k["launches"] = counts[k["name"]]
     reps = 3 if dt < 60 else 1
     print(json.dumps({"bsc_e2_soup100MB": {
@@ -655,6 +679,80 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
         "ratio": SOUP_SIZE / len(comp), "launches": counts,
         "first_roundtrip_s": dt, "peak_mem_bytes": peak,
         **warm(big, SOUP_BLOCK, reps)}}), flush=True)
+    print(json.dumps({"bsc_e2_soup100MB_trace": {
+        "compress": traced(torch, lambda: bsc.compress(
+            big, block_size=SOUP_BLOCK, coder=2, device="cuda")),
+        "decompress": traced(torch, lambda: bsc.decompress(
+            comp, device="cuda"))}}), flush=True)
+
+
+def lanes_sweep(torch, gk, gmb, init, cinit, nsteps, k6, entries) -> dict:
+    """K5 and K6 at 32, 64 and MAX_LANES (the default) lanes a block:
+    each output equal to the default's; ms, waves (blocks over rounds of
+    the SMs times the blocks that an SM's shared memory holds), and ns a
+    step overall and a wave."""
+    from functools import partial
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    L = gmb.shape[1]
+    ref5 = gk.grc_walk_probs(gmb, init, cinit, nsteps)
+    ref6 = gk.grc_decode_walk(*k6)
+    out = {"default": gk.MAX_LANES, "sms": sms}
+    for nl in (32, 64, gk.MAX_LANES):
+        waves = -(-(-(-L // nl)) // (sms * resident_blocks(nl)))
+        row = {"waves": waves}
+        for tag, fn, ref, steps in (
+                ("k5", partial(gk.grc_walk_probs, gmb, init, cinit, nsteps,
+                               lanes=nl), ref5, nsteps),
+                ("k6", partial(gk.grc_decode_walk, *k6, lanes=nl), ref6,
+                 k6[5])):
+            require(torch.equal(fn(), ref), f"{tag} at {nl} lanes differs")
+            ms = time_ms(torch, fn)
+            row[f"{tag}_ms"] = ms
+            row[f"{tag}_ns_per_step"] = ms * 1e6 / max(steps, 1)
+            row[f"{tag}_ns_per_step_wave"] = ms * 1e6 / max(steps, 1) / waves
+        out[nl] = row
+    for e in entries:
+        e["ns_per_step"] = e["ms"] * 1e6 / max(nsteps, 1)
+    return out
+
+
+def resident_blocks(nl: int) -> int:
+    """K5/K6 blocks of nl lanes that one H100 SM holds by shared memory:
+    228 KB (233,472 B) an SM, each block its counters and init table
+    (grc_model.cuh: 2,442 B a lane plus 2,442) plus 1 KB reserved."""
+    return 233_472 // (2 * 1221 * (nl + 1) + 1024)
+
+
+def traced(torch, fn) -> dict:
+    """One run of fn under torch.profiler: host wall, device-busy time
+    (the union of the device events' intervals: kernels and copies) and
+    share, and the ten largest device times by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = synced(torch, fn)
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        t0, t1 = ev.time_range.start, ev.time_range.end
+        spans.append((t0, t1))
+        us, n = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (us + t1 - t0, n + 1)
+    busy_us, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        busy_us += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    require(busy_us > 0, "the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "busy_share": busy_us / 1e6 / wall,
+            "top": [{"name": k[:80], "ms": us / 1e3, "calls": n}
+                    for k, (us, n) in top]}
 
 
 if __name__ == "__main__":

@@ -192,6 +192,104 @@ def test_k6_equals_plain(cuda, cut):
         assert torch.equal(want.reshape(-1)[:m], ranks[:m])
 
 
+def test_emission_equals_plain(cuda):
+    """The reverse-rANS emission on a real grid and K5's probabilities:
+    words, counts and states, and the launch count rises by one."""
+    from tpulc_torch.codecs.bsclike import grc_kernels as gk
+
+    _, _, gmb, init, cinit, nsteps, _ = _grc_case(1)
+    probs = gk.grc_walk_probs_plain(gmb, init, cinit, nsteps)
+    want = gk.grc_reverse_rans_plain(gmb, probs, nsteps)
+    n = gk.grc_reverse_rans.launches
+    got = gk.grc_reverse_rans(*_on(cuda, (gmb, probs)), nsteps)
+    torch.cuda.synchronize()
+    assert gk.grc_reverse_rans.launches == n + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _odd_grid(case, W=640, L=1000):
+    """An event grid no encoder writes: empty slots in the middle of
+    lanes, lanes of very different lengths (some empty), records of
+    model 0 and past the last model, and L a multiple of neither 32 nor
+    94; -> (gmb, init, cinit, nsteps)."""
+    from tpulc_torch.codecs.bsclike import grc
+
+    rng = np.random.default_rng(7)
+    g = rng.integers(1, 2 * grc.NM + 4, size=(W, L)).astype(np.int32)
+    length = rng.integers(0, W + 1, size=L)
+    length[::17] = 0
+    g[np.arange(W)[:, None] >= length[None, :]] = 0
+    if case == "holes":
+        g[rng.random((W, L)) < 0.3] = 0
+    init = rng.integers(8, 4089, size=grc.NM).astype(np.int32)
+    cinit = rng.integers(8, 4089, size=grc.NFAM).astype(np.int32)
+    nsteps = {"ragged": int(length.max()), "holes": int(length.max()),
+              "short": W // 3, "nsteps0": 0}[case]
+    return (torch.from_numpy(g), torch.from_numpy(init),
+            torch.from_numpy(cinit), nsteps)
+
+
+@pytest.mark.parametrize("lanes", [None, 5, 32, 94])
+@pytest.mark.parametrize("case", ["ragged", "holes", "short", "nsteps0"])
+def test_k5_and_emission_on_odd_grids(cuda, case, lanes):
+    """K5 at several lanes a block, and the emission on its output,
+    equal their plain versions on grids no encoder writes."""
+    from tpulc_torch.codecs.bsclike import grc_kernels as gk
+
+    gmb, init, cinit, nsteps = _odd_grid(case)
+    want = gk.grc_walk_probs_plain(gmb, init, cinit, nsteps)
+    got = gk.grc_walk_probs(*_on(cuda, (gmb, init, cinit)), nsteps,
+                            lanes=lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    want_e = gk.grc_reverse_rans_plain(gmb, want, nsteps)
+    got_e = gk.grc_reverse_rans(*_on(cuda, (gmb, want)), nsteps)
+    torch.cuda.synchronize()
+    for g, w in zip(got_e, want_e):
+        assert torch.equal(g.cpu(), w)
+
+
+_K6_WANT = {}
+
+
+@pytest.mark.parametrize("lanes", [None, 5, 94])
+@pytest.mark.parametrize("case", ["wc1", "m_ragged", "unaligned",
+                                  "nsteps0"])
+def test_k6_on_odd_streams(cuda, case, lanes):
+    """K6 at several lanes a block on a real 40-lane stream: one word
+    column (every refill clamps), m not a multiple of the chunk, the
+    words a view 3 columns into a wider buffer (rows not 16-byte
+    aligned), and nsteps = 0."""
+    from tpulc_torch.codecs.bsclike import grc_kernels as gk
+
+    ranks, m, _, _, _, nsteps, enc = _grc_case(3, cap=40 * 1024)
+    words, _, states, inits, cinits, _ = enc
+    w16 = words.to(torch.int16)
+    if case == "wc1":
+        w16 = w16[:, :1].contiguous()
+    s32 = torch.where(states >= 1 << 31, states - (1 << 32),
+                      states).to(torch.int32)
+    mm = m - 333 if case == "m_ragged" else m
+    steps = 0 if case == "nsteps0" else nsteps
+    args = (w16, s32, inits.int(), cinits.int())
+    if case not in _K6_WANT:  # the plain FSM takes seconds on the CPU
+        _K6_WANT[case] = gk.grc_decode_walk_plain(*args, mm, steps, 1024)
+    want = _K6_WANT[case]
+    dw, ds, di, dc = _on(cuda, args)
+    if case == "unaligned":
+        wide = torch.zeros((w16.shape[0] * w16.shape[1] + 3,),
+                           dtype=torch.int16, device=cuda)
+        wide[3:] = dw.reshape(-1)
+        dw = wide[3:].view(w16.shape)
+        assert dw.is_contiguous() and dw.data_ptr() % 16 != 0
+    got = gk.grc_decode_walk(dw, ds, di, dc, mm, steps, 1024, lanes=lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    if case in ("unaligned", "m_ragged"):
+        assert torch.equal(want.reshape(-1)[:mm], ranks[:mm])
+
+
 @pytest.mark.parametrize("name", ["pg1661_50k", "records", "tiny"])
 def test_bsc_on_card_matches_cpu(cuda, name):
     """The card writes the CPU path's bsc -e2 bytes and both decode

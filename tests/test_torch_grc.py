@@ -1,6 +1,7 @@
 """The port's group-rank coder (`tpulc_torch.codecs.bsclike.grc` and the
-plain versions of K5 and K6 in `grc_kernels`) against tpulc's on the
-same numpy rank streams: every integer output equal (tolerance 0).
+plain versions of K5, the reverse-rANS emission and K6 in
+`grc_kernels`) against tpulc's on the same numpy rank streams: every
+integer output equal (tolerance 0).
 
 tpulc's Pallas walks run in interpret mode, as `tests/test_grc.py`
 runs them; the port's plain versions are what its wrappers run for CPU
@@ -24,6 +25,7 @@ torch.set_num_threads(1)
 _t_binarize = jax.jit(tg._binarize, static_argnames=("W", "chunk", "bs"))
 _t_stats_quant = jax.jit(tg._stats_quant)
 _t_walk_probs = jax.jit(tg._walk_probs)
+_t_reverse_rans = jax.jit(tg._reverse_rans_t, static_argnames=("L", "W"))
 
 
 def _mk_ranks(n, seed=0, p_run=0.3, p_rank=0.5):
@@ -194,6 +196,53 @@ def test_decode_walk_clamps_reads_and_stops_at_nsteps():
     assert np.array_equal(ours.numpy().reshape(-1), xla)
 
 
+@pytest.mark.parametrize("case", ["real", "empty_lane", "nsteps0",
+                                  "short"])
+def test_reverse_rans_equals_tpulc(case):
+    """The emission's wrapper on CPU tensors (its plain version) against
+    tpulc's `_reverse_rans_t` on the same grids: words, counts and
+    states.  "empty_lane" zeroes one lane's events; "short" codes only
+    the first third of the rows (nsteps < W)."""
+    _, _, gmb, init, cinit, nsteps, W = _walk_inputs("mixed")
+    L = gmb.shape[1]
+    if case == "empty_lane":
+        gmb = gmb.clone()
+        gmb[:, 1] = 0
+    nsteps = {"nsteps0": 0, "short": nsteps // 3}.get(case, nsteps)
+    probs = pk.grc_walk_probs(gmb, init, cinit, nsteps)
+    words, counts, states = pk.grc_reverse_rans(gmb, probs, nsteps)
+    tw, tc, ts = _t_reverse_rans(jnp.asarray(gmb.numpy()),
+                                 jnp.asarray(probs.numpy()),
+                                 jnp.int32(nsteps), L=L, W=W)
+    assert words.shape == (L, W + 2) and words.dtype == torch.int32
+    assert np.array_equal(words.numpy(), np.asarray(tw).astype(np.int32))
+    assert np.array_equal(counts.numpy(), np.asarray(tc).astype(np.int64))
+    assert np.array_equal(states.numpy(), np.asarray(ts).astype(np.int64))
+    if case == "empty_lane":
+        assert counts[1] == 0 and states[1] == pg.RANS_L
+    if case == "nsteps0":
+        assert not words.any() and not counts.any()
+
+
+@pytest.mark.parametrize("lanes", [0, -1, 95])
+@pytest.mark.parametrize("kernel", ["walk", "decode"])
+def test_lanes_a_block_outside_the_shared_memory_raise(kernel, lanes):
+    """K5 and K6 hold at most MAX_LANES lanes a block (94: what one
+    SM's 227 KB of shared memory holds); other counts raise, on any
+    device."""
+    assert pk.MAX_LANES == 94
+    init = torch.full((pg.NM,), 2048, dtype=torch.int32)
+    cinit = torch.full((pg.NFAM,), 2048, dtype=torch.int32)
+    with pytest.raises(ValueError, match="lanes"):
+        if kernel == "walk":
+            pk.grc_walk_probs(torch.zeros((8, 4), dtype=torch.int32), init,
+                              cinit, 4, lanes=lanes)
+        else:
+            pk.grc_decode_walk(torch.zeros((4, 64), dtype=torch.int16),
+                               torch.zeros(4, dtype=torch.int32), init,
+                               cinit, 10, 5, 1024, lanes=lanes)
+
+
 def test_inits_pack_round_trip_equals_tpulc():
     rng = np.random.default_rng(3)
     tot = (rng.random(pg.NM) < 0.2).astype(np.int64) * 5
@@ -224,3 +273,11 @@ def test_wrappers_check_their_inputs():
         pk.grc_decode_walk(w.int(), s, init, cinit, 10, 5, 1024)
     with pytest.raises(ValueError):
         pk.grc_decode_walk(w, s[:3], init, cinit, 10, 5, 1024)
+    with pytest.raises(ValueError):
+        pk.grc_reverse_rans(g.long(), g, 4)
+    with pytest.raises(ValueError):
+        pk.grc_reverse_rans(g, g[:, :3].contiguous(), 4)
+    with pytest.raises(ValueError):
+        pk.grc_reverse_rans(g, g.T.contiguous().T, 4)
+    with pytest.raises(ValueError):
+        pk.grc_reverse_rans(g.T, g.T, 4)

@@ -12,10 +12,10 @@ counter and a block-static init, ``(19 * fine + 7 * coarse + 6 * init)
 Encode: `grc_lane_bits` (a pre-pass that sizes the grid) ->
 `_binarize` (the event grid, time-major [W, L]) -> `_stats_quant` (the
 wired inits) -> K5 `grc_walk_probs` (the forward model walk) ->
-`_reverse_rans_t` (reverse rANS emission, plain PyTorch: one vectorised
-step over all lanes per event step; tpulc leaves it to XLA too).
-Decode: K6 `grc_decode_walk`, the per-lane FSM with the same model
-arithmetic.
+`grc_reverse_rans` (the reverse-rANS emission, a CUDA kernel on the
+card, one thread a lane; tpulc leaves this stage to XLA).  Decode: K6
+`grc_decode_walk`, the per-lane FSM with the same model arithmetic.
+The kernels' wrappers and plain versions are in `grc_kernels.py`.
 
 tpulc builds the grid lane-major and transposes it for its walk kernel
 (`grc_pallas.py:213`); here `_binarize` writes it time-major directly.
@@ -277,55 +277,22 @@ def unpack_inits(buf: bytes, off: int):
     return inits, off
 
 
-def _reverse_rans_t(gmb: torch.Tensor, probs: torch.Tensor, nsteps: int):
-    """Reverse rANS emission over the time-major grids [W, L] ->
-    (words int32[L, W+2] (uint16 values), counts int64[L], states
-    int64[L] (uint32 values)).  Plain PyTorch: everything that does not
-    depend on the state x is computed for the whole grid first, so each
-    of the nsteps serial steps is a handful of [L] ops."""
-    W, L = gmb.shape
-    dev = gmb.device
-    e = gmb[:nsteps]
-    vq = e > 0
-    p1 = probs[:nsteps].to(torch.int64)
-    b1 = (e & 1) == 1
-    f = torch.where(b1, p1, SCALE - p1)
-    c = torch.where(b1, SCALE - p1, 0)
-    x_max = (f << (32 - PROB_BITS)) & M32
-    fx = f.clamp(min=1)
-    x = torch.full((L,), RANS_L, dtype=torch.int64, device=dev)
-    emit = torch.empty((nsteps, L), dtype=torch.int32, device=dev)
-    emask = torch.empty((nsteps, L), dtype=torch.bool, device=dev)
-    for i in range(nsteps):
-        t = nsteps - 1 - i
-        do = vq[t] & (x >= x_max[t])
-        emit[i] = x & 0xFFFF
-        emask[i] = do
-        x = torch.where(do, x >> 16, x)
-        q = torch.div(x, fx[t], rounding_mode="floor")
-        x = torch.where(vq[t], ((q << PROB_BITS) + (x - q * fx[t]) + c[t])
-                        & M32, x)
-    counts = emask.sum(dim=0)
-    pos_in_lane = torch.cumsum(emask.to(torch.int64), dim=0) - 1
-    tgt = torch.where(emask, counts - 1 - pos_in_lane, W + 2)
-    words = torch.zeros((L, W + 3), dtype=torch.int32, device=dev)
-    words.scatter_(1, tgt.T, emit.T)
-    return words[:, : W + 2], counts, x
-
-
 def grc_encode(ranks: torch.Tensor, m: int, W: int, chunk: int = GCHUNK):
     """binarize -> block stats -> init quantisation -> K5 forward model
-    walk -> reverse rANS -> (words int32[L, W+2], counts int64[L],
+    walk -> reverse-rANS emission -> (words int32[L, W+2], counts int64[L],
     states int64[L], inits int32[NM], cinits int32[NFAM], tot
     int64[NM]); the values of tpulc's `grc_encode`."""
-    from tpulc_torch.codecs.bsclike.grc_kernels import grc_walk_probs
+    from tpulc_torch.codecs.bsclike.grc_kernels import (
+        grc_reverse_rans,
+        grc_walk_probs,
+    )
 
     gmb, lane_bits = _binarize(ranks, m, W, chunk)
     init, cinit, tot = _stats_quant(gmb)
     nsteps = int(lane_bits.max()) if lane_bits.numel() else 0
     probs = grc_walk_probs(gmb, init.contiguous(), cinit.contiguous(),
                            nsteps)
-    words, counts, states = _reverse_rans_t(gmb, probs, nsteps)
+    words, counts, states = grc_reverse_rans(gmb, probs, nsteps)
     return words, counts, states, init, cinit, tot
 
 

@@ -1,17 +1,22 @@
-"""The group-rank coder's model walks K5 and K6: wrappers, launch counts
-and plain versions.
+"""The group-rank coder's kernels: wrappers, launch counts and plain
+versions.
 
-The counterparts of `tpulc/codecs/bsclike/grc_pallas.py`:
+The counterparts of `tpulc/codecs/bsclike/grc_pallas.py` and of one
+stage tpulc leaves to XLA:
 
-  K5 `grc_walk_probs`   `grc_walk_probs_pallas`, CUDA source
-                        `csrc/grc_walk.cu`: the encode-side forward
-                        model walk;
-  K6 `grc_decode_walk`  `grc_decode_pallas`, `csrc/grc_decode.cu`: the
-                        per-lane decode FSM.
+  K5 `grc_walk_probs`    `grc_walk_probs_pallas`, CUDA source
+                         `csrc/grc_walk.cu`: the encode-side forward
+                         model walk;
+  `grc_reverse_rans`     `grc._reverse_rans_t` (an XLA loop in tpulc),
+                         `csrc/grc_rans.cu`: the reverse-rANS emission
+                         that reads K5's output;
+  K6 `grc_decode_walk`   `grc_decode_pallas`, `csrc/grc_decode.cu`: the
+                         per-lane decode FSM.
 
 Design notes are in the CUDA sources.  A CPU tensor runs the plain
 PyTorch version; a CUDA tensor launches the kernel (adding one to the
-wrapper's `launches`) or raises.
+wrapper's `launches`) or raises.  K5 and K6 hold MAX_LANES lanes a
+CUDA block, or their `lanes` argument.
 
 Contract of K5: `gmb` int32[W, L] is the event grid, time-major (record
 ``(model + 1) * 2 + bit``, 0 = empty slot); `init` int32[NM] and
@@ -20,6 +25,12 @@ Contract of K5: `gmb` int32[W, L] is the event grid, time-major (record
 event t (an empty slot holds model 0's mix and updates nothing); rows
 at or past nsteps hold 0.  Model ids are clamped to [0, NM): a record
 past ``2 * NM + 1`` reads model NM-1 (tpulc's encoder never writes one).
+
+Contract of the emission: `gmb` and `probs` int32[W, L] (K5's input and
+output) -> words int32[L, W+2] (uint16 values), counts int64[L], states
+int64[L] (uint32 values).  Each lane runs rANS backwards over its events
+t < nsteps from the state 2^16; row l of `words` holds its first
+``counts[l]`` words in stream order, then zeros.
 
 Contract of K6: `words` int16[L, Wc] holds each lane's uint16 stream,
 `states` int32[L] the final encoder states (uint32 bit patterns),
@@ -58,6 +69,18 @@ from tpulc_torch.codecs.bsclike.grc import (
 )
 
 M32 = 0xFFFFFFFF
+# lanes a K5/K6 block holds by default, the most that fit: each lane's
+# NM uint16 counters plus one init table in sm_90's 227 KB (232,448 B)
+# of opt-in shared memory.  chip_smoke.py measures 32, 64 and 94.
+MAX_LANES = (232_448 - 2 * NM) // (2 * NM)     # 94
+
+
+def _lanes(lanes: int | None) -> int:
+    if lanes is None:
+        return MAX_LANES
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"lanes {lanes} outside [1, {MAX_LANES}]")
+    return lanes
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
@@ -114,11 +137,13 @@ def grc_walk_probs_plain(gmb: torch.Tensor, init: torch.Tensor,
 
 
 def grc_walk_probs(gmb: torch.Tensor, init: torch.Tensor,
-                   cinit: torch.Tensor, nsteps: int) -> torch.Tensor:
+                   cinit: torch.Tensor, nsteps: int,
+                   lanes: int | None = None) -> torch.Tensor:
     """K5 wrapper (see the module docstring)."""
     _check("gmb", gmb, torch.int32, (None, None))
     _check("init", init, torch.int32, (NM,))
     _check("cinit", cinit, torch.int32, (NFAM,))
+    lanes = _lanes(lanes)
     if _device(gmb, init, cinit).type == "cpu":
         return grc_walk_probs_plain(gmb, init, cinit, nsteps)
     lib = cuda_lib.library()
@@ -128,12 +153,75 @@ def grc_walk_probs(gmb: torch.Tensor, init: torch.Tensor,
         cuda_lib.check(lib.tplc_grc_walk_probs(
             gmb.data_ptr(), init.data_ptr(), cinit.data_ptr(),
             probs.data_ptr(), W, L, max(0, min(nsteps, W)),
-            cuda_lib.stream_of(gmb)), "grc_walk_probs")
+            lanes, cuda_lib.stream_of(gmb)), "grc_walk_probs")
     grc_walk_probs.launches += 1
     return probs
 
 
 grc_walk_probs.launches = 0
+
+
+# ------------------------------------------------- reverse-rANS emission
+
+def grc_reverse_rans_plain(gmb: torch.Tensor, probs: torch.Tensor,
+                           nsteps: int):
+    """The emission's contract in plain PyTorch: everything that does not
+    depend on the state x is computed for the whole grid first, so each
+    of the nsteps serial steps is a handful of [L] ops; uint32 in int64
+    masked to 32 bits."""
+    W, L = gmb.shape
+    nsteps = max(0, min(nsteps, W))
+    dev = gmb.device
+    e = gmb[:nsteps]
+    vq = e > 0
+    p1 = probs[:nsteps].to(torch.int64)
+    b1 = (e & 1) == 1
+    f = torch.where(b1, p1, SCALE - p1)
+    c = torch.where(b1, SCALE - p1, 0)
+    x_max = (f << (32 - PROB_BITS)) & M32
+    fx = f.clamp(min=1)
+    x = torch.full((L,), RANS_L, dtype=torch.int64, device=dev)
+    emit = torch.empty((nsteps, L), dtype=torch.int32, device=dev)
+    emask = torch.empty((nsteps, L), dtype=torch.bool, device=dev)
+    for i in range(nsteps):
+        t = nsteps - 1 - i
+        do = vq[t] & (x >= x_max[t])
+        emit[i] = x & 0xFFFF
+        emask[i] = do
+        x = torch.where(do, x >> 16, x)
+        q = torch.div(x, fx[t], rounding_mode="floor")
+        x = torch.where(vq[t], ((q << PROB_BITS) + (x - q * fx[t]) + c[t])
+                        & M32, x)
+    counts = emask.sum(dim=0)
+    pos_in_lane = torch.cumsum(emask.to(torch.int64), dim=0) - 1
+    tgt = torch.where(emask, counts - 1 - pos_in_lane, W + 2)
+    words = torch.zeros((L, W + 3), dtype=torch.int32, device=dev)
+    words.scatter_(1, tgt.T, emit.T)
+    return words[:, : W + 2], counts, x
+
+
+def grc_reverse_rans(gmb: torch.Tensor, probs: torch.Tensor, nsteps: int):
+    """Emission wrapper (see the module docstring)."""
+    _check("gmb", gmb, torch.int32, (None, None))
+    W, L = gmb.shape
+    _check("probs", probs, torch.int32, (W, L))
+    if _device(gmb, probs).type == "cpu":
+        return grc_reverse_rans_plain(gmb, probs, nsteps)
+    lib = cuda_lib.library()
+    words = torch.zeros((L, W + 2), dtype=torch.int32, device=gmb.device)
+    counts = torch.empty(L, dtype=torch.int64, device=gmb.device)
+    states = torch.empty(L, dtype=torch.int64, device=gmb.device)
+    with torch.cuda.device(gmb.device):
+        cuda_lib.check(lib.tplc_grc_reverse_rans(
+            gmb.data_ptr(), probs.data_ptr(), words.data_ptr(),
+            counts.data_ptr(), states.data_ptr(), W, L,
+            max(0, min(nsteps, W)), cuda_lib.stream_of(gmb)),
+            "grc_reverse_rans")
+    grc_reverse_rans.launches += 1
+    return words, counts, states
+
+
+grc_reverse_rans.launches = 0
 
 
 # --------------------------------------------------------------- K6
@@ -278,7 +366,8 @@ def grc_decode_walk_plain(words: torch.Tensor, states: torch.Tensor,
 
 def grc_decode_walk(words: torch.Tensor, states: torch.Tensor,
                     init: torch.Tensor, cinit: torch.Tensor, m: int,
-                    nsteps: int, chunk: int) -> torch.Tensor:
+                    nsteps: int, chunk: int,
+                    lanes: int | None = None) -> torch.Tensor:
     """K6 wrapper (see the module docstring)."""
     _check("words", words, torch.int16, (None, None))
     L, Wc = words.shape
@@ -287,6 +376,7 @@ def grc_decode_walk(words: torch.Tensor, states: torch.Tensor,
     _check("cinit", cinit, torch.int32, (NFAM,))
     if Wc < 1 or chunk < 1:
         raise ValueError("need at least one word column and chunk >= 1")
+    lanes = _lanes(lanes)
     if _device(words, states, init, cinit).type == "cpu":
         return grc_decode_walk_plain(words, states, init, cinit, m, nsteps,
                                      chunk)
@@ -297,7 +387,8 @@ def grc_decode_walk(words: torch.Tensor, states: torch.Tensor,
         cuda_lib.check(lib.tplc_grc_decode(
             words.data_ptr(), states.data_ptr(), init.data_ptr(),
             cinit.data_ptr(), out.data_ptr(), L, Wc, m, max(0, nsteps),
-            chunk, cuda_lib.stream_of(words)), "grc_decode_walk")
+            chunk, lanes, cuda_lib.stream_of(words)),
+            "grc_decode_walk")
     grc_decode_walk.launches += 1
     return out
 

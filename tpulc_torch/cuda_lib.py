@@ -41,8 +41,9 @@ _SIGNATURES = {
                              _I, _I, _P],
     "tplc_huffman_walk_flat": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
                                _P],
-    "tplc_grc_walk_probs": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "tplc_grc_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tplc_grc_walk_probs": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tplc_grc_reverse_rans": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tplc_grc_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: types.SimpleNamespace | None = None
