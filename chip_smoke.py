@@ -11,22 +11,31 @@ Phases (any failure exits non-zero before the last line is printed):
    PyTorch version on the card at the main path's shapes (7,032 chunks
    x 128 from a real 900 KB block; K3 on that block's real stream):
    bit-identical, timed with CUDA events (median of 5 after warm-up);
+   then every build of the two redesigned walks at this shape, each
+   equal to the plain version: K4 at 32, 16 and 8 lanes a chunk (ms,
+   ns a step, registers, waves) and as `mtf_decode` calls it (identity start without symbols; without the final table),
+   K3 at 32-, 64- and 128-chunk tiles;
 4. the bz main path: bz compress + decompress of pg1661 x 6 (3,569,598
    B, 900,000 B blocks) through the codec entry points on the card, with
    every kernel's launch count reset before and read after; exact round
    trip, ratio 4.145, each kernel launched, the container byte-identical
    to the port's CPU path on a small input; MB/s from warm repeats;
+   stage times and a torch.profiler trace of one warm compress and one
+   warm decompress;
 5. the huffman kernels (K3 packed, K7 v1, K8 flat) against their plain
    versions at the huffman path's full width: the 100 MB group of 96
    blocks x 8,192 chunks x 128 symbols from its real streams;
-   bit-identical, timed as in phase 3;
+   bit-identical, timed as in phase 3; K3 packed at every tile; and K3
+   on two streams whose chunk offsets are in random order, which sends
+   every tile down its global-memory route, equal to the plain version;
 6. the huffman main path: compress + decompress of 100,000,000 B of
    pg1661 at 1 MiB blocks, counted as in phase 4: exact round trip, the
    container's size and sha256 equal to tpulc's, K3 launched; decoded
    again with kernel="v1" and "flat" (K7 and K8 counted the same way);
    pg1661 x 6 at 1 MiB equal to tpulc's container; MB/s from warm
    repeats, decode-only GB/s per decoder on device-resident parsed
-   input, the self-sync decode's time, and peak device memory;
+   input, the self-sync decode's time, peak device memory, stage times
+   and a trace as in phase 4;
 7. the group-rank coder's kernels (K5 model walk, the reverse-rANS
    emission that reads K5's output, K6 decode FSM) against their plain
    versions on real grids at both bsc shapes: pg1661 x 6 at 4 MiB
@@ -34,21 +43,27 @@ Phases (any failure exits non-zero before the last line is printed):
    of word soup (25,600 lanes); bit-identical, timed as in phase 3 (the
    plain versions once: they take seconds); then K5 and K6 at 32, 64
    and 94 lanes a block (each output equal), with ns a step and waves;
+   and K1, K2 and K4 at the soup shape (204,800 chunks x 128 from that
+   block's real BWT output; the plain K2 and K4 once), with every K4
+   build as in phase 3;
 8. the bsc -e2 main path, counted as in phase 4: pg1661 x 6 at 4 MiB
    blocks (exact round trip, ratio 21.281, tpulc's sha256, K1, K2, K4
    launched, K5, the emission and K6 once per block, the card's
    container equal to the CPU path's on 50 KB, MB/s from warm repeats),
    then 100,000,000 B of bench.py's word soup at 25 MiB blocks (4
-   blocks, exact round trip, K5, the emission and K6 once per block,
-   MB/s, stage times, peak device memory, and a torch.profiler trace of
-   one warm compress and one warm decompress: device-busy share and the
-   top device times).
+   blocks, exact round trip, K1, K2, K5, the emission and K6 once and
+   K4 twice per block, MB/s, stage times, peak device memory, and a
+   torch.profiler trace of one warm compress and one warm decompress:
+   device-busy share and the top device times).
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its integer operations over 67 T op/s (the H100 SXM figures of
 NVIDIA's data sheet), and, where one PyTorch call computes the same
-function (K1: `scatter_reduce_` "amax"), that call's time.
+function (K1: `scatter_reduce_` "amax"), that call's time.  `ms` is the
+wrapper's call between two CUDA events; `device_ms` is the kernel
+alone, from a CUDA graph of 5 calls replayed, because the wrapper's
+host time exceeds a kernel of some tens of microseconds.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -95,8 +110,11 @@ SOUP_WORDS = [
 # operations/s outside the tensor cores
 HBM_BPS = 3.35e12
 SCALAR_OPS = 67e12
-# integer operations per step, counted from the kernel sources: a K3/K7/
-# K8 symbol costs its L-deep length classifier plus ~10; a K5 event ~50
+# integer operations per step, counted from the function each kernel
+# computes and not from its design: a Huffman symbol (K3, K7, K8) costs
+# its L length compares plus ~10 (window, index, reservoir); a K4 step
+# its rank + 2 moves (the entries that shift, the read and the write of
+# the symbol); a K2 step its O(rank) find and shift; a K5 event ~50
 # (model pick, family, mix, two adaptations, coarse select chain); a K6
 # event ~140 (contexts, model pick, mix, rANS step, adaptations, FSM); an
 # emission event ~35 (coding interval, renormalisation test, a 32-bit
@@ -172,6 +190,22 @@ def time_ms(torch, fn, reps: int = 5, warm: bool = True) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, reps: int = 5) -> float:
+    """Median time on the device of one fn(): `reps` calls captured into
+    a CUDA graph and the graph replayed between two events, so that the
+    wrapper's host time, which exceeds a kernel of some tens of
+    microseconds and then sets what events around a call read, is out
+    of it.  fn() must launch on the current stream and never wait for
+    the device."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(torch, graph.replay) / reps
+
+
 def max_abs_err(torch, got, want) -> int:
     if isinstance(got, tuple):
         return max(max_abs_err(torch, g, w) for g, w in zip(got, want))
@@ -181,8 +215,10 @@ def max_abs_err(torch, got, want) -> int:
 def check_kernels(torch, checks: list[dict]) -> list[dict]:
     """Each check (name, src, replaces, kern, plain, args, shape, ops,
     and optionally bytes, library, plain_reps) against its plain version
-    on the same card tensors.  `bytes` defaults to every tensor argument
-    read once plus the output written once; `library` is one PyTorch
+    on the same card tensors.  `ms` is the wrapper's call between two
+    CUDA events, `device_ms` the kernel alone (see `device_ms`).
+    `bytes` defaults to every tensor argument read once plus the
+    output written once; `library` is one PyTorch
     call computing the same function, timed beside the kernel.
     Launches are filled in from the main path's run later."""
     kernels = []
@@ -194,6 +230,7 @@ def check_kernels(torch, checks: list[dict]) -> list[dict]:
         moved = c.get("bytes") or nbytes(list(args)) + nbytes(got)
         del got, want
         ms = time_ms(torch, lambda: kern(*args))
+        dev_ms = device_ms(torch, lambda: kern(*args))
         reps = c.get("plain_reps", 5)
         plain_ms = time_ms(torch, lambda: plain(*args), reps, reps > 1)
         library_ms = None
@@ -201,13 +238,15 @@ def check_kernels(torch, checks: list[dict]) -> list[dict]:
             library_ms = time_ms(torch, c["library"])
         b = bound(moved, c["ops"])
         print(f"kernel {c['name']}: shape {c['shape']} max_abs_err {err} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+              f"kernel {ms:.4f} ms (on the device {dev_ms:.4f}) plain "
+              f"{plain_ms:.4f} ms library "
               f"{library_ms} ms bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']}: {moved} B, {c['ops']} ops)", flush=True)
         require(err == 0, f"{c['name']} disagrees with its plain version")
         kernels.append({"name": c["name"], "route": "cuda",
                         "source": c["src"], "replaces": c["replaces"],
                         "launches": 0, "max_abs_err": err, "ms": ms,
+                        "device_ms": dev_ms,
                         "plain_ms": plain_ms, **b, "library_ms": library_ms})
     return kernels
 
@@ -228,6 +267,104 @@ def counted(torch, wrappers: dict, fn):
         w.launches = 0
     out, dt = synced(torch, fn)
     return out, dt, {k: w.launches for k, w in wrappers.items()}
+
+
+def k4_ops(ranks) -> int:
+    """MTF by rank on these ranks: rank + 2 moves a step."""
+    return int((ranks.clamp(0, 255).long() + 2).sum())
+
+
+def ptxas_registers(log: str) -> dict:
+    """nvcc -Xptxas=-v output -> {mangled entry name: registers}."""
+    regs, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and "registers" in line and entry:
+            regs[entry] = int(line.split("Used")[1].split("registers")[0])
+    return regs
+
+
+def resident_warps(regs: int) -> int:
+    """Warps of `regs` registers a thread that one SM's 65,536 registers
+    hold (allocated 256 a warp at a time), at most 64."""
+    return min(64, 65_536 // (-(-regs * 32 // 256) * 256))
+
+
+def k4_variants(torch, mk, cuda_lib, table0, ranks, want) -> dict:
+    """K4 at every lanes-a-chunk build (each output equal
+    to `want`, the plain version's), with ms, ns a step and waves; and
+    the two calls `mtf_decode` makes (identity start without symbols;
+    without the final table), each equal to the plain version of the
+    same arguments, with the bound of the bytes that call must move."""
+    from functools import partial
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    regs = ptxas_registers(cuda_lib.build_log.get("mtf.cu", ""))
+    nchunks, C = ranks.shape
+    out = {"shape": f"{nchunks}x{C}", "sms": sms, "builds": {}}
+    for lanes in mk.LANES:
+        fn = partial(mk.mtf_lockstep, table0, ranks, lanes=lanes)
+        got = fn()
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"K4 at {lanes} lanes differs from plain")
+        del got
+        ms = device_ms(torch, fn)
+        row = {"device_ms": ms, "ns_per_step": ms * 1e6 / C}
+        r = next((v for k, v in regs.items()
+                  if f"mtf_decode_kernelILi{lanes}EE" in k), None)
+        if r is not None:
+            warps = nchunks * lanes // 32
+            row["registers"] = r
+            row["waves"] = -(-warps // (sms * resident_warps(r)))
+        out["builds"][f"lanes{lanes}"] = row
+    calls = {"perm": dict(table0=None, want_syms=False),
+             "syms": dict(table0=table0, want_table=False)}
+    for tag, kw in calls.items():
+        t0 = kw.pop("table0")
+        got = mk.mtf_lockstep(t0, ranks, **kw)
+        ref = mk.mtf_lockstep_plain(t0, ranks, **kw)
+        torch.cuda.synchronize()
+        require(all((g is None and w is None) or torch.equal(g, w)
+                    for g, w in zip(got, ref)),
+                f"K4 call '{tag}' differs from its plain version")
+        moved = nbytes([t0, ranks]) + nbytes([g for g in got if g is not None])
+        del got, ref
+        out[tag] = {"device_ms": device_ms(torch, lambda: mk.mtf_lockstep(
+            t0, ranks, **kw)), "bytes": moved, **bound(moved, k4_ops(ranks))}
+    return out
+
+
+def k3_tiles(torch, dk, cuda_lib, args, packed: bool, want) -> dict:
+    """K3 at every tile (each output equal to `want`), with device ms, ns a symbol step, the blocks an SM's shared
+    memory and registers hold, and waves."""
+    from functools import partial
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    L = args[7]
+    lt = L if L in (12, 15) else 0
+    regs = next((v for k, v in ptxas_registers(
+        cuda_lib.build_log.get("huffman_walk.cu", "")).items()
+        if f"huffman_walk_kernelILi{lt}ELb{int(packed)}EE" in k), 64)
+    B, nsub, C = args[0].shape[0], args[2].shape[0], args[6]
+    slab = min(C, 128) // (4 if packed else 1)
+    out = {"shape": f"{nsub}x{C}", "packed": packed, "registers": regs,
+           "builds": []}
+    for tile in dk.WALK_TILES:
+        fn = partial(dk.huffman_walk, *args, packed=packed, tile=tile)
+        require(torch.equal(fn(), want), f"K3 at tile {tile} differs")
+        ms = device_ms(torch, fn)
+        # csrc/huffman_walk.cu launch(): stage, base columns, output
+        # tile, and the window table where the walk may build one
+        lut = packed and L <= 12 and (1 << L) <= 32 * tile
+        smem = 4 * tile * (36 + 17 + -(-slab // 4) * 4 + 4) \
+            + ((2 << L) if lut else 0)
+        resident = min(233_472 // (smem + 1024),
+                       resident_warps(regs) * 32 // tile, 32)
+        out["builds"].append({
+            "tile": tile, "device_ms": ms, "ns_per_step": ms * 1e6 / C,
+            "smem_bytes": smem, "blocks_per_sm": resident})
+    return out
 
 
 def main() -> int:
@@ -317,9 +454,15 @@ def main() -> int:
         dict(name="mtf_lockstep", src="tpulc_torch/csrc/mtf.cu",
              replaces="tpulc/primitives/mtf_pallas.py:89",
              kern=mk.mtf_lockstep, plain=mk.mtf_lockstep_plain,
-             args=(table0, ranks), shape=mtf_shape,
-             ops=int((ranks.long() + 2).sum())),
+             args=(table0, ranks), shape=mtf_shape, ops=k4_ops(ranks)),
     ])
+    # every build of the two redesigned kernels at this shape
+    k4 = k4_variants(torch, mk, cuda_lib, table0, ranks,
+                     mk.mtf_lockstep_plain(table0, ranks))
+    kernels[-1]["calls"] = {t: k4[t] for t in ("perm", "syms")}
+    print(json.dumps({"bz_shape_builds": {
+        "k4": k4, "k3": k3_tiles(torch, dk, cuda_lib, walk, False,
+                                 dk.huffman_walk_plain(*walk))}}), flush=True)
 
     # 4. the main path, counted
     wrappers = {"mtf_recency": mk.mtf_recency,
@@ -382,6 +525,10 @@ def main() -> int:
             "timing": "median of 3 warm runs, host clock, synchronized",
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         }}))
+    print(json.dumps({"bz_pg1661x6_profile": path_profile(
+        torch, lambda: driver.compress(data, block_size=BLOCK, device="cuda"),
+        lambda c: driver.decompress(c, device="cuda"), len(data))}),
+        flush=True)
     huffman_phases(torch, here, dev, kernels)
     bsc_phases(torch, here, dev, kernels)
     print(json.dumps({"kernels": kernels}))
@@ -395,6 +542,7 @@ def huffman_phases(torch, here: str, dev, kernels: list) -> None:
     """Phases 5 and 6; appends K3 packed, K7 and K8 to `kernels`."""
     from functools import partial
 
+    from tpulc_torch import cuda_lib
     from tpulc_torch.codecs.huffman import decode as hdec
     from tpulc_torch.codecs.huffman import decode_kernels as dk
     from tpulc_torch.codecs.huffman import driver as hdrv
@@ -436,7 +584,30 @@ def huffman_phases(torch, here: str, dev, kernels: list) -> None:
              args=fargs, shape=f"{fargs[1].shape[0]}x{chunk}",
              ops=fargs[1].shape[0] * chunk * (L + HUFF_OPS)),
     ])
-    del wargs, fargs
+    tiles = k3_tiles(torch, dk, cuda_lib, wargs, True,
+                     dk.huffman_walk_plain(*wargs, packed=True))
+    # the global-memory route: the first two streams with their chunks'
+    # offsets in random order, so no tile's span fits the stage
+    ccap = offs.shape[1]
+    perm = torch.cat([b * ccap + torch.randperm(
+        ccap, generator=torch.Generator().manual_seed(b)) for b in range(2)])
+    hostile = (wargs[0][:2].contiguous(), wargs[1][:2].contiguous(),
+               wargs[2][perm.to(dev)].contiguous(), wargs[3], wargs[4],
+               wargs[5][: 2 * ccap].contiguous(), chunk, L)
+    for packed in (True, False):
+        got = dk.huffman_walk(*hostile, packed=packed)
+        torch.cuda.synchronize()
+        require(torch.equal(got, dk.huffman_walk_plain(*hostile,
+                                                       packed=packed)),
+                f"K3's global-memory route differs (packed={packed})")
+        del got
+    tiles["global_route_2_streams_device_ms"] = device_ms(
+        torch, lambda: dk.huffman_walk(*hostile, packed=True))
+    tiles["staged_route_2_streams_device_ms"] = device_ms(
+        torch, lambda: dk.huffman_walk(*hostile[:2], wargs[2][: 2 * ccap],
+                                       *hostile[3:], packed=True))
+    print(json.dumps({"huffman_shape_builds": {"k3": tiles}}), flush=True)
+    del wargs, fargs, hostile
 
     # 6. the huffman main path, counted; then v1 and flat, each counted
     torch.cuda.reset_peak_memory_stats()
@@ -505,12 +676,18 @@ def huffman_phases(torch, here: str, dev, kernels: list) -> None:
         "timing": "median of 3 warm runs, host clock, synchronized",
         "peak_mem_bytes": peak,
     }}), flush=True)
+    print(json.dumps({"huffman_100MB_profile": path_profile(
+        torch,
+        lambda: hdrv.compress(big, block_size=HUFF_BLOCK, device="cuda"),
+        lambda c: hdrv.decompress(c, device="cuda"), HUFF_SIZE)}),
+        flush=True)
 
 
 def grc_grid(torch, bsc, data: bytes, block: int, dev):
     """K5's inputs as the bsc -e2 path builds them for the first block
     of `data` (filter, LZP, masked BWT + MTF, lane pre-pass, event grid,
-    wired inits) -> (gmb, init, cinit, nsteps, lane_bits)."""
+    wired inits) -> (gmb, init, cinit, nsteps, lane_bits, ranks), ranks
+    being the block's MTF ranks int32[cap]."""
     import numpy as np
 
     from tpulc_torch.codecs.bsclike import grc
@@ -532,7 +709,8 @@ def grc_grid(torch, bsc, data: bytes, block: int, dev):
     nsteps = int(lane_bits.max())
     gmb, _ = grc._binarize(ranks, stage.shape[0], grc.bucket_bits(nsteps))
     init, cinit, _ = grc._stats_quant(gmb)
-    return gmb, init.contiguous(), cinit.contiguous(), nsteps, lane_bits
+    return (gmb, init.contiguous(), cinit.contiguous(), nsteps, lane_bits,
+            ranks)
 
 
 def bsc_phases(torch, here: str, dev, kernels: list) -> None:
@@ -553,8 +731,11 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
     # shapes' grids
     for label, data, block in (("pg1661x6_4MiB", pg6, BSC_BLOCK),
                                ("soup_25MiB", big, SOUP_BLOCK)):
-        gmb, init, cinit, nsteps, lane_bits = grc_grid(torch, bsc, data,
-                                                       block, dev)
+        gmb, init, cinit, nsteps, lane_bits, ranks = grc_grid(
+            torch, bsc, data, block, dev)
+        if label == "soup_25MiB":
+            mtf_entries = mtf_soup_entries(torch, ranks)
+        del ranks
         W, L = gmb.shape
         events = int(lane_bits.sum())
         probs = gk.grc_walk_probs(gmb, init, cinit, nsteps)
@@ -596,6 +777,7 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
                                        k6, entries)}}), flush=True)
         del gmb, probs, k6
     kernels += entries   # the full-width (soup) shape
+    kernels += mtf_entries
 
     # 8. the bsc -e2 main path, counted
     path = {"mtf_recency": mk.mtf_recency,
@@ -669,9 +851,14 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
     require(nblocks == 4, f"soup gave {nblocks} blocks, not 4")
     require(all(counts[k] == nblocks for k in grc_path),
             f"K5/emission/K6 not launched once per block: {counts}")
+    require(all(counts[k] == n * nblocks for k, n in (
+        ("mtf_recency", 1), ("mtf_encode_lockstep", 1), ("mtf_lockstep", 2))),
+        f"K1, K2 not once and K4 not twice per block: {counts}")
     for k in kernels:
         if k["name"] in grc_path:
             k["launches"] = counts[k["name"]]
+        elif k["name"].endswith("@soup"):
+            k["launches"] = counts[k["name"][: -len("@soup")]]
     reps = 3 if dt < 60 else 1
     print(json.dumps({"bsc_e2_soup100MB": {
         "input_bytes": SOUP_SIZE, "block_size": SOUP_BLOCK,
@@ -684,6 +871,51 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
             big, block_size=SOUP_BLOCK, coder=2, device="cuda")),
         "decompress": traced(torch, lambda: bsc.decompress(
             comp, device="cuda"))}}), flush=True)
+
+
+def mtf_soup_entries(torch, ranks) -> list:
+    """K1, K2 and K4 at the bsc soup shape: the first 25 MiB block's MTF
+    ranks int32[cap] as 204,800 chunks of 128, its BWT output recovered
+    through `mtf_decode`, the start tables as the forward path makes
+    them.  The plain K2 and K4 run once (~0.3 s each).  Also prints
+    every K4 build at this shape."""
+    from tpulc_torch import cuda_lib
+    from tpulc_torch.primitives import mtf_kernels as mk
+    from tpulc_torch.primitives.mtf import mtf_decode, start_tables
+
+    r = ranks.reshape(-1, 128).contiguous()
+    d = mtf_decode(ranks.to(torch.uint8)).to(torch.int32).reshape(
+        -1, 128).contiguous()
+    table0 = start_tables(mk.mtf_recency(d), 128)
+    require(torch.equal(mk.mtf_encode_lockstep(table0, d)[0], r),
+            "K2 does not re-encode the soup block's ranks")
+    shape = "x".join(map(str, d.shape))
+    src = "tpulc_torch/csrc/mtf.cu"
+    entries = check_kernels(torch, [
+        dict(name="mtf_recency@soup", src=src,
+             replaces="tpulc/primitives/mtf_pallas.py:215",
+             kern=mk.mtf_recency, plain=mk.mtf_recency_plain, args=(d,),
+             shape=shape, ops=d.numel() + 256 * d.shape[0]),
+        dict(name="mtf_encode_lockstep@soup", src=src,
+             replaces="tpulc/primitives/mtf_pallas.py:156",
+             kern=mk.mtf_encode_lockstep,
+             plain=mk.mtf_encode_lockstep_plain, args=(table0, d),
+             shape=shape, ops=int((2 * r.long() + 2).sum()), plain_reps=1),
+        dict(name="mtf_lockstep@soup", src=src,
+             replaces="tpulc/primitives/mtf_pallas.py:89",
+             kern=mk.mtf_lockstep, plain=mk.mtf_lockstep_plain,
+             args=(table0, r), shape=shape, ops=k4_ops(r), plain_reps=1),
+    ])
+    k4 = k4_variants(torch, mk, cuda_lib, table0, r,
+                     mk.mtf_lockstep_plain(table0, r))
+    entries[-1]["calls"] = {t: k4[t] for t in ("perm", "syms")}
+    for e in entries:
+        e["shape"] = shape
+        e["ns_per_step"] = e["device_ms"] * 1e6 / d.shape[1]
+    print(json.dumps({"soup_shape_builds": {
+        "k4": k4, "zero_rank_share": float((r == 0).float().mean())}}),
+        flush=True)
+    return entries
 
 
 def lanes_sweep(torch, gk, gmb, init, cinit, nsteps, k6, entries) -> dict:
@@ -753,6 +985,21 @@ def traced(torch, fn) -> dict:
             "busy_share": busy_us / 1e6 / wall,
             "top": [{"name": k[:80], "ms": us / 1e3, "calls": n}
                     for k, (us, n) in top]}
+
+
+def path_profile(torch, compress, decompress, total_bytes: int) -> dict:
+    """Where a warm round trip's time goes: the codec's own stage
+    timers over one compress() and one decompress(comp), then each
+    under torch.profiler (`traced`)."""
+    from tpulc_torch.utils import timing
+
+    timer = timing.enable()
+    comp, _ = synced(torch, compress)
+    synced(torch, lambda: decompress(comp))
+    stages = timer.report(total_bytes=total_bytes)
+    timing.disable()
+    return {"stages": stages, "compress": traced(torch, compress),
+            "decompress": traced(torch, lambda: decompress(comp))}
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@ card: `python -m pytest tests/test_torch_cuda_kernels.py -m cuda`."""
 import numpy as np
 import pytest
 import torch
+from test_torch_walk_cases import K3_CASES, K4_CASES, k3_case, k4_case
 
 from tpulc_torch.codecs.bwt import driver
 from tpulc_torch.codecs.huffman import decode_kernels as dk
@@ -46,6 +47,122 @@ def test_k1_k2_k4_equal_plain(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got[0].cpu(), want[0])
         assert torch.equal(got[1].cpu(), want[1])
+
+
+def _shifted(t, dev, by=1):
+    """A contiguous copy of t on dev whose storage starts `by` elements
+    into a wider buffer: 4-byte but not 16-byte aligned."""
+    wide = torch.zeros(t.numel() + by, dtype=t.dtype, device=dev)
+    wide[by:] = t.reshape(-1).to(dev)
+    out = wide[by:].view(t.shape)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("lanes", mk.LANES)
+@pytest.mark.parametrize("name", K4_CASES)
+def test_k4_variants_equal_plain(cuda, name, lanes):
+    """Every lanes-a-chunk build on every edge case, at
+    chunk counts that leave a ragged last block (1, 31, 33, 301) and at
+    chunk lengths that are no multiple of the batch (100), of 4 (130:
+    the scalar accesses) or longer than one batch (516)."""
+    for nchunks, C in ((1, 128), (31, 128), (33, 128), (301, 128),
+                       (37, 100), (5, 130), (9, 516)):
+        t0, ranks = k4_case(name, nchunks=nchunks, C=C)
+        want = mk.mtf_lockstep_plain(t0, ranks)
+        n = mk.mtf_lockstep.launches
+        got = mk.mtf_lockstep(t0.to(cuda), ranks.to(cuda), lanes=lanes)
+        torch.cuda.synchronize()
+        assert mk.mtf_lockstep.launches == n + 1
+        assert torch.equal(got[0].cpu(), want[0]), (nchunks, C)
+        assert torch.equal(got[1].cpu(), want[1]), (nchunks, C)
+
+
+@pytest.mark.parametrize("lanes", [None, *mk.LANES])
+def test_k4_identity_start_skipped_outputs_and_unaligned_views(cuda, lanes):
+    t0, ranks = k4_case("random", nchunks=77, C=128, seed=4)
+    want_s, want_t = mk.mtf_lockstep_plain(None, ranks)
+    rc = ranks.to(cuda)
+    s, t = mk.mtf_lockstep(None, rc, lanes=lanes)
+    assert torch.equal(s.cpu(), want_s) and torch.equal(t.cpu(), want_t)
+    s, t = mk.mtf_lockstep(None, rc, want_syms=False, lanes=lanes)
+    assert s is None and torch.equal(t.cpu(), want_t)
+    want_s, want_t = mk.mtf_lockstep_plain(t0, ranks)
+    s, t = mk.mtf_lockstep(t0.to(cuda), rc, want_table=False, lanes=lanes)
+    assert t is None and torch.equal(s.cpu(), want_s)
+    s, t = mk.mtf_lockstep(_shifted(t0, cuda), _shifted(ranks, cuda, 3),
+                           lanes=lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(s.cpu(), want_s) and torch.equal(t.cpu(), want_t)
+
+
+_K3_WANT = {}
+
+
+@pytest.mark.parametrize("tile", [None, *dk.WALK_TILES])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("name", K3_CASES)
+def test_k3_edges_equal_plain(cuda, name, packed, tile):
+    """Every tile on every edge case ("far" walks from global memory, the
+    rest from the shared-memory stage): L = 12 and 15 and the generic
+    build (9), streams whose chunk count is no multiple of the tile,
+    chunks of two output slabs (256) and of a ragged one (20)."""
+    for L, C, ccap in ((12, 128, 300), (15, 128, 130), (9, 256, 70),
+                       (15, 20, 150)):
+        args = k3_case(name, C=C, L=L, ccap=ccap, W=401)
+        key = (name, packed, L, C, ccap)
+        if key not in _K3_WANT:
+            _K3_WANT[key] = dk.huffman_walk_plain(*args, packed=packed)
+        dev_args = _on(cuda, args)
+        got = dk.huffman_walk(*dev_args, packed=packed, tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), _K3_WANT[key]), (L, C, ccap)
+
+
+@pytest.mark.parametrize("tile", [None, *dk.WALK_TILES])
+def test_k3_one_table_a_stream_takes_the_window_table(cuda, tile):
+    """The huffman codec's shape in small: one table a stream (so every
+    tile is uniform and, packed at L <= 12, walks by the window table),
+    300 chunks a stream."""
+    for L, C in ((12, 128), (9, 64), (12, 256)):
+        args = list(k3_case("sorted", C=C, L=L, B=3, ccap=300, W=1200))
+        args[5] = torch.arange(3, dtype=torch.int32).repeat_interleave(300)
+        want = dk.huffman_walk_plain(*args, packed=True)
+        dev_args = _on(cuda, args)
+        got = dk.huffman_walk(*dev_args, packed=True, tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (L, C)
+
+
+def test_k3_keeps_and_rebuilds_the_window_table_across_a_blocks_tiles(cuda):
+    """Enough chunks (3 x 174,763 of 4 symbols, no multiple of 128 a
+    stream) that a block walks several 128-chunk tiles: the code table
+    changes every second tile (the window table is kept, then rebuilt)
+    and every 40th tile mixes two tables (that tile compares)."""
+    ccap = 174_763
+    args = list(k3_case("sorted", C=4, L=12, B=3, ccap=ccap, W=30_000))
+    j = torch.arange(ccap) // 128
+    tab = (j // 2) % 5
+    tab[(j % 40 == 39) & (torch.arange(ccap) % 2 == 1)] = 4
+    args[5] = tab.repeat(3).to(torch.int32)
+    want = dk.huffman_walk_plain(*args, packed=True)
+    got = dk.huffman_walk(*_on(cuda, args), packed=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("tile", [None, *dk.WALK_TILES])
+@pytest.mark.parametrize("name", ["sorted", "far"])
+def test_k3_reads_an_unaligned_words_view(cuda, name, tile):
+    """`words` 4 bytes into a wider buffer with an odd row length: no
+    stream row starts on a 16-byte boundary."""
+    args = k3_case(name, C=128, L=12, B=3, ccap=140, W=401)
+    want = dk.huffman_walk_plain(*args, packed=True)
+    dev_args = _on(cuda, args)
+    dev_args[0] = _shifted(args[0], cuda)
+    got = dk.huffman_walk(*dev_args, packed=True, tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
 
 
 def _walk_args(seed, B=3, ccap=256, L=15):

@@ -1,0 +1,154 @@
+"""Edge-case inputs for K3 (the canonical Huffman chunk walk) and K4
+(the MTF decode walk), made from a numpy seed, with scalar references of
+the two contracts.  The CPU tests hold the plain versions to these
+references and to tpulc; the card tests hold the CUDA kernels to the
+plain versions on the same inputs."""
+
+import numpy as np
+import torch
+
+from tpulc_torch.codecs.huffman.device_tables import canonical_decode_params
+
+K3_CASES = ("sorted", "equal", "nonmonotone", "tbits_pad", "ends_inside",
+            "past_words", "corrupt", "hostile", "far")
+K4_CASES = ("random", "zeros", "all255", "out_of_range", "nonperm",
+            "negative_entries")
+
+
+def k3_case(name, C=16, L=12, B=2, ccap=150, W=400, seed=0):
+    """-> (words int32[B, W], tbits[B], offs[B*ccap], lim, base [T, L+1],
+    tab[B*ccap], C, L) as torch CPU tensors: `huffman_walk(*args)`.
+
+    sorted       offsets ascending in each stream, ragged stream ends
+    equal        every chunk of a stream starts at the same bit
+    nonmonotone  offsets in random order
+    tbits_pad    the last third of each stream's offsets == tbits (the
+                 bz padding: chunks that are never active)
+    ends_inside  tbits so small that most chunks end inside their window
+    past_words   tbits beyond the W words: bits past W read as zero
+    corrupt      no length ever matches (every step is the 1-bit guard)
+    hostile      over-subscribed, negative and huge limits, junk bases
+    far          offsets spread over a long stream in random order, so a
+                 tile's span exceeds any shared-memory stage
+    """
+    rng = np.random.default_rng([seed, K3_CASES.index(name), C, L])
+    if name == "far":
+        W = 60_000
+    nsub = B * ccap
+    words = rng.integers(0, 1 << 32, size=(B, W), dtype=np.uint64).astype(
+        np.uint32)
+    tbits = np.array([W * 32 - 19 - 300 * j for j in range(B)], np.int64)
+    if name == "ends_inside":
+        tbits = np.array([C * L * 3 + 7 + 40 * j for j in range(B)], np.int64)
+    if name == "past_words":
+        tbits = np.array([W * 32 + 100 + j for j in range(B)], np.int64)
+    span = int(tbits.min()) if name == "ends_inside" else W * 32 + 40
+    if name in ("sorted", "corrupt", "hostile", "past_words"):
+        lo = W * 32 - 4 * C * L if name == "past_words" else 0
+        offs = np.sort(rng.integers(max(lo, 0), span, size=(B, ccap)), axis=1)
+    elif name == "equal":
+        offs = np.repeat(rng.integers(0, span // 2, size=(B, 1)), ccap, 1)
+    elif name in ("nonmonotone", "far", "ends_inside"):
+        offs = rng.integers(0, span, size=(B, ccap))
+    elif name == "tbits_pad":
+        offs = np.sort(rng.integers(0, span, size=(B, ccap)), axis=1)
+        offs[:, 2 * ccap // 3:] = tbits[:, None]
+    else:
+        raise ValueError(name)
+    T = 5
+    lens = rng.integers(0, L + 1, size=(T, 257))
+    lim, base, _ = (t.numpy() for t in canonical_decode_params(
+        torch.from_numpy(lens), L))
+    if name == "corrupt":
+        lim = np.zeros_like(lim)
+    if name == "hostile":
+        lim = rng.integers(-(1 << L), 1 << (L + 1), size=lim.shape)
+        lim[0] = rng.integers(-2**31, 2**31, size=lim.shape[1])
+        base = rng.integers(-300, 600, size=base.shape)
+    tab = rng.integers(-1, T + 1, size=nsub)   # clamped to [0, T)
+    t = torch.from_numpy
+    return (t(words.view(np.int32)), t(tbits.astype(np.int32)),
+            t(offs.reshape(-1).astype(np.int32)),
+            t(np.ascontiguousarray(lim).astype(np.int32)),
+            t(np.ascontiguousarray(base).astype(np.int32)),
+            t(tab.astype(np.int32)), C, L)
+
+
+def k3_reference(words, tbits, offs, lim, base, tab, C, L):
+    """Scalar K3/K7 contract, one chunk and one bit at a time: first-hit
+    chain, length 1 and index 0 when nothing hits, end = min(tbits,
+    offs + C*L), 0 at or past end, bits past W zero -> int64[nsub, C]."""
+    words = words.numpy().view(np.uint32)
+    B, W = words.shape
+    bits = [np.unpackbits(w.astype(">u4").view(np.uint8)) for w in words]
+    offs = offs.numpy().view(np.uint32).astype(np.int64)
+    lim, base = lim.numpy().astype(np.int64), base.numpy().astype(np.int64)
+    tab = np.clip(tab.numpy(), 0, lim.shape[0] - 1)
+    nsub = offs.shape[0]
+    out = np.zeros((nsub, C), np.int64)
+    for c in range(nsub):
+        b, t = c // (nsub // B), tab[c]
+        pos = int(offs[c])
+        end = min(int(tbits[b]), pos + C * L)
+        for s in range(C):
+            if pos >= end:
+                break
+            win = 0
+            for j in range(L):
+                win = (win << 1) | (int(bits[b][pos + j])
+                                    if pos + j < W * 32 else 0)
+            ln, ci = 1, 0
+            for l in range(1, L + 1):
+                if (win >> (L - l)) < lim[t, l]:
+                    ln, ci = l, base[t, l] + (win >> (L - l))
+                    break
+            out[c, s] = ci
+            pos += ln
+    return out
+
+
+def k4_case(name, nchunks=16, C=128, seed=0):
+    """-> (table0 int32[nchunks, 256], ranks int32[nchunks, C]) as torch
+    CPU tensors: `mtf_lockstep(*args)`.
+
+    random            permutation tables, ranks over [0, 256)
+    zeros / all255    every rank 0 / 255
+    out_of_range      ranks in [-400, 700): the contract clamps them
+    nonperm           tables with repeated non-negative entries
+    negative_entries  tables of any int32, negative ones included
+    """
+    rng = np.random.default_rng([seed, K4_CASES.index(name), nchunks, C])
+    t0 = np.stack([rng.permutation(256) for _ in range(nchunks)])
+    ranks = rng.integers(0, 256, size=(nchunks, C))
+    ranks[::3] = rng.integers(0, 6, size=ranks[::3].shape)  # post-BWT-like
+    if name == "zeros":
+        ranks[:] = 0
+    elif name == "all255":
+        ranks[:] = 255
+    elif name == "out_of_range":
+        ranks = rng.integers(-400, 700, size=(nchunks, C))
+    elif name == "nonperm":
+        t0 = rng.integers(0, 40, size=(nchunks, 256))
+    elif name == "negative_entries":
+        t0 = rng.integers(-2**31, 2**31, size=(nchunks, 256))
+    elif name != "random":
+        raise ValueError(name)
+    return (torch.from_numpy(t0.astype(np.int32)),
+            torch.from_numpy(ranks.astype(np.int32)))
+
+
+def k4_reference(table0, ranks):
+    """Scalar MTF by rank: list pop and insert, ranks clamped to
+    [0, 255] -> (symbols int64[nchunks, C], final tables)."""
+    nchunks, C = ranks.shape
+    syms = np.zeros((nchunks, C), np.int64)
+    tabs = np.zeros((nchunks, 256), np.int64)
+    for c in range(nchunks):
+        tab = [int(x) for x in table0[c]]
+        for s in range(C):
+            r = min(max(int(ranks[c, s]), 0), 255)
+            v = tab.pop(r)
+            tab.insert(0, v)
+            syms[c, s] = v
+        tabs[c] = tab
+    return syms, tabs

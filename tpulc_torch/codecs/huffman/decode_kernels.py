@@ -47,6 +47,7 @@ from tpulc_torch.primitives.bits import M32
 
 MAX_L = 16   # two codes fit one 32-bit refill
 TILE = 128   # K8: chunks per table tile = threads per CUDA block
+WALK_TILES = (32, 64, 128)   # K3: chunks a tile (= threads a CUDA block)
 
 
 def _check_int32(**tensors):
@@ -168,9 +169,14 @@ def huffman_walk_plain(words, tbits, offs, lim, base, tab, chunk_syms: int,
 
 def huffman_walk(words: torch.Tensor, tbits: torch.Tensor, offs: torch.Tensor,
                  lim: torch.Tensor, base: torch.Tensor, tab: torch.Tensor,
-                 chunk_syms: int, max_len: int,
-                 packed: bool = False) -> torch.Tensor:
-    """K3 wrapper (see the module docstring and `huffman_walk_plain`)."""
+                 chunk_syms: int, max_len: int, packed: bool = False,
+                 tile: int | None = None) -> torch.Tensor:
+    """K3 wrapper (see the module docstring and `huffman_walk_plain`).
+    `tile` (one of WALK_TILES) is the chunks a block of the CUDA kernel
+    stages and walks at a time; None lets the C entry point pick from
+    the shape.  It changes no output."""
+    if tile is not None and tile not in WALK_TILES:
+        raise ValueError(f"tile must be one of {WALK_TILES}")
     dev, nsub = _check_walk(words, tbits, offs, lim, base, tab, chunk_syms,
                             max_len, packed)
     if dev.type == "cpu":
@@ -184,7 +190,7 @@ def huffman_walk(words: torch.Tensor, tbits: torch.Tensor, offs: torch.Tensor,
             words.data_ptr(), *words.shape, tbits.data_ptr(),
             offs.data_ptr(), nsub,
             lim.data_ptr(), base.data_ptr(), lim.shape[0], tab.data_ptr(),
-            out.data_ptr(), chunk_syms, max_len, int(packed),
+            out.data_ptr(), chunk_syms, max_len, int(packed), tile or 0,
             cuda_lib.stream_of(words)), "huffman_walk")
     huffman_walk.launches += 1
     return out

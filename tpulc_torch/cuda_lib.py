@@ -34,9 +34,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "tplc_mtf_recency": [_P, _P, _I, _I, _P],
     "tplc_mtf_encode_lockstep": [_P, _P, _P, _P, _I, _I, _P],
-    "tplc_mtf_lockstep": [_P, _P, _P, _P, _I, _I, _P],
+    "tplc_mtf_lockstep": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tplc_huffman_walk": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I,
-                          _I, _I, _P],
+                          _I, _I, _I, _P],
     "tplc_huffman_walk_v1": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P,
                              _I, _I, _P],
     "tplc_huffman_walk_flat": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,

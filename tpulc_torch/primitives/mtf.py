@@ -11,7 +11,8 @@ Forward: the MTF table before chunk c is fixed by the last-occurrence
 
 Inverse: decoding a rank is a positional permutation of the table, and
   permutations compose by gather.  K4 (`mtf_lockstep`) from the
-  identity builds each chunk's permutation; an exclusive composition
+  identity (made in the kernel's registers) builds each chunk's
+  permutation; an exclusive composition
   scan of log2(nchunks) `torch.gather` rounds gives every chunk's start
   table (tpulc's TPU build composes with two lane sorts instead,
   `mtf.py:146-152`); K4 again decodes all chunks from those tables.
@@ -68,9 +69,8 @@ def mtf_decode(ranks: torch.Tensor, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     nchunks = n // chunk
     dev = ranks.device
     r = ranks.to(torch.int32).reshape(nchunks, chunk).contiguous()
-    ident = torch.arange(ALPHA, device=dev, dtype=torch.int32).expand(
-        nchunks, ALPHA).contiguous()
-    _, chunk_perm = mtf_lockstep(ident, r)
+    # each chunk's permutation: K4 from the identity, symbols not kept
+    _, chunk_perm = mtf_lockstep(None, r, want_syms=False)
     # inclusive composition scan, (a o b)[i] = a[b[i]], Hillis-Steele
     incl = chunk_perm.long()
     d = 1
@@ -79,6 +79,8 @@ def mtf_decode(ranks: torch.Tensor, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
         nxt[d:] = torch.gather(incl[:-d], 1, incl[d:])
         incl = nxt
         d *= 2
-    table0 = torch.cat([ident[:1].long(), incl[:-1]], dim=0)
-    syms, _ = mtf_lockstep(table0.to(torch.int32).contiguous(), r)
+    ident = torch.arange(ALPHA, device=dev)[None, :]
+    table0 = torch.cat([ident, incl[:-1]], dim=0)
+    syms, _ = mtf_lockstep(table0.to(torch.int32).contiguous(), r,
+                           want_table=False)
     return syms.to(torch.uint8).reshape(n)

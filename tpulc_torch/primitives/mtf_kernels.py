@@ -44,6 +44,13 @@ def _check_i32(name: str, t: torch.Tensor, ndim: int, width: int | None):
         raise ValueError(f"{name}: last dim must be {width}")
 
 
+def _check_walk(table0: torch.Tensor, seq: torch.Tensor) -> None:
+    _check_i32("table0", table0, 2, ALPHA)
+    _check_i32("seq", seq, 2, None)
+    if table0.shape[0] != seq.shape[0]:
+        raise ValueError("table0 and seq disagree on the chunk count")
+
+
 def _move_to_front(table, rank, value):
     """table [B,256]; move position `rank` (holding `value`) to front."""
     pos = torch.arange(table.shape[1], device=table.device)[None, :]
@@ -105,7 +112,20 @@ def mtf_encode_lockstep_plain(table0: torch.Tensor, syms: torch.Tensor):
 
 def mtf_encode_lockstep(table0: torch.Tensor, syms: torch.Tensor):
     """K2 wrapper (see `mtf_encode_lockstep_plain`)."""
-    return _walk(table0, syms, encode=True)
+    _check_walk(table0, syms)
+    if _route(table0, syms) == "cpu":
+        return mtf_encode_lockstep_plain(table0, syms)
+    lib = cuda_lib.library()
+    nchunks, C = syms.shape
+    ranks = torch.empty_like(syms)
+    tab = torch.empty_like(table0)
+    with torch.cuda.device(syms.device):
+        cuda_lib.check(lib.tplc_mtf_encode_lockstep(
+            table0.data_ptr(), syms.data_ptr(), ranks.data_ptr(),
+            tab.data_ptr(), nchunks, C, cuda_lib.stream_of(syms)),
+            "mtf_encode_lockstep")
+    mtf_encode_lockstep.launches += 1
+    return ranks, tab
 
 
 mtf_encode_lockstep.launches = 0
@@ -113,10 +133,20 @@ mtf_encode_lockstep.launches = 0
 
 # --------------------------------------------------------------- K4
 
-def mtf_lockstep_plain(table0: torch.Tensor, ranks: torch.Tensor):
-    """Lockstep MTF-by-rank: table0 int32[nchunks,256], ranks
-    int32[nchunks,C] (clamped to [0,255]) -> (symbols int32[nchunks,C],
-    final table)."""
+LANES = (32, 16, 8)   # K4: lanes a chunk the kernel is built for
+
+
+def mtf_lockstep_plain(table0: torch.Tensor | None, ranks: torch.Tensor,
+                       want_syms: bool = True, want_table: bool = True):
+    """Lockstep MTF-by-rank: table0 int32[nchunks,256] (None: every
+    chunk starts from the identity), ranks int32[nchunks,C] (clamped to
+    [0,255]) -> (symbols int32[nchunks,C], final table); an output that
+    is not wanted is None.  Table entries are moved, never inspected:
+    any int32 values, a permutation or not."""
+    nchunks = ranks.shape[0]
+    if table0 is None:
+        table0 = torch.arange(ALPHA, device=ranks.device,
+                              dtype=torch.int32).expand(nchunks, ALPHA)
     table = table0
     syms = []
     for t in range(ranks.shape[1]):
@@ -125,37 +155,41 @@ def mtf_lockstep_plain(table0: torch.Tensor, ranks: torch.Tensor):
         table = _move_to_front(table, rank, sym)
         syms.append(sym)
     out = torch.stack(syms, dim=1) if syms else ranks.clone()
-    return out.contiguous(), table.contiguous()
+    return (out.contiguous() if want_syms else None,
+            table.contiguous() if want_table else None)
 
 
-def mtf_lockstep(table0: torch.Tensor, ranks: torch.Tensor):
-    """K4 wrapper (see `mtf_lockstep_plain`)."""
-    return _walk(table0, ranks, encode=False)
+def mtf_lockstep(table0: torch.Tensor | None, ranks: torch.Tensor,
+                 want_syms: bool = True, want_table: bool = True,
+                 lanes: int | None = None):
+    """K4 wrapper (see `mtf_lockstep_plain`).  `lanes` (one of LANES)
+    picks a build of the kernel; None leaves the choice to the C entry
+    point.  It changes no output."""
+    if table0 is None:
+        _check_i32("ranks", ranks, 2, None)
+    else:
+        _check_walk(table0, ranks)
+    if lanes is not None and lanes not in LANES:
+        raise ValueError(f"lanes must be one of {LANES}")
+    tensors = (ranks,) if table0 is None else (table0, ranks)
+    if _route(*tensors) == "cpu":
+        return mtf_lockstep_plain(table0, ranks, want_syms, want_table)
+    lib = cuda_lib.library()
+    nchunks, C = ranks.shape
+    dev = ranks.device
+    syms = torch.empty_like(ranks) if want_syms else None
+    tab = torch.empty((nchunks, ALPHA), dtype=torch.int32,
+                      device=dev) if want_table else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        cuda_lib.check(lib.tplc_mtf_lockstep(
+            ptr(table0), ranks.data_ptr(), ptr(syms), ptr(tab), nchunks, C,
+            lanes or 0, cuda_lib.stream_of(ranks)), "mtf_lockstep")
+    mtf_lockstep.launches += 1
+    return syms, tab
 
 
 mtf_lockstep.launches = 0
-
-
-def _walk(table0: torch.Tensor, seq: torch.Tensor, encode: bool):
-    _check_i32("table0", table0, 2, ALPHA)
-    _check_i32("seq", seq, 2, None)
-    if table0.shape[0] != seq.shape[0]:
-        raise ValueError("table0 and seq disagree on the chunk count")
-    if _route(table0, seq) == "cpu":
-        plain = mtf_encode_lockstep_plain if encode else mtf_lockstep_plain
-        return plain(table0, seq)
-    lib = cuda_lib.library()
-    nchunks, C = seq.shape
-    out = torch.empty_like(seq)
-    tab = torch.empty_like(table0)
-    fn = lib.tplc_mtf_encode_lockstep if encode else lib.tplc_mtf_lockstep
-    name = "mtf_encode_lockstep" if encode else "mtf_lockstep"
-    with torch.cuda.device(seq.device):
-        cuda_lib.check(fn(table0.data_ptr(), seq.data_ptr(), out.data_ptr(),
-                          tab.data_ptr(), nchunks, C,
-                          cuda_lib.stream_of(seq)), name)
-    if encode:
-        mtf_encode_lockstep.launches += 1
-    else:
-        mtf_lockstep.launches += 1
-    return out, tab
