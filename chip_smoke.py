@@ -7,18 +7,22 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. the card's name and power limit (nvidia-smi); CUDA must be present;
 2. build the hand-written kernels from tpulc_torch/csrc (nvcc, sm_90a);
-3. each kernel (K1, K2, K4 MTF; K3 Huffman walk) against its plain
-   PyTorch version on the card at the main path's shapes (7,032 chunks
-   x 128 from a real 900 KB block; K3 on that block's real stream):
-   bit-identical, timed with CUDA events (median of 5 after warm-up);
-   then every build of the two redesigned walks at this shape, each
-   equal to the plain version: K4 at 32, 16 and 8 lanes a chunk (ms,
-   ns a step, registers, waves) and as `mtf_decode` calls it (identity start without symbols; without the final table),
-   K3 at 32-, 64- and 128-chunk tiles;
+3. each kernel (K1, the MTF start tables, K2, K4 MTF; K3 Huffman walk)
+   against its plain PyTorch version on the card at the main path's
+   shapes (7,032 chunks x 128 from a real 900 KB block; K3 on that
+   block's real stream): bit-identical, timed with CUDA events (median
+   of 5 after warm-up); then K2's walk (the share of steps it walks,
+   ns a walked step, registers, waves) and every build of the other
+   redesigned kernels at this shape, each equal to the plain version:
+   K4 at 32, 16 and 8 lanes a chunk (ms, ns a step, registers, waves),
+   K4 as `mtf_decode` calls it (identity start without symbols; without
+   the final table), the start tables at 8-, 16-, 32- and 64-chunk
+   tiles, K3 at 32-, 64- and 128-chunk tiles;
 4. the bz main path: bz compress + decompress of pg1661 x 6 (3,569,598
    B, 900,000 B blocks) through the codec entry points on the card, with
    every kernel's launch count reset before and read after; exact round
-   trip, ratio 4.145, each kernel launched, the container byte-identical
+   trip, ratio 4.145, each kernel launched (K1, the start tables and K2
+   once a block), the container byte-identical
    to the port's CPU path on a small input; MB/s from warm repeats;
    stage times and a torch.profiler trace of one warm compress and one
    warm decompress;
@@ -43,16 +47,20 @@ Phases (any failure exits non-zero before the last line is printed):
    of word soup (25,600 lanes); bit-identical, timed as in phase 3 (the
    plain versions once: they take seconds); then K5 and K6 at 32, 64
    and 94 lanes a block (each output equal), with ns a step and waves;
-   and K1, K2 and K4 at the soup shape (204,800 chunks x 128 from that
-   block's real BWT output; the plain K2 and K4 once), with every K4
-   build as in phase 3;
+   and K1, the start tables, K2 and K4 at the soup shape (204,800
+   chunks x 128 from that block's real BWT output; the plain K2 and K4
+   once), with K2's walk and every K4 and start-table build as in
+   phase 3 and the device time of each of the start tables' three
+   launches;
 8. the bsc -e2 main path, counted as in phase 4: pg1661 x 6 at 4 MiB
-   blocks (exact round trip, ratio 21.281, tpulc's sha256, K1, K2, K4
-   launched, K5, the emission and K6 once per block, the card's
+   blocks (exact round trip, ratio 21.281, tpulc's sha256, K4
+   launched, K1, the start tables, K2, K5, the emission and K6 once per
+   block, the card's
    container equal to the CPU path's on 50 KB, MB/s from warm repeats),
    then 100,000,000 B of bench.py's word soup at 25 MiB blocks (4
-   blocks, exact round trip, K1, K2, K5, the emission and K6 once and
-   K4 twice per block, MB/s, stage times, peak device memory, and a
+   blocks, exact round trip, K1, the start tables, K2, K5, the emission
+   and K6 once and K4 twice per block, MB/s, stage times, peak device
+   memory, and a
    torch.profiler trace of one warm compress and one warm decompress:
    device-busy share and the top device times).
 
@@ -60,7 +68,10 @@ Every kernel entry carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its integer operations over 67 T op/s (the H100 SXM figures of
 NVIDIA's data sheet), and, where one PyTorch call computes the same
-function (K1: `scatter_reduce_` "amax"), that call's time.  `ms` is the
+function (K1: `scatter_reduce_` "amax"), that call's time.  The start
+tables' plain version is the chain of PyTorch calls the path ran
+before they had a kernel (`cummax`, `cat`, a stable `argsort`); no one
+call computes them.  `ms` is the
 wrapper's call between two CUDA events; `device_ms` is the kernel
 alone, from a CUDA graph of 5 calls replayed, because the wrapper's
 host time exceeds a kernel of some tens of microseconds.
@@ -101,6 +112,12 @@ BSC_SHA256 = "8fc81d25cff86f7dd3b5838e17d92333e3b04a8bb0731ae12d5baac9bc26e82b"
 SOUP_SIZE = 100_000_000
 SOUP_BLOCK = 25 << 20
 SOUP_SHA256 = "93286634ddbf920ee02839cd0a6640a9808ad85df88fdd3d2c402849534066b4"
+# the forward MTF's kernels, each launched once a compress block
+MTF_FORWARD = ("mtf_recency", "mtf_start_tables", "mtf_encode_lockstep")
+# the start-table kernel's tiles, swept (csrc/mtf.cu picks one by shape)
+START_TILES = (8, 16, 32, 64)
+START_REPLACES = "tpulc/primitives/mtf.py:85-96 (XLA scan and argsort, no " \
+                 "pallas_call)"
 SOUP_WORDS = [
     b"the", b"of", b"and", b"compression", b"lossless", b"entropy",
     b"transform", b"block", b"sorting", b"data", b"parallel", b"encode",
@@ -120,6 +137,9 @@ SCALAR_OPS = 67e12
 # emission event ~35 (coding interval, renormalisation test, a 32-bit
 # divide of ~20, the state update)
 HUFF_OPS = 10
+# the start tables, per entry of K1's rows: a max of the scan over
+# chunks and log2(256) = 8 compares of the sort by recency
+START_OPS = 9
 K5_OPS = 50
 K6_OPS = 140
 EMIT_OPS = 35
@@ -335,6 +355,87 @@ def k4_variants(torch, mk, cuda_lib, table0, ranks, want) -> dict:
     return out
 
 
+def k2_walk(torch, cuda_lib, table0, syms, ms) -> dict:
+    """K2's walk at this shape, from its device ms `ms`: the share of
+    steps it walks (a symbol that differs from the one before; step 0
+    against its table's front), ns a step and a walked step, registers
+    and waves."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    nchunks, C = syms.shape
+    prev = torch.cat([table0[:, :1], syms[:, :-1]], dim=1)
+    walked = float((syms != prev).float().mean())
+    out = {"shape": f"{nchunks}x{C}", "sms": sms, "walked_share": walked,
+           "device_ms": ms, "ns_per_step": ms * 1e6 / C,
+           "ns_per_walked_step": ms * 1e6 / max(C * walked, 1e-9)}
+    r = next((v for k, v in ptxas_registers(
+        cuda_lib.build_log.get("mtf.cu", "")).items()
+        if "mtf_encode_walk_kernel" in k), None)
+    if r is not None:
+        out["registers"] = r
+        out["waves"] = -(-nchunks // (sms * resident_warps(r)))
+    return out
+
+
+def start_tiles(torch, mk, cuda_lib, rec, want, split: bool = False) -> dict:
+    """The start tables at every tile (each output equal to `want`, the
+    plain version's), with device ms and tiles; with `split`, the device
+    ms of each of the default tile's three launches (`launch_split`)."""
+    from functools import partial
+
+    nchunks = rec.shape[0]
+    out = {"shape": f"{nchunks}x128",
+           "auto_tile": cuda_lib.library().tplc_mtf_start_tile(nchunks, 0),
+           "builds": {}}
+    for tile in START_TILES:
+        fn = partial(mk.mtf_start_tables, rec, 128, tile=tile)
+        require(torch.equal(fn(), want), f"start tables at tile {tile} differ")
+        out["builds"][f"tile{tile}"] = {"device_ms": device_ms(torch, fn),
+                                        "tiles": -(-nchunks // tile)}
+    if split:
+        out["launches_device_ms"] = launch_split(
+            torch, lambda: mk.mtf_start_tables(rec, 128))
+    return out
+
+
+def launch_split(torch, fn, reps: int = 20):
+    """Device ms of one fn() by kernel name: `reps` calls under
+    torch.profiler, each kernel's total over reps; "not measured" if the
+    profiler caught no device event (it drops some now and then)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = ev.name.split("::")[-1].split("(")[0]
+            dt = (ev.time_range.end - ev.time_range.start) / 1e3 / reps
+            split[name] = split.get(name, 0.0) + dt
+    return split or "not measured"
+
+
+def k1_library(torch, d):
+    """K1's library twin: one scatter_reduce_ "amax" of the step index
+    into a -1-filled [nchunks, 256]."""
+    d_long = d.long()
+    iota = torch.arange(d.shape[1], device=d.device,
+                        dtype=torch.int32).expand_as(d).contiguous()
+
+    def run():
+        out = torch.full((d.shape[0], 256), -1, dtype=torch.int32,
+                         device=d.device)
+        return out.scatter_reduce_(1, d_long, iota, "amax",
+                                   include_self=True)
+
+    return run
+
+
 def k3_tiles(torch, dk, cuda_lib, args, packed: bool, want) -> dict:
     """K3 at every tile (each output equal to `want`), with device ms, ns a symbol step, the blocks an SM's shared
     memory and registers hold, and waves."""
@@ -382,7 +483,6 @@ def main() -> int:
     from tpulc_torch.codecs.huffman import decode_kernels as dk
     from tpulc_torch.pipeline.container import Container
     from tpulc_torch.primitives import mtf_kernels as mk
-    from tpulc_torch.primitives.mtf import start_tables
 
     # 1. the card
     smi = subprocess.run(
@@ -413,26 +513,15 @@ def main() -> int:
     last, _, _, _ = bwt_encode_anchored(block.to(dev), driver.ANCHOR_STRIDE)
     d = last.to(torch.int32).reshape(-1, 128).contiguous()
     rec = mk.mtf_recency(d)
-    table0 = start_tables(rec, 128)
+    table0 = mk.mtf_start_tables(rec, 128)
     ranks, _ = mk.mtf_encode_lockstep(table0, d)
     payload = Container.from_bytes(
         driver.compress(data[:BLOCK], block_size=BLOCK, device="cuda")
     ).payloads[0]
     _, walk, _, _ = driver.walk_args(payload, cap, dev)
     mtf_shape = "x".join(map(str, d.shape))
-    # K1's library twin: one scatter_reduce_ "amax" of the step index
-    # into a -1-filled [nchunks, 256]
-    d_long = d.long()
-    iota = torch.arange(d.shape[1], device=dev,
-                        dtype=torch.int32).expand_as(d).contiguous()
-
-    def k1_library():
-        out = torch.full((d.shape[0], 256), -1, dtype=torch.int32,
-                         device=dev)
-        return out.scatter_reduce_(1, d_long, iota, "amax",
-                                   include_self=True)
-
-    require(torch.equal(k1_library(), mk.mtf_recency(d)),
+    k1_lib = k1_library(torch, d)
+    require(torch.equal(k1_lib(), mk.mtf_recency(d)),
             "scatter_reduce_ differs from K1")
     walk_syms = walk[2].shape[0] * walk[6]
     kernels = check_kernels(torch, [
@@ -440,7 +529,11 @@ def main() -> int:
              replaces="tpulc/primitives/mtf_pallas.py:215",
              kern=mk.mtf_recency, plain=mk.mtf_recency_plain, args=(d,),
              shape=mtf_shape, ops=d.numel() + 256 * d.shape[0],
-             library=k1_library),
+             library=k1_lib),
+        dict(name="mtf_start_tables", src="tpulc_torch/csrc/mtf.cu",
+             replaces=START_REPLACES, kern=mk.mtf_start_tables,
+             plain=mk.mtf_start_tables_plain, args=(rec, 128),
+             shape=mtf_shape, ops=START_OPS * rec.numel()),
         dict(name="mtf_encode_lockstep", src="tpulc_torch/csrc/mtf.cu",
              replaces="tpulc/primitives/mtf_pallas.py:156",
              kern=mk.mtf_encode_lockstep, plain=mk.mtf_encode_lockstep_plain,
@@ -456,16 +549,20 @@ def main() -> int:
              kern=mk.mtf_lockstep, plain=mk.mtf_lockstep_plain,
              args=(table0, ranks), shape=mtf_shape, ops=k4_ops(ranks)),
     ])
-    # every build of the two redesigned kernels at this shape
+    # K2's walk, and every build of K4, the start tables and K3
     k4 = k4_variants(torch, mk, cuda_lib, table0, ranks,
                      mk.mtf_lockstep_plain(table0, ranks))
     kernels[-1]["calls"] = {t: k4[t] for t in ("perm", "syms")}
     print(json.dumps({"bz_shape_builds": {
+        "k2": k2_walk(torch, cuda_lib, table0, d, kernels[2]["device_ms"]),
+        "start_tables": start_tiles(torch, mk, cuda_lib, rec,
+                                    mk.mtf_start_tables_plain(rec, 128)),
         "k4": k4, "k3": k3_tiles(torch, dk, cuda_lib, walk, False,
                                  dk.huffman_walk_plain(*walk))}}), flush=True)
 
     # 4. the main path, counted
     wrappers = {"mtf_recency": mk.mtf_recency,
+                "mtf_start_tables": mk.mtf_start_tables,
                 "mtf_encode_lockstep": mk.mtf_encode_lockstep,
                 "huffman_walk": dk.huffman_walk,
                 "mtf_lockstep": mk.mtf_lockstep}
@@ -490,6 +587,9 @@ def main() -> int:
     require(round(ratio, 3) == RATIO, f"ratio {ratio} != {RATIO}")
     require(all(v > 0 for v in counts.values()),
             f"a kernel of the path never launched: {counts}")
+    nblocks = len(Container.from_bytes(comp).payloads)
+    require(all(counts[k] == nblocks for k in MTF_FORWARD),
+            f"K1, the start tables, K2 not once per block: {counts}")
 
     # the container does not depend on the device (small input)
     small = data[:150_000]
@@ -781,6 +881,7 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
 
     # 8. the bsc -e2 main path, counted
     path = {"mtf_recency": mk.mtf_recency,
+            "mtf_start_tables": mk.mtf_start_tables,
             "mtf_encode_lockstep": mk.mtf_encode_lockstep,
             "mtf_lockstep": mk.mtf_lockstep,
             "grc_walk_probs": gk.grc_walk_probs,
@@ -826,8 +927,8 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
     require(all(v > 0 for v in counts.values()),
             f"a kernel of the bsc path never launched: {counts}")
     nblocks = len(Container.from_bytes(comp).payloads)
-    require(all(counts[k] == nblocks for k in grc_path),
-            f"K5/emission/K6 not launched once per block: {counts}")
+    require(all(counts[k] == nblocks for k in (*grc_path, *MTF_FORWARD)),
+            f"K1/start tables/K2/K5/emission/K6 not once per block: {counts}")
     small = pg6[:50_000]
     on_card = bsc.compress(small, block_size=1 << 16, coder=2, device="cuda")
     on_cpu = bsc.compress(small, block_size=1 << 16, coder=2, device="cpu")
@@ -852,8 +953,9 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
     require(all(counts[k] == nblocks for k in grc_path),
             f"K5/emission/K6 not launched once per block: {counts}")
     require(all(counts[k] == n * nblocks for k, n in (
-        ("mtf_recency", 1), ("mtf_encode_lockstep", 1), ("mtf_lockstep", 2))),
-        f"K1, K2 not once and K4 not twice per block: {counts}")
+        *((k, 1) for k in MTF_FORWARD), ("mtf_lockstep", 2))),
+        f"K1, the start tables, K2 not once and K4 not twice per block: "
+        f"{counts}")
     for k in kernels:
         if k["name"] in grc_path:
             k["launches"] = counts[k["name"]]
@@ -874,19 +976,21 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
 
 
 def mtf_soup_entries(torch, ranks) -> list:
-    """K1, K2 and K4 at the bsc soup shape: the first 25 MiB block's MTF
-    ranks int32[cap] as 204,800 chunks of 128, its BWT output recovered
-    through `mtf_decode`, the start tables as the forward path makes
-    them.  The plain K2 and K4 run once (~0.3 s each).  Also prints
-    every K4 build at this shape."""
+    """K1, the start tables, K2 and K4 at the bsc soup shape: the first
+    25 MiB block's MTF ranks int32[cap] as 204,800 chunks of 128, its
+    BWT output recovered through `mtf_decode`, the start tables as the
+    forward path makes them.  The plain K2 and K4 run once (~0.3 s
+    each).  Also prints K2's walk and every K4 and start-table build at
+    this shape."""
     from tpulc_torch import cuda_lib
     from tpulc_torch.primitives import mtf_kernels as mk
-    from tpulc_torch.primitives.mtf import mtf_decode, start_tables
+    from tpulc_torch.primitives.mtf import mtf_decode
 
     r = ranks.reshape(-1, 128).contiguous()
     d = mtf_decode(ranks.to(torch.uint8)).to(torch.int32).reshape(
         -1, 128).contiguous()
-    table0 = start_tables(mk.mtf_recency(d), 128)
+    rec = mk.mtf_recency(d)
+    table0 = mk.mtf_start_tables(rec, 128)
     require(torch.equal(mk.mtf_encode_lockstep(table0, d)[0], r),
             "K2 does not re-encode the soup block's ranks")
     shape = "x".join(map(str, d.shape))
@@ -895,7 +999,11 @@ def mtf_soup_entries(torch, ranks) -> list:
         dict(name="mtf_recency@soup", src=src,
              replaces="tpulc/primitives/mtf_pallas.py:215",
              kern=mk.mtf_recency, plain=mk.mtf_recency_plain, args=(d,),
-             shape=shape, ops=d.numel() + 256 * d.shape[0]),
+             shape=shape, ops=d.numel() + 256 * d.shape[0],
+             library=k1_library(torch, d)),
+        dict(name="mtf_start_tables@soup", src=src, replaces=START_REPLACES,
+             kern=mk.mtf_start_tables, plain=mk.mtf_start_tables_plain,
+             args=(rec, 128), shape=shape, ops=START_OPS * rec.numel()),
         dict(name="mtf_encode_lockstep@soup", src=src,
              replaces="tpulc/primitives/mtf_pallas.py:156",
              kern=mk.mtf_encode_lockstep,
@@ -913,6 +1021,10 @@ def mtf_soup_entries(torch, ranks) -> list:
         e["shape"] = shape
         e["ns_per_step"] = e["device_ms"] * 1e6 / d.shape[1]
     print(json.dumps({"soup_shape_builds": {
+        "k2": k2_walk(torch, cuda_lib, table0, d, entries[2]["device_ms"]),
+        "start_tables": start_tiles(torch, mk, cuda_lib, rec,
+                                    mk.mtf_start_tables_plain(rec, 128),
+                                    split=True),
         "k4": k4, "zero_rank_share": float((r == 0).float().mean())}}),
         flush=True)
     return entries

@@ -5,7 +5,16 @@ card: `python -m pytest tests/test_torch_cuda_kernels.py -m cuda`."""
 import numpy as np
 import pytest
 import torch
-from test_torch_walk_cases import K3_CASES, K4_CASES, k3_case, k4_case
+from test_torch_walk_cases import (
+    K2_CASES,
+    K3_CASES,
+    K4_CASES,
+    START_CASES,
+    k2_case,
+    k3_case,
+    k4_case,
+    start_case,
+)
 
 from tpulc_torch.codecs.bwt import driver
 from tpulc_torch.codecs.huffman import decode_kernels as dk
@@ -94,6 +103,78 @@ def test_k4_identity_start_skipped_outputs_and_unaligned_views(cuda, lanes):
                            lanes=lanes)
     torch.cuda.synchronize()
     assert torch.equal(s.cpu(), want_s) and torch.equal(t.cpu(), want_t)
+
+
+@pytest.mark.parametrize("name", K2_CASES)
+def test_k2_variants_equal_plain(cuda, name):
+    """Every edge case (first matches on
+    duplicate entries, absent symbols, any int32, 90 % rank-0 steps), at
+    ragged chunk counts and at lengths no multiple of the batch (1, 100,
+    127, 129, 300), of 4 (130) or 0."""
+    for nchunks, C in ((1, 128), (31, 128), (33, 128), (301, 128),
+                       (37, 100), (5, 130), (9, 516), (3, 1), (4, 127),
+                       (4, 129), (3, 300), (2, 0)):
+        t0, syms = k2_case(name, nchunks=nchunks, C=C)
+        want = mk.mtf_encode_lockstep_plain(t0, syms)
+        n = mk.mtf_encode_lockstep.launches
+        got = mk.mtf_encode_lockstep(t0.to(cuda), syms.to(cuda))
+        torch.cuda.synchronize()
+        assert mk.mtf_encode_lockstep.launches == n + 1
+        assert torch.equal(got[0].cpu(), want[0]), (nchunks, C)
+        assert torch.equal(got[1].cpu(), want[1]), (nchunks, C)
+
+
+def test_k2_reads_unaligned_views(cuda):
+    t0, syms = k2_case("repeats", nchunks=77, C=128, seed=4)
+    want = mk.mtf_encode_lockstep_plain(t0, syms)
+    got = mk.mtf_encode_lockstep(_shifted(t0, cuda), _shifted(syms, cuda, 3))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("tile", [0, 8, 16, 32, 64])
+@pytest.mark.parametrize("name", START_CASES)
+def test_start_tables_equal_plain(cuda, name, tile):
+    """K1's output at chunk counts ragged to the tile (1, T-1, T, T+1,
+    3T+5) and at the bz block's 7,032 chunks; tile 0 is the C entry
+    point's pick."""
+    T = tile or 8
+    for nchunks in (1, T - 1, T, T + 1, 3 * T + 5, 7032):
+        d, C = start_case(name, nchunks)
+        rec = mk.mtf_recency(torch.from_numpy(d.astype(np.int32)).to(cuda))
+        want = mk.mtf_start_tables_plain(rec.cpu(), C)
+        n = mk.mtf_start_tables.launches
+        got = mk.mtf_start_tables(rec, C, tile=tile)
+        torch.cuda.synchronize()
+        assert mk.mtf_start_tables.launches == n + 1
+        assert torch.equal(got.cpu(), want), nchunks
+    empty = torch.empty((0, 256), dtype=torch.int32, device=cuda)
+    assert mk.mtf_start_tables(empty, 128, tile=tile).shape == (0, 256)
+
+
+def test_start_tables_refuse_what_the_kernel_cannot_do(cuda):
+    """A tile the kernel is not built for, and chunks past its 4,096-step
+    mask, raise on the card (the CPU route runs the plain version)."""
+    d, C = start_case("text", 5)
+    rec = mk.mtf_recency(torch.from_numpy(d.astype(np.int32)).to(cuda))
+    with pytest.raises(ValueError, match="tile"):
+        mk.mtf_start_tables(rec, C, tile=12)
+    n = mk.mtf_start_tables.launches
+    with pytest.raises(RuntimeError, match="mtf_start_tables"):
+        mk.mtf_start_tables(rec, 4097)
+    assert mk.mtf_start_tables.launches == n
+
+
+def test_mtf_encode_on_card_matches_cpu(cuda):
+    """The forward path (K1, the start tables, K2) against the CPU's."""
+    from tpulc_torch.primitives.mtf import mtf_encode
+
+    for name in START_CASES:
+        d, _ = start_case(name, 301)
+        data = torch.from_numpy(d.reshape(-1))
+        assert torch.equal(mtf_encode(data.to(cuda)).cpu(),
+                           mtf_encode(data)), name
 
 
 _K3_WANT = {}

@@ -1,6 +1,7 @@
-"""Edge-case inputs for K3 (the canonical Huffman chunk walk) and K4
-(the MTF decode walk), made from a numpy seed, with scalar references of
-the two contracts.  The CPU tests hold the plain versions to these
+"""Edge-case inputs for K3 (the canonical Huffman chunk walk), K4 (the
+MTF decode walk), K2 (the MTF encode walk) and the MTF start tables
+between K1 and K2, made from a numpy seed, with scalar references of
+the contracts.  The CPU tests hold the plain versions to these
 references and to tpulc; the card tests hold the CUDA kernels to the
 plain versions on the same inputs."""
 
@@ -13,6 +14,8 @@ K3_CASES = ("sorted", "equal", "nonmonotone", "tbits_pad", "ends_inside",
             "past_words", "corrupt", "hostile", "far")
 K4_CASES = ("random", "zeros", "all255", "out_of_range", "nonperm",
             "negative_entries")
+K2_CASES = ("random", "repeats", "duplicates", "absent", "int32")
+START_CASES = ("text", "one_symbol", "all_symbols", "vanishing")
 
 
 def k3_case(name, C=16, L=12, B=2, ccap=150, W=400, seed=0):
@@ -152,3 +155,109 @@ def k4_reference(table0, ranks):
             syms[c, s] = v
         tabs[c] = tab
     return syms, tabs
+
+
+def k2_case(name, nchunks=16, C=128, seed=0):
+    """-> (table0 int32[nchunks, 256], syms int32[nchunks, C]) as torch
+    CPU tensors: `mtf_encode_lockstep(*args)`.
+
+    random      permutation tables, symbols over [0, 256)
+    repeats     permutation tables, 90 % of the steps repeat the step
+                before; every third chunk starts with its table's front
+                symbol (step 0 at rank 0)
+    duplicates  tables with repeated entries in [0, 40), symbols in
+                [0, 48): first matches, and absent symbols
+    absent      permutation tables, symbols in [-300, 600)
+    int32       tables of any int32; half the symbols drawn from the
+                chunk's table, half any int32
+    """
+    rng = np.random.default_rng([seed, K2_CASES.index(name), nchunks, C])
+    t0 = np.stack([rng.permutation(256) for _ in range(nchunks)])
+    syms = rng.integers(0, 256, size=(nchunks, C))
+    if name == "repeats":
+        rep = rng.random(size=syms.shape) < 0.9
+        for i in range(1, C):
+            syms[:, i] = np.where(rep[:, i], syms[:, i - 1], syms[:, i])
+        if C:
+            syms[::3, 0] = t0[::3, 0]
+    elif name == "duplicates":
+        t0 = rng.integers(0, 40, size=(nchunks, 256))
+        syms = rng.integers(0, 48, size=(nchunks, C))
+        syms[:, 1::2] = syms[:, :-1:2][:, : syms[:, 1::2].shape[1]]
+    elif name == "absent":
+        syms = rng.integers(-300, 600, size=(nchunks, C))
+    elif name == "int32":
+        t0 = rng.integers(-2**31, 2**31, size=(nchunks, 256))
+        pick = np.take_along_axis(t0, rng.integers(0, 256, size=(nchunks, C)),
+                                  axis=1)
+        syms = np.where(rng.random(size=(nchunks, C)) < 0.5, pick,
+                        rng.integers(-2**31, 2**31, size=(nchunks, C)))
+    elif name != "random":
+        raise ValueError(name)
+    return (torch.from_numpy(t0.astype(np.int32)),
+            torch.from_numpy(syms.astype(np.int32)))
+
+
+def k2_reference(table0, syms):
+    """Scalar MTF by symbol: the first position holding the symbol (list
+    index), moved to the front; an absent symbol gets rank 0 and
+    overwrites position 0 -> (ranks int64[nchunks, C], final tables)."""
+    nchunks, C = syms.shape
+    ranks = np.zeros((nchunks, C), np.int64)
+    tabs = np.zeros((nchunks, 256), np.int64)
+    for c in range(nchunks):
+        tab = [int(x) for x in table0[c]]
+        for s in range(C):
+            v = int(syms[c, s])
+            if v in tab:
+                r = tab.index(v)
+                tab.insert(0, tab.pop(r))
+            else:
+                r, tab[0] = 0, v
+            ranks[c, s] = r
+        tabs[c] = tab
+    return ranks, tabs
+
+
+def start_case(name, nchunks, seed=0):
+    """-> (symbols uint8[nchunks, C], C): a block whose K1 rows feed the
+    start tables.  C is 128, and 256 for all_symbols.
+
+    text         a skewed 64-letter alphabet
+    one_symbol   every step the same symbol
+    all_symbols  every chunk a permutation of all 256 symbols
+    vanishing    a few symbols in the first chunks only, another set that
+                 vanishes for dozens of chunks and comes back, all 256
+                 in the last chunk
+    """
+    rng = np.random.default_rng([seed, START_CASES.index(name), nchunks])
+    C = 256 if name == "all_symbols" else 128
+    if name == "text":
+        p = 1.0 / np.arange(1, 65)
+        d = rng.choice(np.arange(32, 96), size=(nchunks, C), p=p / p.sum())
+    elif name == "one_symbol":
+        d = np.full((nchunks, C), 7)
+    elif name == "all_symbols":
+        d = np.stack([rng.permutation(256) for _ in range(nchunks)])
+    elif name == "vanishing":
+        d = rng.integers(100, 110, size=(nchunks, C))
+        d[: min(nchunks, 3)] = rng.integers(0, 20, size=(min(nchunks, 3), C))
+        back = np.arange(nchunks) % 40 >= 30
+        d[back, ::4] = rng.integers(200, 230, size=d[back, ::4].shape)
+        d[-1] = np.resize(rng.permutation(256), C)
+    else:
+        raise ValueError(name)
+    return d.astype(np.uint8), C
+
+
+def start_reference(syms):
+    """The serial MTF from the identity over the whole block, its table
+    taken before every chunk -> int64[nchunks, 256]."""
+    nchunks, C = syms.shape
+    tab = list(range(256))
+    out = np.zeros((nchunks, 256), np.int64)
+    for c in range(nchunks):
+        out[c] = tab
+        for v in syms[c].tolist():
+            tab.insert(0, tab.pop(tab.index(v)))
+    return out

@@ -1,5 +1,6 @@
-// MTF kernels for Hopper (sm_90a): K1 recency, K2 encode lockstep,
-// K4 decode lockstep (a group of lanes a chunk, the table in registers).
+// MTF kernels for Hopper (sm_90a): K1 recency, the start tables between
+// K1 and K2, K2 encode lockstep and K4 decode lockstep (both a group of
+// lanes a chunk, the table in registers).
 // Plain C entry points, loaded with ctypes by tpulc_torch/cuda_lib.py;
 // wrappers and plain PyTorch versions live in
 // tpulc_torch/primitives/mtf_kernels.py.
@@ -40,52 +41,6 @@ __global__ void mtf_recency_kernel(const int32_t* __restrict__ syms,
   __syncthreads();
   for (int i = threadIdx.x; i < kAlpha; i += blockDim.x)
     out[c * kAlpha + i] = last[i];
-}
-
-// ---------------------------------------------------------------------
-// K2 — replaces mtf_pallas.py:mtf_encode_lockstep_pallas
-// (_mtf_encode_kernel): MTF by SYMBOL from each chunk's start table;
-// emits ranks and the final table.  One thread per chunk.
-//
-// Bound on the H100: latency of the dependent shared-memory reads and
-// shifts of a 128-step serial chain per chunk (about 7,000 chunks per
-// 900 KB block = under two warps per SM), not bandwidth.  Design: each
-// thread keeps its 256-entry table in shared memory as a column of a
-// [256][32] int array, so thread `lane` always hits bank `lane` and the
-// data-dependent find/shift never conflicts; the TPU's two 128-lane
-// halves and masked reductions (mtf_pallas.py:9-17) are gone.
-// A faster shape, left for later: K4's register table below (tab_load,
-// tab_shift, tab_store), with the find as one __ballot_sync over the
-// lanes' entries.
-// ---------------------------------------------------------------------
-constexpr int kWalkThreads = 32;
-
-__global__ void mtf_encode_walk_kernel(const int32_t* __restrict__ table0,
-                                       const int32_t* __restrict__ seq,
-                                       int32_t* __restrict__ out,
-                                       int32_t* __restrict__ table_out,
-                                       int nchunks, int C) {
-  __shared__ int tab[kAlpha][kWalkThreads];
-  const int lane = threadIdx.x;
-  const int c = blockIdx.x * kWalkThreads + lane;
-  if (c >= nchunks) return;
-  const size_t c64 = c;
-  for (int j = 0; j < kAlpha; ++j) tab[j][lane] = table0[c64 * kAlpha + j];
-  const int32_t* in = seq + c64 * C;
-  int32_t* o = out + c64 * C;
-  for (int t = 0; t < C; ++t) {
-    // first position holding the symbol; 0 when absent (the plain
-    // version's argmax-of-equality semantics)
-    const int sym = in[t];
-    int rank = 0;
-    for (int j = 0; j < kAlpha; ++j) {
-      if (tab[j][lane] == sym) { rank = j; break; }
-    }
-    o[t] = rank;
-    for (int j = rank; j > 0; --j) tab[j][lane] = tab[j - 1][lane];
-    tab[0][lane] = sym;
-  }
-  for (int j = 0; j < kAlpha; ++j) table_out[c64 * kAlpha + j] = tab[j][lane];
 }
 
 // ---------------------------------------------------------------------
@@ -296,6 +251,303 @@ void launch_decode(const int32_t* t0, const int32_t* r, int32_t* s,
       t0, r, s, to, nchunks, C, vec_tab);
 }
 
+// ---------------------------------------------------------------------
+// K2 — replaces mtf_pallas.py:mtf_encode_lockstep_pallas
+// (_mtf_encode_kernel): MTF by SYMBOL from each chunk's start table;
+// emits ranks and the final table.  A symbol's rank is its FIRST
+// position in the table (tpulc's XLA step and list.index; its Pallas
+// kernel takes the last on a table with duplicates); an absent symbol
+// gets rank 0 and overwrites position 0.
+//
+// Bound on the H100: bytes at large shapes (a 25 MiB bsc block is
+// 204,800 chunks: 1 KB of table and 512 B of symbols in, as much out,
+// per chunk), the serial chain of 128 steps a chunk at small ones.
+// Design: K4's register table.  A warp owns a chunk (32 lanes: builds
+// of 16 and 8 lanes were slower at both shapes, PERF.md), lane i keeps
+// positions 8i .. 8i+7.  The find compares a lane's 8 entries with the
+// symbol and keeps its first hit; a ballot names the first lane with a
+// hit and one shuffle brings its index, so the rank is 8*owner + index,
+// else 0.  The move is K4's tab_shift with d = rank - 8*lane; with rank
+// 0 it writes the symbol into position 0, so the absent symbol needs no
+// branch of its own.  After step t-1 the front holds sym[t-1], so step
+// t has rank 0 and moves nothing exactly when sym[t] == sym[t-1] (for
+// t = 0: when sym[0] == table0[0]).  Symbols arrive strided over the
+// warp's lanes, each is compared with its predecessor (a
+// __shfl_up_sync, and the last symbol of the register before), a
+// ballot marks the steps that differ and only those are walked; every
+// other step emits 0.  The TPU's two 128-lane halves and masked
+// max-reductions are gone.
+// ---------------------------------------------------------------------
+constexpr int kEncLanes = 32;
+constexpr int kEncR = kAlpha / kEncLanes;
+
+// one encode step of symbol `sym` (uniform in the warp): its rank, and
+// the table with that position moved to the front
+__device__ __forceinline__ int tab_encode_step(int32_t (&t)[kEncR],
+                                               int32_t sym, int lane) {
+  int idx = kEncR;  // this lane's first hit, kEncR for none
+#pragma unroll
+  for (int j = kEncR - 1; j >= 0; --j)
+    if (t[j] == sym) idx = j;
+  const unsigned hit = __ballot_sync(kFullMask, idx < kEncR);
+  const int owner = hit != 0u ? __ffs(hit) - 1 : 0;
+  const int at = __shfl_sync(kFullMask, idx, owner);
+  const int r = hit != 0u ? kEncR * owner + at : 0;
+  tab_shift<kEncLanes>(t, r - kEncR * lane, sym, lane, kFullMask);
+  return r;
+}
+
+__global__ void __launch_bounds__(kDecThreads)
+    mtf_encode_walk_kernel(const int32_t* __restrict__ table0,
+                           const int32_t* __restrict__ syms,
+                           int32_t* __restrict__ ranks,
+                           int32_t* __restrict__ table_out, int nchunks,
+                           int C, int vec_tab) {
+  constexpr int G = kEncLanes;
+  const int lane = threadIdx.x & (G - 1);
+  const int grp = (blockIdx.x * kDecThreads + threadIdx.x) / G;
+  const bool live = grp < nchunks;
+  // lanes past the last chunk walk a copy of it and store nothing
+  const size_t c = live ? grp : nchunks - 1;
+  int32_t t[kEncR];
+  tab_load<G>(t, table0 + c * kAlpha, lane, vec_tab);
+  const int32_t* in = syms + c * C;
+  int32_t* o = live ? ranks + c * C : nullptr;
+  // the symbol at the front before the next step
+  int32_t last = __shfl_sync(kFullMask, t[0], 0);
+  // a batch is 4 * G steps: register k of lane i holds step G*k + i
+  for (int s0 = 0; s0 < C; s0 += 4 * G) {
+    int32_t sy[4], rk[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = s0 + G * k + lane;
+      sy[k] = i < C ? in[i] : 0;
+      rk[k] = 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      int32_t prev = __shfl_up_sync(kFullMask, sy[k], 1);
+      if (lane == 0) prev = last;
+      last = __shfl_sync(kFullMask, sy[k], G - 1);
+      const bool walk = s0 + G * k + lane < C && sy[k] != prev;
+      unsigned todo = __ballot_sync(kFullMask, walk);
+      while (todo != 0u) {
+        const int p = __ffs(todo) - 1;
+        todo &= todo - 1u;
+        const int32_t sym = __shfl_sync(kFullMask, sy[k], p);
+        const int r = tab_encode_step(t, sym, lane);
+        if (lane == p) rk[k] = r;
+      }
+    }
+    if (o != nullptr) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = s0 + G * k + lane;
+        if (i < C) o[i] = rk[k];
+      }
+    }
+  }
+  if (live) tab_store<G>(t, table_out + c * kAlpha, lane, vec_tab);
+}
+
+// ---------------------------------------------------------------------
+// The MTF start tables between K1 and K2 — replaces the XLA stage of
+// tpulc/primitives/mtf.py:85-96 (no pallas_call there): K1's rows
+// rec[c][s] (the last step of symbol s in chunk c, -1 if absent) ->
+// each chunk's start table: with key[c][s] the last global position
+// (c'*C + rec[c'][s]) of s over the chunks c' < c, or -2 - s if none,
+// the symbols in order of descending key.  The plain version is an
+// exclusive torch.cummax over chunks and a stable argsort a row.
+//
+// Bound on the H100: bytes, K1's rows read once and the tables written
+// once (420 MB a 25 MiB block: 0.125 ms).  Design, three launches over
+// tiles of T chunks:
+// (a) tile max: a block a tile, a thread a symbol, the max key of each
+//     symbol over the tile's T rows (coalesced 1 KB row loads);
+// (b) an exclusive max-scan of those [ntiles] partials, a block a
+//     symbol: the symbol's partials are a contiguous row (written by (a)
+//     symbol-major), scanned by 1,024 threads with warp shuffles and a
+//     carry between segments;
+// (c) a walk of each tile's T chunks in order, a block a tile, a thread
+//     a symbol and a table position.  The tile's first table: each
+//     symbol's position is the count of keys above its own (ties to
+//     the lower symbol, as the stable sort) over the 256 keys in shared
+//     memory.  Chunk c+1's table from chunk c's and K1's row for c, with
+//     no sort: the symbols seen in c go to the front newest first (a
+//     symbol's place is the count of bits above its own step in the
+//     chunk's step mask, built with shared-memory atomicOr), and every
+//     other entry keeps its order, moved back by the seen entries before
+//     it (a block-wide ballot prefix count).  That equals the stable
+//     argsort: the keys of symbols seen in c lie in [c*C, c*C + C),
+//     above every other key, and the other keys do not change.  A
+//     chunk's step is short next to a load from device memory, so each
+//     thread keeps the next kStartAhead rows in flight (one row in
+//     flight took 0.39 ms at the soup shape, four 0.31: PERF.md).
+// Domain (the plain version's on K1's output): each row holds values in
+// [-1, C) and each step at most once, so every key is distinct.  Off
+// it the kernel reads and writes only inside its arrays.
+// ---------------------------------------------------------------------
+constexpr int kScanThreads = 1024;
+constexpr int kMaxStartChunk = 4096;  // the step mask: 128 words
+constexpr int kStartTiles[] = {8, 16, 32, 64};
+constexpr int kStartAhead = 4;  // K1 rows a thread of the walk keeps in flight
+
+bool known_tile(int tile) {
+  for (int t : kStartTiles)
+    if (t == tile) return true;
+  return false;
+}
+
+// The tile for nchunks chunks: the largest of kStartTiles that still
+// leaves 3 tiles an SM, else the smallest.  It was the fastest at both of
+// chip_smoke.py's shapes on the H100's 132 SMs (16 at 7,032 chunks, 64
+// at 204,800: PERF.md).
+int start_tile(int nchunks) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  constexpr int n = sizeof(kStartTiles) / sizeof(kStartTiles[0]);
+  for (int i = n - 1; i > 0; --i)
+    if ((nchunks + kStartTiles[i] - 1) / kStartTiles[i] >= 3 * sms)
+      return kStartTiles[i];
+  return kStartTiles[0];
+}
+
+__global__ void __launch_bounds__(kAlpha)
+    mtf_tile_max_kernel(const int32_t* __restrict__ rec,
+                        int32_t* __restrict__ part, int nchunks, int C,
+                        int T, int ntiles) {
+  const int s = threadIdx.x;
+  const int c0 = blockIdx.x * T;
+  const int c1 = min(c0 + T, nchunks);
+  int32_t m = -1;
+#pragma unroll 8
+  for (int c = c0; c < c1; ++c) {
+    const int32_t r = rec[static_cast<size_t>(c) * kAlpha + s];
+    m = max(m, r >= 0 ? r + c * C : -1);
+  }
+  part[static_cast<size_t>(s) * ntiles + blockIdx.x] = m;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+    mtf_tile_scan_kernel(int32_t* __restrict__ part, int ntiles) {
+  __shared__ int32_t wtot[kScanThreads / 32];
+  int32_t* row = part + static_cast<size_t>(blockIdx.x) * ntiles;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int32_t carry = -1;
+  for (int i0 = 0; i0 < ntiles; i0 += kScanThreads) {
+    const int i = i0 + threadIdx.x;
+    int32_t v = i < ntiles ? row[i] : -1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t u = __shfl_up_sync(kFullMask, v, o);
+      if (lane >= o) v = max(v, u);
+    }
+    if (lane == 31) wtot[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+      int32_t x = wtot[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int32_t u = __shfl_up_sync(kFullMask, x, o);
+        if (lane >= o) x = max(x, u);
+      }
+      wtot[lane] = x;
+    }
+    __syncthreads();
+    int32_t ex = __shfl_up_sync(kFullMask, v, 1);
+    if (lane == 0) ex = -1;
+    if (warp > 0) ex = max(ex, wtot[warp - 1]);
+    if (i < ntiles) row[i] = max(ex, carry);
+    carry = max(carry, wtot[kScanThreads / 32 - 1]);
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kAlpha)
+    mtf_start_walk_kernel(const int32_t* __restrict__ rec,
+                          const int32_t* __restrict__ excl,
+                          int32_t* __restrict__ out, int nchunks, int C,
+                          int T, int ntiles) {
+  // K1's row, the step mask and the seen counts are double-buffered, so
+  // a chunk takes two barriers
+  __shared__ int64_t keys[kAlpha];
+  __shared__ int32_t recs[2][kAlpha];
+  __shared__ unsigned steps[2][kMaxStartChunk / 32];
+  __shared__ __align__(16) int seen_in[2][kAlpha / 32];
+  __shared__ int32_t tab[kAlpha];
+  const int p = threadIdx.x;  // a symbol, and a table position
+  const int lane = p & 31, warp = p >> 5;
+  const int nwords = (C + 31) >> 5;
+  const int c0 = blockIdx.x * T;
+  const int c1 = min(c0 + T, nchunks);
+  // symbol p's step in chunk c0 + i is row[i * 256]; the rows of the
+  // next kStartAhead chunks are in flight in `ahead`
+  const int32_t* row = rec + static_cast<size_t>(c0) * kAlpha + p;
+  int32_t r_own = c0 + 1 < c1 ? row[0] : -1;
+  int32_t ahead[kStartAhead];
+#pragma unroll
+  for (int k = 0; k < kStartAhead; ++k)
+    ahead[k] = c0 + k + 2 < c1 ? row[(k + 1) * kAlpha] : -1;
+  // the tile's first table: (key, -symbol) as one 64-bit key, so that
+  // ties go to the lower symbol as in the stable sort, and the
+  // positions are a permutation whatever the input
+  const int32_t b = excl[static_cast<size_t>(p) * ntiles + blockIdx.x];
+  const int64_t key = static_cast<int64_t>(b >= 0 ? b : -2 - p) * kAlpha +
+                      (kAlpha - 1 - p);
+  keys[p] = key;
+  recs[0][p] = r_own;
+  if (p < nwords) steps[0][p] = 0u;
+  __syncthreads();
+  int above = 0;
+#pragma unroll 16
+  for (int j = 0; j < kAlpha; ++j) above += keys[j] > key;
+  tab[above] = p;
+  for (int c = c0;; c += kStartAhead) {
+#pragma unroll
+    for (int k = 0; k < kStartAhead; ++k) {
+      const int cc = c + k;
+      const int buf = k & 1;  // kStartAhead is even
+      __syncthreads();
+      const int32_t cur = tab[p];  // the symbol at position p of chunk cc
+      out[static_cast<size_t>(cc) * kAlpha + p] = cur;
+      if (cc + 1 >= c1) return;
+      if (r_own >= 0 && r_own < C)
+        atomicOr(&steps[buf][r_own >> 5], 1u << (r_own & 31));
+      const int32_t rc = recs[buf][cur];
+      const bool seen = rc >= 0;
+      const unsigned bal = __ballot_sync(kFullMask, seen);
+      if (lane == 0) seen_in[buf][warp] = __popc(bal);
+      __syncthreads();
+      const int4 lo = reinterpret_cast<const int4*>(seen_in[buf])[0];
+      const int4 hi = reinterpret_cast<const int4*>(seen_in[buf])[1];
+      const int n[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      int nseen = 0, before = __popc(bal & ((1u << lane) - 1u));
+#pragma unroll
+      for (int w = 0; w < kAlpha / 32; ++w) {
+        nseen += n[w];
+        before += w < warp ? n[w] : 0;
+      }
+      int np = nseen + p - before;  // an unseen entry, moved back
+      if (seen) {                   // newest first: the seen steps above rc
+        const int s = min(rc, C - 1);
+        np = __popc(steps[buf][s >> 5] & ~((2u << (s & 31)) - 1u));
+        for (int w = (s >> 5) + 1; w < nwords; ++w)
+          np += __popc(steps[buf][w]);
+        np = min(np, kAlpha - 1);
+      }
+      tab[np] = cur;
+      recs[buf ^ 1][p] = ahead[k];
+      if (p < nwords) steps[buf ^ 1][p] = 0u;
+      r_own = ahead[k];
+      ahead[k] = cc + kStartAhead + 2 < c1
+                     ? row[static_cast<size_t>(cc - c0 + kStartAhead + 1) *
+                           kAlpha]
+                     : -1;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int tplc_mtf_recency(const void* syms, void* out, int nchunks,
@@ -309,13 +561,48 @@ extern "C" int tplc_mtf_recency(const void* syms, void* out, int nchunks,
 extern "C" int tplc_mtf_encode_lockstep(const void* table0, const void* syms,
                                         void* ranks, void* table_out,
                                         int nchunks, int C, void* stream) {
-  if (nchunks > 0)
-    mtf_encode_walk_kernel<<<(nchunks + kWalkThreads - 1) / kWalkThreads,
-                             kWalkThreads, 0,
+  if (C < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (nchunks > 0) {
+    const auto* t0 = static_cast<const int32_t*>(table0);
+    auto* to = static_cast<int32_t*>(table_out);
+    const int per_block = kDecThreads / kEncLanes;
+    const int blocks = (nchunks + per_block - 1) / per_block;
+    mtf_encode_walk_kernel<<<blocks, kDecThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(table0), static_cast<const int32_t*>(syms),
-        static_cast<int32_t*>(ranks), static_cast<int32_t*>(table_out),
-        nchunks, C);
+        t0, static_cast<const int32_t*>(syms), static_cast<int32_t*>(ranks),
+        to, nchunks, C, aligned16(t0) && aligned16(to));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The start tables' chunks a tile for nchunks chunks: `tile` if it is one
+// of kStartTiles (a hook for tests and chip_smoke.py's sweep), the
+// shape's pick (start_tile) if 0, else -1.  The caller sizes the scratch
+// of tplc_mtf_start_tables by it.
+extern "C" int tplc_mtf_start_tile(int nchunks, int tile) {
+  if (tile == 0) return start_tile(nchunks);
+  return known_tile(tile) ? tile : -1;
+}
+
+// scratch: int32[256 * ceil(nchunks / tile)]; tile one of kStartTiles;
+// 1 <= C <= kMaxStartChunk (the walk's step mask) and nchunks * C < 2^31
+extern "C" int tplc_mtf_start_tables(const void* rec, void* out,
+                                     void* scratch, int nchunks, int C,
+                                     int tile, void* stream) {
+  if (!known_tile(tile) || C < 1 || C > kMaxStartChunk || nchunks < 0 ||
+      static_cast<long long>(nchunks) * C > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nchunks > 0) {
+    auto* s = static_cast<cudaStream_t>(stream);
+    const auto* r = static_cast<const int32_t*>(rec);
+    auto* part = static_cast<int32_t*>(scratch);
+    const int ntiles = (nchunks + tile - 1) / tile;
+    mtf_tile_max_kernel<<<ntiles, kAlpha, 0, s>>>(r, part, nchunks, C, tile,
+                                                 ntiles);
+    mtf_tile_scan_kernel<<<kAlpha, kScanThreads, 0, s>>>(part, ntiles);
+    mtf_start_walk_kernel<<<ntiles, kAlpha, 0, s>>>(
+        r, part, static_cast<int32_t*>(out), nchunks, C, tile, ntiles);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

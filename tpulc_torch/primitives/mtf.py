@@ -3,11 +3,11 @@
 
 Forward: the MTF table before chunk c is fixed by the last-occurrence
   position of every symbol in the prefix, and last-occurrence composes
-  with `max`.  K1 (`mtf_recency`) gives each chunk's recency row, an
-  exclusive `torch.cummax` over chunks gives every chunk's prefix
-  recency, a stable argsort turns that into each chunk's start table
-  (`mtf.py:85-96`), and K2 (`mtf_encode_lockstep`) encodes all chunks in
-  lockstep.
+  with `max`.  K1 (`mtf_recency`) gives each chunk's recency row,
+  `mtf_start_tables` turns the rows into each chunk's start table (an
+  exclusive max-scan over chunks and a sort by recency, `mtf.py:85-96`;
+  one kernel of three launches on the card), and K2
+  (`mtf_encode_lockstep`) encodes all chunks in lockstep.
 
 Inverse: decoding a rank is a positional permutation of the table, and
   permutations compose by gather.  K4 (`mtf_lockstep`) from the
@@ -27,27 +27,10 @@ from tpulc_torch.primitives.mtf_kernels import (
     mtf_encode_lockstep,
     mtf_lockstep,
     mtf_recency,
+    mtf_start_tables,
 )
 
 DEFAULT_CHUNK = 128
-
-
-def start_tables(rec_rel: torch.Tensor, chunk: int) -> torch.Tensor:
-    """K1's per-chunk recency int32[nchunks, 256] -> every chunk's MTF
-    start table int32[nchunks, 256]: an exclusive max-scan over chunks,
-    then seen symbols newest first and unseen ones in natural order."""
-    nchunks = rec_rel.shape[0]
-    dev = rec_rel.device
-    base = (torch.arange(nchunks, device=dev, dtype=torch.int32)
-            * chunk)[:, None]
-    recency = torch.where(rec_rel >= 0, rec_rel + base, -1)
-    incl = torch.cummax(recency, dim=0).values
-    before = torch.cat(
-        [torch.full((1, ALPHA), -1, dtype=torch.int32, device=dev),
-         incl[:-1]], dim=0)
-    syms = torch.arange(ALPHA, device=dev, dtype=torch.int32)[None, :]
-    key = torch.where(before >= 0, before, -2 - syms)
-    return torch.argsort(-key, dim=1, stable=True).to(torch.int32)
 
 
 def mtf_encode(data: torch.Tensor, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
@@ -57,7 +40,8 @@ def mtf_encode(data: torch.Tensor, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     if n % chunk:
         raise ValueError("pad input to a multiple of `chunk`")
     d = data.to(torch.int32).reshape(n // chunk, chunk).contiguous()
-    ranks, _ = mtf_encode_lockstep(start_tables(mtf_recency(d), chunk), d)
+    table0 = mtf_start_tables(mtf_recency(d), chunk)
+    ranks, _ = mtf_encode_lockstep(table0, d)
     return ranks.to(torch.uint8).reshape(n)
 
 

@@ -1,11 +1,14 @@
-"""MTF kernels K1, K2, K4: wrappers, launch counts and plain versions.
+"""MTF kernels K1, K2, K4 and the start tables between K1 and K2:
+wrappers, launch counts and plain versions.
 
-The counterpart of `tpulc/primitives/mtf_pallas.py`.  The CUDA sources
-are `tpulc_torch/csrc/mtf.cu` (design notes there).
+The counterpart of `tpulc/primitives/mtf_pallas.py` and of the XLA stage
+of `tpulc/primitives/mtf.py:85-96`.  The CUDA sources are
+`tpulc_torch/csrc/mtf.cu` (design notes there).
 
 | kernel | wrapper                   | replaces (tpulc)                              |
 |--------|---------------------------|-----------------------------------------------|
 | K1     | `mtf_recency`             | `mtf_pallas.py:mtf_recency_pallas`            |
+| —      | `mtf_start_tables`        | `mtf.py:85-96` (XLA scan and argsort)         |
 | K2     | `mtf_encode_lockstep`     | `mtf_pallas.py:mtf_encode_lockstep_pallas`    |
 | K4     | `mtf_lockstep`            | `mtf_pallas.py:mtf_lockstep_pallas`           |
 
@@ -93,12 +96,81 @@ def mtf_recency(syms: torch.Tensor) -> torch.Tensor:
 mtf_recency.launches = 0
 
 
+# ------------------------------------------------------- start tables
+
+def mtf_start_tables_plain(rec_rel: torch.Tensor, chunk: int) -> torch.Tensor:
+    """K1's per-chunk recency int32[nchunks, 256] -> every chunk's MTF
+    start table int32[nchunks, 256]: an exclusive max-scan over chunks,
+    then seen symbols newest first and unseen ones in natural order."""
+    nchunks = rec_rel.shape[0]
+    dev = rec_rel.device
+    base = (torch.arange(nchunks, device=dev, dtype=torch.int32)
+            * chunk)[:, None]
+    recency = torch.where(rec_rel >= 0, rec_rel + base, -1)
+    incl = torch.cummax(recency, dim=0).values
+    before = torch.cat(
+        [torch.full((1, ALPHA), -1, dtype=torch.int32, device=dev),
+         incl[:-1]], dim=0)
+    syms = torch.arange(ALPHA, device=dev, dtype=torch.int32)[None, :]
+    key = torch.where(before >= 0, before, -2 - syms)
+    return torch.argsort(-key, dim=1, stable=True).to(torch.int32)
+
+
+def mtf_start_tables(rec_rel: torch.Tensor, chunk: int,
+                     tile: int = 0) -> torch.Tensor:
+    """Start-table wrapper (see `mtf_start_tables_plain`).  Its domain is
+    K1's output for chunks of `chunk` steps: every row holds values in
+    [-1, chunk), and each step index at most once a row.  There every
+    key is distinct (seen symbols have distinct positions, unseen ones
+    the keys -2 - s), so the order is unique and the kernel's output is
+    bit-identical to the plain version's; off it the kernel's output is
+    unspecified.  Positions c * chunk + step are int32 on both routes,
+    so nchunks * chunk must stay under 2^31.  The kernel also needs
+    chunk <= 4,096 (its step mask; the C entry point refuses more).
+    `tile` forces the kernel's chunks a tile (8, 16, 32 or 64: a hook
+    for tests and `chip_smoke.py`'s sweep, unused on the CPU); 0 lets
+    the C entry point pick from the shape and the card.  It changes no
+    output.  0 chunks give 0 tables."""
+    _check_i32("rec_rel", rec_rel, 2, ALPHA)
+    nchunks = rec_rel.shape[0]
+    if nchunks * chunk >= 1 << 31:
+        raise ValueError("nchunks * chunk must stay under 2^31")
+    if nchunks == 0:
+        return torch.empty((0, ALPHA), dtype=torch.int32,
+                           device=rec_rel.device)
+    if _route(rec_rel) == "cpu":
+        return mtf_start_tables_plain(rec_rel, chunk)
+    lib = cuda_lib.library()
+    out = torch.empty_like(rec_rel)
+    with torch.cuda.device(rec_rel.device):
+        tile = lib.tplc_mtf_start_tile(nchunks, tile)
+        if tile < 0:
+            raise ValueError("tile: not one the kernel is built for")
+        scratch = torch.empty(ALPHA * -(-nchunks // tile), dtype=torch.int32,
+                              device=rec_rel.device)
+        cuda_lib.check(lib.tplc_mtf_start_tables(
+            rec_rel.data_ptr(), out.data_ptr(), scratch.data_ptr(), nchunks,
+            chunk, tile, cuda_lib.stream_of(rec_rel)), "mtf_start_tables")
+    mtf_start_tables.launches += 1
+    return out
+
+
+mtf_start_tables.launches = 0
+
+
 # --------------------------------------------------------------- K2
 
 def mtf_encode_lockstep_plain(table0: torch.Tensor, syms: torch.Tensor):
     """Lockstep MTF-by-symbol: table0 int32[nchunks,256], syms
-    int32[nchunks,C] -> (ranks int32[nchunks,C], final table).  A
-    symbol's rank is its first position in the table (0 when absent)."""
+    int32[nchunks,C] -> (ranks int32[nchunks,C], final table).  Entries
+    and symbols are any int32.  A symbol's rank is its FIRST position in
+    the table: the rule of tpulc's XLA step (`jnp.argmax` of the
+    equality, `tpulc/primitives/mtf.py:109`) and of its numpy gold
+    (`list.index`), which define the contract; tpulc's Pallas kernel
+    takes the last on a table with a duplicate entry
+    (`mtf_pallas.py:132-134`, ROADMAP F5).  The codecs' start tables
+    are permutations, where both rules agree, so no container depends on
+    the choice.  An absent symbol gets rank 0 and overwrites position 0."""
     table = table0
     ranks = []
     for t in range(syms.shape[1]):
