@@ -2,6 +2,13 @@
 """Prove the PyTorch/CUDA port (tpulc_torch) runs on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --walks [--root DIR]
+
+The second form runs one turn of a parent/change comparison of the
+huffman walks: K3, K7 and K8 device ms and the decode-only GB/s of
+every decoder at the huffman path's full width, from the tpulc_torch
+package under DIR (default: this checkout), e.g. a `git archive` of the
+parent commit; run it in turns, parent, change, change, parent.
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -29,17 +36,20 @@ Phases (any failure exits non-zero before the last line is printed):
 5. the huffman kernels (K3 packed, K7 v1, K8 flat) against their plain
    versions at the huffman path's full width: the 100 MB group of 96
    blocks x 8,192 chunks x 128 symbols from its real streams;
-   bit-identical, timed as in phase 3; K3 packed at every tile; and K3
-   on two streams whose chunk offsets are in random order, which sends
-   every tile down its global-memory route, equal to the plain version;
+   bit-identical, timed as in phase 3; K3 packed at every tile; K3, K7
+   and K8 on two streams whose chunk offsets are in random order, which
+   sends every tile down its global-memory route, K7 with bases of any
+   int32 and K8 with non-nested limits and bits_left of 0, below 0 and
+   past C*L on the whole group, each equal to the plain version;
 6. the huffman main path: compress + decompress of 100,000,000 B of
    pg1661 at 1 MiB blocks, counted as in phase 4: exact round trip, the
    container's size and sha256 equal to tpulc's, K3 launched; decoded
    again with kernel="v1" and "flat" (K7 and K8 counted the same way);
    pg1661 x 6 at 1 MiB equal to tpulc's container; MB/s from warm
    repeats, decode-only GB/s per decoder on device-resident parsed
-   input, the self-sync decode's time, peak device memory, stage times
-   and a trace as in phase 4;
+   input and where each decoder's decode-only time goes (arguments,
+   walk, rank-to-symbol map, the rest), the self-sync decode's time,
+   peak device memory, stage times and a trace as in phase 4;
 7. the group-rank coder's kernels (K5 model walk, the reverse-rANS
    emission that reads K5's output, K6 decode FSM) against their plain
    versions on real grids at both bsc shapes: pg1661 x 6 at 4 MiB
@@ -82,6 +92,7 @@ The line before the last is {"kernels": [...]}; the last is
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import os
@@ -89,6 +100,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 CORPUS_SIZE = 3_569_598  # pg1661.txt x 6, bench.py's corpus
 BLOCK = 900_000
@@ -317,8 +329,6 @@ def k4_variants(torch, mk, cuda_lib, table0, ranks, want) -> dict:
     the two calls `mtf_decode` makes (identity start without symbols;
     without the final table), each equal to the plain version of the
     same arguments, with the bound of the bytes that call must move."""
-    from functools import partial
-
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     regs = ptxas_registers(cuda_lib.build_log.get("mtf.cu", ""))
     nchunks, C = ranks.shape
@@ -380,8 +390,6 @@ def start_tiles(torch, mk, cuda_lib, rec, want, split: bool = False) -> dict:
     """The start tables at every tile (each output equal to `want`, the
     plain version's), with device ms and tiles; with `split`, the device
     ms of each of the default tile's three launches (`launch_split`)."""
-    from functools import partial
-
     nchunks = rec.shape[0]
     out = {"shape": f"{nchunks}x128",
            "auto_tile": cuda_lib.library().tplc_mtf_start_tile(nchunks, 0),
@@ -439,8 +447,6 @@ def k1_library(torch, d):
 def k3_tiles(torch, dk, cuda_lib, args, packed: bool, want) -> dict:
     """K3 at every tile (each output equal to `want`), with device ms, ns a symbol step, the blocks an SM's shared
     memory and registers hold, and waves."""
-    from functools import partial
-
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     L = args[7]
     lt = L if L in (12, 15) else 0
@@ -471,11 +477,19 @@ def k3_tiles(torch, dk, cuda_lib, args, packed: bool, want) -> dict:
 def main() -> int:
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--walks", action="store_true",
+                    help="one turn of the huffman walks' comparison")
+    ap.add_argument("--root", default=None,
+                    help="with --walks: the checkout whose tpulc_torch runs")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
+    if opts.walks:
+        return walks_turn(torch, here, os.path.abspath(opts.root or here))
     sys.path.insert(0, here)
     from tpulc_torch import cuda_lib
     from tpulc_torch.codecs.bwt import driver
@@ -638,10 +652,61 @@ def main() -> int:
     return 0
 
 
+def walks_turn(torch, here: str, root: str) -> int:
+    """One turn of the huffman walks' parent/change comparison, with the
+    tpulc_torch package under `root`: device ms (`device_ms`) and sha256
+    of the output of K3 unpacked on the bz block of phase 3, and of K3
+    packed, K7 and K8 on the 100 MB group of phase 5; the decode-only
+    GB/s of every decoder (`decode_only_s`)."""
+    sys.path.insert(0, root)
+    from tpulc_torch import cuda_lib
+    from tpulc_torch.codecs.bwt import driver
+    from tpulc_torch.codecs.huffman import decode as hdec
+    from tpulc_torch.codecs.huffman import decode_kernels as dk
+    from tpulc_torch.codecs.huffman import driver as hdrv
+    from tpulc_torch.pipeline.container import Container
+
+    require(os.path.abspath(dk.__file__).startswith(root + os.sep),
+            f"tpulc_torch was not imported from {root}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    cuda_lib.library()
+    build_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    data = corpus(here)
+    payload = Container.from_bytes(driver.compress(
+        data[:BLOCK], block_size=BLOCK, device="cuda")).payloads[0]
+    _, walk, _, _ = driver.walk_args(payload, driver._cap_for(BLOCK), dev)
+    comp = hdrv.compress(corpus(here, HUFF_SIZE), block_size=HUFF_BLOCK,
+                         device="cuda")
+    words, tbits, lens, offs, _, chunk = hdrv._parse_aligned_group(
+        Container.from_bytes(comp).payloads, HUFF_BLOCK)
+    group = hdrv._to_device(words, tbits, lens, offs, dev)
+    wargs, _ = hdec.walk_args(*group, chunk, HUFF_MAX_LEN)
+    fargs, _ = hdec.flat_args(*group, chunk, HUFF_MAX_LEN)
+    out = {"root": root, "card": smi, "build_s": build_s, "device_ms": {},
+           "sha256": {}}
+    for name, fn in (("k3_unpacked_bz", partial(dk.huffman_walk, *walk)),
+                     ("k3_packed", partial(dk.huffman_walk, *wargs,
+                                           packed=True)),
+                     ("k7", partial(dk.huffman_walk_v1, *wargs)),
+                     ("k8", partial(dk.huffman_walk_flat, *fargs))):
+        got = fn().contiguous().cpu().numpy()
+        out["sha256"][name] = hashlib.sha256(got.tobytes()).hexdigest()
+        out["device_ms"][name] = device_ms(torch, fn)
+    secs = decode_only_s(torch, hdrv, group, chunk, HUFF_MAX_LEN)
+    out["decode_only_GBps"] = {k: HUFF_SIZE / 1e9 / v
+                               for k, v in secs.items()}
+    print(smi)
+    print(json.dumps({"walks": out}), flush=True)
+    return 0
+
+
 def huffman_phases(torch, here: str, dev, kernels: list) -> None:
     """Phases 5 and 6; appends K3 packed, K7 and K8 to `kernels`."""
-    from functools import partial
-
     from tpulc_torch import cuda_lib
     from tpulc_torch.codecs.huffman import decode as hdec
     from tpulc_torch.codecs.huffman import decode_kernels as dk
@@ -706,7 +771,9 @@ def huffman_phases(torch, here: str, dev, kernels: list) -> None:
     tiles["staged_route_2_streams_device_ms"] = device_ms(
         torch, lambda: dk.huffman_walk(*hostile[:2], wargs[2][: 2 * ccap],
                                        *hostile[3:], packed=True))
-    print(json.dumps({"huffman_shape_builds": {"k3": tiles}}), flush=True)
+    print(json.dumps({"huffman_shape_builds": {
+        "k3": tiles, "edges": walk_edges(torch, dk, wargs, fargs, hostile)}}),
+        flush=True)
     del wargs, fargs, hostile
 
     # 6. the huffman main path, counted; then v1 and flat, each counted
@@ -750,13 +817,9 @@ def huffman_phases(torch, here: str, dev, kernels: list) -> None:
         cs.append(tc)
         ds.append(td)
     c_s, d_s = statistics.median(cs), statistics.median(ds)
-    decode_gbps = {}
-    for kern in hdrv.KERNELS:   # bench.py:138-155's protocol, on the card
-        synced(torch, lambda: hdrv.decode_batch_device(
-            *group, chunk, L, kernel=kern))
-        reps = [synced(torch, lambda: hdrv.decode_batch_device(
-            *group, chunk, L, kernel=kern))[1] for _ in range(3)]
-        decode_gbps[kern] = HUFF_SIZE / 1e9 / statistics.median(reps)
+    decode_s = decode_only_s(torch, hdrv, group, chunk, L)
+    decode_gbps = {k: HUFF_SIZE / 1e9 / v for k, v in decode_s.items()}
+    split = decode_split(torch, group, chunk, L, decode_s)
     peak = torch.cuda.max_memory_allocated()
     ss_comp = hdrv.compress(x6, block_size=HUFF_BLOCK, aligned=False,
                             device="cuda")
@@ -772,6 +835,7 @@ def huffman_phases(torch, here: str, dev, kernels: list) -> None:
         "compress_MBps": mb / c_s, "decompress_MBps": mb / d_s,
         "roundtrip_MBps": mb / (c_s + d_s),
         "decode_only_GBps": decode_gbps,
+        "decode_only_split_ms": split,
         "selfsync_pg1661x6_decompress_s": ss_s,
         "timing": "median of 3 warm runs, host clock, synchronized",
         "peak_mem_bytes": peak,
@@ -781,6 +845,120 @@ def huffman_phases(torch, here: str, dev, kernels: list) -> None:
         lambda: hdrv.compress(big, block_size=HUFF_BLOCK, device="cuda"),
         lambda c: hdrv.decompress(c, device="cuda"), HUFF_SIZE)}),
         flush=True)
+
+
+def decode_only_s(torch, hdrv, group, chunk: int, L: int) -> dict:
+    """bench.py:138-155's protocol on the card: each decoder on the
+    device-resident parsed group, one warm call, then the median of 3
+    (s, host clock, synchronised)."""
+    out = {}
+    for kern in hdrv.KERNELS:
+        def fn():
+            return hdrv.decode_batch_device(*group, chunk, L, kernel=kern)
+
+        synced(torch, fn)
+        out[kern] = statistics.median(synced(torch, fn)[1] for _ in range(3))
+    return out
+
+
+def decode_split(torch, group, chunk: int, L: int, total_s: dict) -> dict:
+    """Where each walk decoder's decode-only time (`total_s`) goes, ms:
+    `params` the canonical decode tables; `args` the rest of the kernel's
+    arguments (walk_args: a table index a chunk; flat_args: the padding,
+    bits_left, the left-justified limits and the per-tile table copies);
+    `walk` the wrapper's call and `walk_device` the kernel alone
+    (`device_ms`); `clamp` v1's clamp of K7's transposed int32 output;
+    `map` `_ranks_to_symbols` (the ranks widened to int64 for a gather);
+    `rest` what the total leaves.  Host clock, synchronised, median of 3
+    after a warm call, except `walk_device`."""
+    from tpulc_torch.codecs.huffman import decode as hdec
+    from tpulc_torch.codecs.huffman import decode_kernels as dk
+    from tpulc_torch.codecs.huffman.device_tables import (
+        canonical_decode_params,
+    )
+
+    def ms(fn):
+        synced(torch, fn)
+        return statistics.median(synced(torch, fn)[1] for _ in range(3)) * 1e3
+
+    words, _, lens, offs = group
+    B, ccap = offs.shape
+    params = ms(lambda: canonical_decode_params(lens, L))
+    wargs, ss = hdec.walk_args(*group, chunk, L)
+    fargs, _ = hdec.flat_args(*group, chunk, L)
+    out = {"params": params}
+    for kern in ("v1", "buffered", "flat"):
+        row = {"total": total_s[kern] * 1e3, "params": params}
+        if kern == "flat":
+            row["args"] = ms(lambda: hdec.flat_args(*group, chunk, L)) - params
+            walk = partial(dk.huffman_walk_flat, *fargs)
+        else:
+            row["args"] = ms(lambda: hdec.walk_args(*group, chunk, L)) - params
+            walk = (partial(dk.huffman_walk_v1, *wargs) if kern == "v1"
+                    else partial(dk.huffman_walk, *wargs, packed=True))
+        row["walk"] = ms(walk)
+        row["walk_device"] = device_ms(torch, walk)
+        got = walk()
+        row["clamp"] = 0.0
+        if kern == "v1":
+            row["clamp"] = ms(lambda: got.clamp(0, 255))
+            ranks = got.clamp(0, 255)
+        elif kern == "buffered":
+            ranks = got.view(torch.uint8)
+        else:
+            ranks = got.view(torch.uint8).reshape(B, -1)[:, : ccap * chunk]
+        row["map"] = ms(lambda: hdec._ranks_to_symbols(ranks, ss, B))
+        del got, ranks
+        row["rest"] = row["total"] - params - row["args"] - row["walk"] \
+            - row["clamp"] - row["map"]
+        out[kern] = row
+    return out
+
+
+def walk_edges(torch, dk, wargs, fargs, hostile) -> dict:
+    """K7 and K8 off the path's own inputs at the full shape, each equal
+    to its plain version, with device ms: K7 on K3's two streams of
+    random-order offsets (the global-memory route) and on the whole group
+    with bases of any int32 (indices wrap, unclipped); K8 on the same two
+    streams, offsets and bits_left permuted alike, and on the whole group
+    with two limits of every tile's table swapped (not nested: the count
+    rule is not the first-hit rule) and bits_left of 0, below 0 and past
+    C*L on every 5th, 7th and 11th chunk."""
+    words, offs, left, lj, base, C, L = fargs
+    dev = words.device
+    g = torch.Generator().manual_seed(7)
+    ccap2 = offs.shape[0] // words.shape[0]   # padded to a table tile
+    fperm = torch.cat([b * ccap2 + torch.randperm(ccap2, generator=g)
+                       for b in range(2)]).to(dev)
+    f_far = (words[:2].contiguous(), offs[fperm].contiguous(),
+             left[fperm].contiguous(), lj[: 2 * ccap2 // dk.TILE],
+             base[: 2 * ccap2 // dk.TILE], C, L)
+    lj_sw = lj.clone()
+    lj_sw[:, [4, 6]] = lj[:, [6, 4]]
+    left_e = left.clone()
+    left_e[::5] = 0
+    left_e[::7] = -1000
+    left_e[::11] = 2**31 - 1
+    f_odd = (words, offs, left_e, lj_sw, base, C, L)
+    base_i32 = torch.randint(-2**31, 2**31 - 1, wargs[4].shape, generator=g,
+                             dtype=torch.int32).to(dev)
+    w_odd = (*wargs[:4], base_i32, *wargs[5:])
+    out = {}
+    for tag, kern, plain, args in (
+            ("k7_global_route_2_streams", dk.huffman_walk_v1,
+             dk.huffman_walk_v1_plain, hostile),
+            ("k7_int32_bases", dk.huffman_walk_v1, dk.huffman_walk_v1_plain,
+             w_odd),
+            ("k8_global_route_2_streams", dk.huffman_walk_flat,
+             dk.huffman_walk_flat_plain, f_far),
+            ("k8_nonnested_bits_left", dk.huffman_walk_flat,
+             dk.huffman_walk_flat_plain, f_odd)):
+        got = kern(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(got, plain(*args)), f"{tag} differs from plain")
+        del got
+        out[f"{tag}_device_ms"] = device_ms(torch, lambda: kern(*args))
+    return out
 
 
 def grc_grid(torch, bsc, data: bytes, block: int, dev):
@@ -1035,8 +1213,6 @@ def lanes_sweep(torch, gk, gmb, init, cinit, nsteps, k6, entries) -> dict:
     each output equal to the default's; ms, waves (blocks over rounds of
     the SMs times the blocks that an SM's shared memory holds), and ns a
     step overall and a wave."""
-    from functools import partial
-
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     L = gmb.shape[1]
     ref5 = gk.grc_walk_probs(gmb, init, cinit, nsteps)

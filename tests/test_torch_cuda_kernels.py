@@ -9,10 +9,12 @@ from test_torch_walk_cases import (
     K2_CASES,
     K3_CASES,
     K4_CASES,
+    K8_CASES,
     START_CASES,
     k2_case,
     k3_case,
     k4_case,
+    k8_case,
     start_case,
 )
 
@@ -247,7 +249,7 @@ def test_k3_reads_an_unaligned_words_view(cuda, name, tile):
 
 
 def _walk_args(seed, B=3, ccap=256, L=15):
-    """K3/K7 inputs: B streams with ragged ends, 4 tables, random picks."""
+    """K3 inputs: B streams with ragged ends, 4 tables, random picks."""
     rng = np.random.default_rng(seed)
     W = 3000
     words = rng.integers(0, 1 << 32, size=(B, W), dtype=np.uint64).astype(
@@ -276,28 +278,102 @@ def test_k3_equals_plain(cuda, packed):
     assert torch.equal(got.cpu(), want)
 
 
-def test_k7_equals_plain(cuda):
-    args = (*_walk_args(2, L=12), 128, 12)
-    want = dk.huffman_walk_v1_plain(*args)
-    got = dk.huffman_walk_v1(*_on(cuda, args))
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
+_K7_WANT = {}
 
 
-@pytest.mark.parametrize("valid", [True, False])
-def test_k8_equals_plain(cuda, valid):
-    words, tbits, offs, lim, base, _ = _walk_args(3, L=12)
-    T = offs.shape[0] // dk.TILE
-    pick = torch.arange(T) % lim.shape[0]
-    lj = (lim[pick].long() << (12 - torch.arange(13))).int()
-    if not valid:  # non-nested limits: the corrupt-table contract
-        lj = torch.from_numpy(np.random.default_rng(4).integers(
-            0, 1 << 12, size=(T, 13)).astype(np.int32))
-    blk = torch.arange(offs.shape[0]) // (offs.shape[0] // words.shape[0])
-    left = torch.clamp(tbits[blk] - offs, max=128 * 12).int()
-    args = (words, offs, left, lj.contiguous(), base[pick].contiguous(), 128, 12)
+@pytest.mark.parametrize("L", [12, 15, 9])
+@pytest.mark.parametrize("name", K3_CASES)
+def test_k7_edges_equal_plain(cuda, name, L):
+    """K7 on every K3 edge case (random tables a chunk, so every tile
+    compares; "far" walks from global memory, the rest from the stage)
+    at chunk lengths of 8, 128, 136 and 300 symbols, 150 chunks a
+    stream (no multiple of any tile); one launch a call."""
+    for C in (8, 128, 136, 300):
+        args = k3_case(name, C=C, L=L, ccap=150, W=401)
+        key = (name, L, C)
+        if key not in _K7_WANT:
+            _K7_WANT[key] = dk.huffman_walk_v1_plain(*args)
+        n = dk.huffman_walk_v1.launches
+        got = dk.huffman_walk_v1(*_on(cuda, args))
+        torch.cuda.synchronize()
+        assert dk.huffman_walk_v1.launches == n + 1
+        assert got.shape == (args[2].shape[0], C)
+        assert torch.equal(got.cpu(), _K7_WANT[key]), C
+
+
+@pytest.mark.parametrize("name", ["sorted", "hostile", "corrupt", "tbits_pad",
+                                  "far", "past_words"])
+def test_k7_length_table_on_one_table_a_stream(cuda, name):
+    """The huffman codec's shape in small: one table a stream and 40,000
+    chunks (128-chunk tiles), so that at L = 12 every tile walks by the
+    length table; "hostile" also takes bases of any int32 (indices
+    wrap as int32, unclipped)."""
+    for L in (12, 9, 15):
+        args = list(k3_case(name, C=8, L=L, B=2, ccap=20_000,
+                            W=3000 if name != "far" else 60_000))
+        args[5] = torch.arange(2, dtype=torch.int32).repeat_interleave(20_000)
+        if name == "hostile":
+            args[4] = torch.from_numpy(np.random.default_rng(5).integers(
+                -2**31, 2**31, size=args[4].shape).astype(np.int32))
+        want = dk.huffman_walk_v1_plain(*args)
+        got = dk.huffman_walk_v1(*_on(cuda, args))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), L
+
+
+def test_k7_reads_an_unaligned_words_view(cuda):
+    for ccap in (140, 20_000):
+        args = list(k3_case("sorted", C=128, L=12, B=3, ccap=ccap, W=4001))
+        args[5] = torch.zeros(3 * ccap, dtype=torch.int32)
+        want = dk.huffman_walk_v1_plain(*args)
+        dev_args = _on(cuda, args)
+        dev_args[0] = _shifted(args[0], cuda)
+        got = dk.huffman_walk_v1(*dev_args)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), ccap
+
+
+@pytest.mark.parametrize("name", K8_CASES)
+def test_k8_edges_equal_plain(cuda, name):
+    """K8 on every K8 edge case, 256 chunks a stream (32-chunk tiles: the
+    compares of the count rule), at L = 12, 15 and 9 and chunk lengths
+    of 16, 128, 132 (a ragged second slab) and 300; one launch a call."""
+    for L, C in ((12, 16), (12, 128), (15, 132), (9, 300)):
+        args = k8_case(name, C=C, L=L)
+        want = dk.huffman_walk_flat_plain(*args)
+        n = dk.huffman_walk_flat.launches
+        got = dk.huffman_walk_flat(*_on(cuda, args))
+        torch.cuda.synchronize()
+        assert dk.huffman_walk_flat.launches == n + 1
+        assert torch.equal(got.cpu(), want), (L, C)
+
+
+@pytest.mark.parametrize("name", ["tables", "nonnested", "hostile",
+                                  "past_stream", "bits_left", "far"])
+def test_k8_window_table_across_a_blocks_tiles(cuda, name):
+    """4 streams of 131,072 chunks of 4 symbols: 128-chunk tiles, 4 a
+    block, so at L = 12 the block builds the window table by the count
+    rule and keeps it while the next tile's table holds the same values
+    ("tables": runs of 3 tiles share one, then it changes; the rest
+    pick a table a tile at random).  L = 15 compares."""
+    for L in (12, 15):
+        args = k8_case(name, C=4, L=L, B=4, ccap=131_072, W=30_000)
+        want = dk.huffman_walk_flat_plain(*args)
+        got = dk.huffman_walk_flat(*_on(cuda, args))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), L
+
+
+@pytest.mark.parametrize("ccap", [128 * 100, 128 * 300])
+@pytest.mark.parametrize("name", ["sorted", "far"])
+def test_k8_reads_an_unaligned_words_view(cuda, name, ccap):
+    """`words` 4 bytes into a wider buffer with an odd row length, at
+    32-chunk tiles (compares) and at 128-chunk tiles (window table)."""
+    args = list(k8_case(name, C=16, L=12, B=3, ccap=ccap, W=4001))
     want = dk.huffman_walk_flat_plain(*args)
-    got = dk.huffman_walk_flat(*_on(cuda, args))
+    dev_args = _on(cuda, args)
+    dev_args[0] = _shifted(args[0], cuda)
+    got = dk.huffman_walk_flat(*dev_args)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
 

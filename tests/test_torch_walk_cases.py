@@ -1,21 +1,42 @@
-"""Edge-case inputs for K3 (the canonical Huffman chunk walk), K4 (the
-MTF decode walk), K2 (the MTF encode walk) and the MTF start tables
-between K1 and K2, made from a numpy seed, with scalar references of
-the contracts.  The CPU tests hold the plain versions to these
-references and to tpulc; the card tests hold the CUDA kernels to the
-plain versions on the same inputs."""
+"""Edge-case inputs for K3 (the canonical Huffman chunk walk, whose
+contract K7 shares), K8 (the flat walk), K4 (the MTF decode walk), K2
+(the MTF encode walk) and the MTF start tables between K1 and K2, made
+from a numpy seed, with scalar references of the contracts.  The CPU
+tests hold the plain versions to these references and to tpulc; the
+card tests hold the CUDA kernels to the plain versions on the same
+inputs."""
 
 import numpy as np
 import torch
 
-from tpulc_torch.codecs.huffman.device_tables import canonical_decode_params
+from tpulc_torch.codecs.huffman.device_tables import (
+    canonical_decode_params,
+    package_merge_lengths_device,
+)
 
 K3_CASES = ("sorted", "equal", "nonmonotone", "tbits_pad", "ends_inside",
             "past_words", "corrupt", "hostile", "far")
+K8_CASES = ("sorted", "nonnested", "bits_left", "past_stream", "nonmonotone",
+            "far", "streams", "tables", "hostile")
 K4_CASES = ("random", "zeros", "all255", "out_of_range", "nonperm",
             "negative_entries")
 K2_CASES = ("random", "repeats", "duplicates", "absent", "int32")
 START_CASES = ("text", "one_symbol", "all_symbols", "vanishing")
+
+
+def code_lengths(rng, L, nreal, nrand, S=257):
+    """nreal + nrand code-length tables over S symbols: first optimal
+    L-limited codes of skewed frequencies (some symbols absent), so that
+    every length up to about L occurs; then random lengths, which
+    over-subscribe the short codes (every window decodes at length 1 or
+    2)."""
+    ranks = np.arange(1, S + 1)[None, :] ** rng.uniform(0.7, 1.6, (nreal, 1))
+    freqs = (1e6 / ranks).astype(np.int64) + 1
+    freqs = np.take_along_axis(freqs, rng.permuted(
+        np.tile(np.arange(S), (nreal, 1)), axis=1), axis=1)
+    freqs[rng.random(freqs.shape) < 0.1] = 0
+    real = package_merge_lengths_device(torch.from_numpy(freqs), L).numpy()
+    return np.concatenate([real, rng.integers(0, L + 1, size=(nrand, S))])
 
 
 def k3_case(name, C=16, L=12, B=2, ccap=150, W=400, seed=0):
@@ -59,7 +80,7 @@ def k3_case(name, C=16, L=12, B=2, ccap=150, W=400, seed=0):
     else:
         raise ValueError(name)
     T = 5
-    lens = rng.integers(0, L + 1, size=(T, 257))
+    lens = code_lengths(rng, L, 3, 2)
     lim, base, _ = (t.numpy() for t in canonical_decode_params(
         torch.from_numpy(lens), L))
     if name == "corrupt":
@@ -106,6 +127,116 @@ def k3_reference(words, tbits, offs, lim, base, tab, C, L):
                     ln, ci = l, base[t, l] + (win >> (L - l))
                     break
             out[c, s] = ci
+            pos += ln
+    return out
+
+
+def k8_case(name, C=16, L=12, B=2, ccap=256, W=400, seed=0):
+    """-> (words int32[B, W], offs[B*ccap], bits_left[B*ccap], lj, base
+    [B*ccap/128, L+1], C, L) as torch CPU tensors:
+    `huffman_walk_flat(*args)`.  ccap is a multiple of 128 (a table tile);
+    each tile takes one of 5 canonical tables (4 optimal codes, 1 of
+    random lengths), its limits left-justified, and bits_left is
+    ``min(tbits[b] - offs[c], C*L)`` (as `flat_args` makes them) unless
+    the case says otherwise.
+
+    sorted       offsets ascending in each stream, ragged stream ends
+    nonnested    random left-justified limits in [0, 2^L), unsorted: the
+                 count rule and the first-hit rule part ways
+    bits_left    bits_left above C*L, equal to 0, negative, or short
+    past_stream  a third of the offsets past the W words, some near 2^32
+                 (negative as int32): those chunks read zeros
+    nonmonotone  offsets in random order
+    far          offsets spread over a long stream in random order, so a
+                 tile's span exceeds any shared-memory stage
+    streams      5 streams of different lengths
+    tables       tables that repeat over runs of tiles and then change
+    hostile      limits and bases of any int32 (the index summed in 64
+                 bits before the clip)
+    """
+    rng = np.random.default_rng([seed, K8_CASES.index(name), C, L])
+    if name == "far":
+        W = 60_000
+    if name == "streams":
+        B = 5
+    nsub = B * ccap
+    words = rng.integers(0, 1 << 32, size=(B, W), dtype=np.uint64).astype(
+        np.uint32)
+    tbits = np.array([W * 32 - 19 - 300 * j for j in range(B)], np.int64)
+    span = W * 32 + 40
+    if name in ("nonmonotone", "far"):
+        offs = rng.integers(0, span, size=(B, ccap))
+    else:
+        offs = np.sort(rng.integers(0, span, size=(B, ccap)), axis=1)
+    left = np.minimum(tbits[:, None] - offs, C * L)
+    if name == "past_stream":
+        past = rng.random(size=offs.shape) < 1 / 3
+        far = rng.integers(W * 32, 1 << 32, size=offs.shape)
+        far[:, ::7] = (1 << 32) - rng.integers(1, 64, size=far[:, ::7].shape)
+        offs = np.where(past, far, offs)
+        left = np.where(past, rng.integers(1, 2 * C * L, size=offs.shape),
+                        left)
+    if name == "bits_left":
+        pick = rng.integers(0, 4, size=offs.shape)
+        left = np.select([pick == 0, pick == 1, pick == 2],
+                         [rng.integers(C * L + 1, 2**31, size=offs.shape), 0,
+                          rng.integers(-2**31, 0, size=offs.shape)],
+                         rng.integers(1, C * L, size=offs.shape))
+    T = nsub // 128
+    lens = code_lengths(rng, L, 4, 1)
+    lim, base, _ = (t.numpy().astype(np.int64) for t in
+                    canonical_decode_params(torch.from_numpy(lens), L))
+    lj5 = lim << (L - np.arange(L + 1))
+    if name == "tables":
+        pick = (np.arange(T) // 3) % 5
+    else:
+        pick = rng.integers(0, 5, size=T)
+    lj, base = lj5[pick], base[pick]
+    if name == "nonnested":
+        lj = rng.integers(0, 1 << L, size=lj.shape)
+    if name == "hostile":
+        lj = rng.integers(-2**31, 2**31, size=lj.shape)
+        lj[:, 1::2] = rng.integers(-(1 << L), 1 << (L + 1),
+                                   size=lj[:, 1::2].shape)
+        base = rng.integers(-2**31, 2**31, size=base.shape)
+        base[::2] = rng.integers(-300, 600, size=base[::2].shape)
+    t = torch.from_numpy
+    return (t(words.view(np.int32)),
+            t(offs.reshape(-1).astype(np.uint32).view(np.int32)),
+            t(left.reshape(-1).astype(np.int32)),
+            t(np.ascontiguousarray(lj).astype(np.int32)),
+            t(np.ascontiguousarray(base).astype(np.int32)), C, L)
+
+
+def k8_reference(words, offs, bits_left, lj, base, C, L):
+    """Scalar K8 contract, one chunk and one bit at a time: table
+    c // 128, length 1 + #{l < L: win >= lj[l]}, valid iff win < lj[L]
+    (else length 1, index 0), index base[length] + the window's top
+    `length` bits, emit while bits_left > 0, bits past W zero ->
+    int64[nsub, C] (unclipped)."""
+    words = words.numpy().view(np.uint32)
+    B, W = words.shape
+    bits = [np.unpackbits(w.astype(">u4").view(np.uint8)) for w in words]
+    offs = offs.numpy().view(np.uint32).astype(np.int64)
+    left = bits_left.numpy().astype(np.int64)
+    lj, base = lj.numpy().astype(np.int64), base.numpy().astype(np.int64)
+    nsub = offs.shape[0]
+    out = np.zeros((nsub, C), np.int64)
+    for c in range(nsub):
+        b, t = c // (nsub // B), c // 128
+        pos, bl = int(offs[c]), int(left[c])
+        for s in range(C):
+            if bl <= 0:
+                break
+            win = 0
+            for j in range(L):
+                win = (win << 1) | (int(bits[b][pos + j])
+                                    if pos + j < W * 32 else 0)
+            ln = 1 + sum(win >= lj[t, l] for l in range(1, L))
+            found = win < lj[t, L]
+            ln = ln if found else 1
+            out[c, s] = base[t, ln] + (win >> (L - ln)) if found else 0
+            bl -= ln
             pos += ln
     return out
 

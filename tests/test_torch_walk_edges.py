@@ -1,7 +1,7 @@
-"""What the CUDA designs of K3 and K4 must get right, pinned on the CPU:
-the plain versions (the card's arbiters) against scalar references of
-the two contracts on every edge case of `test_torch_walk_cases`, and
-against tpulc on the same inputs.
+"""What the CUDA designs of K3, K7, K8 and K4 must get right, pinned on
+the CPU: the plain versions (the card's arbiters) against scalar
+references of the contracts on every edge case of
+`test_torch_walk_cases`, and against tpulc on the same inputs.
 
 tpulc's own CPU suite does not run its buffered Pallas walk (the
 XLA:CPU compile of its interpret graph is slow beyond use), so K3 is
@@ -18,10 +18,14 @@ import torch
 from test_torch_walk_cases import (
     K3_CASES,
     K4_CASES,
+    K8_CASES,
+    code_lengths,
     k3_case,
     k3_reference,
     k4_case,
     k4_reference,
+    k8_case,
+    k8_reference,
 )
 
 from tpulc.codecs.huffman import driver as jdrv
@@ -29,6 +33,7 @@ from tpulc.pipeline.container import Container as JContainer
 from tpulc.primitives import mtf_pallas
 from tpulc_torch.codecs.huffman import decode as hdec
 from tpulc_torch.codecs.huffman import decode_kernels as dk
+from tpulc_torch.codecs.huffman.device_tables import canonical_decode_params
 from tpulc_torch.primitives import mtf_kernels as mk
 from tpulc_torch.primitives.mtf import mtf_decode
 
@@ -94,6 +99,73 @@ def test_k3_packed_equals_tpulc_on_ragged_multi_stream_groups(max_len):
     got = hdec.huffman_decode_buffered_batch(*t, chunk, max_len)
     for j, n in enumerate(ns):
         np.testing.assert_array_equal(got.numpy()[j, :n], want[j, :n])
+
+
+# ------------------------------------------------------------ K7, K8
+
+@pytest.mark.parametrize("L", [12, 15])
+@pytest.mark.parametrize("name", K3_CASES)
+def test_k7_plain_matches_the_contract(name, L):
+    """K7's contract is K3 unpacked's: the same cases, the same scalar
+    reference (int32 indices, unclipped)."""
+    args = k3_case(name, C=16, L=L, ccap=150 if name != "far" else 40)
+    want = k3_reference(*args)
+    got = dk.huffman_walk_v1(*args)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("L", [12, 15])
+@pytest.mark.parametrize("name", K8_CASES)
+def test_k8_plain_matches_the_count_rule(name, L):
+    """Two (five: "streams") streams of 256 chunks, a table a 128-chunk
+    tile, packed ranks clip(index, 0, 255)."""
+    args = k8_case(name, C=16, L=L)
+    want = k8_reference(*args)
+    got = dk.huffman_walk_flat(*args)
+    assert got.shape == (want.shape[0], 4)
+    np.testing.assert_array_equal(
+        got.numpy().view(np.uint8).reshape(want.shape),
+        np.clip(want, 0, 255))
+    if name == "bits_left":
+        dead = args[2].numpy() <= 0
+        assert dead.any() and not want[dead].any()
+
+
+def test_count_rule_and_first_hit_part_ways_on_a_non_nested_table():
+    """On a canonical table K8's count rule and K3's first-hit rule give
+    the same symbols; with two left-justified limits swapped (no longer
+    nested) they do not, and each walk keeps to its own rule.  So the
+    card's K8 window table must be built by the count rule."""
+    L, C = 12, 16
+    rng = np.random.default_rng(11)
+    lens = torch.from_numpy(code_lengths(rng, L, 1, 0))
+    lim, base, _ = canonical_decode_params(lens, L)
+    lj = (lim.long() << (L - torch.arange(L + 1))).int()
+    words = torch.from_numpy(rng.integers(0, 1 << 32, size=(1, 300),
+                                          dtype=np.uint64).astype(np.uint32)
+                             .view(np.int32))
+    offs = torch.from_numpy(np.sort(rng.integers(0, 9000, 128)).astype(
+        np.int32))
+    left = torch.full((128,), C * L, dtype=torch.int32)
+    tbits = torch.tensor([300 * 32], dtype=torch.int32)
+    tab = torch.zeros(128, dtype=torch.int32)
+    swapped = lj.clone()
+    swapped[0, [4, 6]] = lj[0, [6, 4]]
+    assert (swapped[0, 1:].diff() < 0).any()
+    for table, same in ((lj, True), (swapped, False)):
+        flat = (words, offs, left, table, base, C, L)
+        k8 = dk.huffman_walk_flat(*flat)
+        first = (words, tbits, offs, table >> (L - torch.arange(L + 1)).int(),
+                 base, tab, C, L)
+        k3 = dk.huffman_walk(*first, packed=True)
+        assert torch.equal(k8, k3) == same
+        np.testing.assert_array_equal(
+            k8.numpy().view(np.uint8).reshape(128, C),
+            np.clip(k8_reference(*flat), 0, 255))
+        np.testing.assert_array_equal(
+            k3.numpy().view(np.uint8).reshape(128, C),
+            np.clip(k3_reference(*first), 0, 255))
 
 
 # ------------------------------------------------------------------ K4

@@ -10,7 +10,8 @@ The counterparts of `tpulc/codecs/huffman/pallas_decode.py`:
   K8 `huffman_walk_flat` `decode_canonical_indices_flat`,
                          `csrc/huffman_flat.cu`.
 
-Design notes are in the CUDA sources.  A CPU tensor runs the plain
+Design notes are in the CUDA sources; the three share one walk core,
+`csrc/huffman_walk.cuh`.  A CPU tensor runs the plain
 PyTorch version; a CUDA tensor launches the kernel (adding one to the
 wrapper's `launches`) or raises.
 
@@ -46,7 +47,7 @@ from tpulc_torch import cuda_lib
 from tpulc_torch.primitives.bits import M32
 
 MAX_L = 16   # two codes fit one 32-bit refill
-TILE = 128   # K8: chunks per table tile = threads per CUDA block
+TILE = 128   # K8: chunks a table tile
 WALK_TILES = (32, 64, 128)   # K3: chunks a tile (= threads a CUDA block)
 
 
