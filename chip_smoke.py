@@ -3,28 +3,34 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --walks [--root DIR]
+    python3 chip_smoke.py --mtf [--root DIR]
 
-The second form runs one turn of a parent/change comparison of the
-huffman walks: K3, K7 and K8 device ms and the decode-only GB/s of
-every decoder at the huffman path's full width, from the tpulc_torch
-package under DIR (default: this checkout), e.g. a `git archive` of the
-parent commit; run it in turns, parent, change, change, parent.
+The second and third forms run one turn of a parent/change comparison
+with the tpulc_torch package under DIR (default: this checkout), e.g. a
+`git archive` of the parent commit; run them in turns, parent, change,
+change, parent.  `--walks`: K3, K7 and K8 device ms and the decode-only
+GB/s of every decoder at the huffman path's full width.  `--mtf`: K1
+and the start tables as that tree's `mtf_encode` calls them, device ms
+at the bz and soup shapes, and the bz and bsc -e2 compress MB/s.
 
 Phases (any failure exits non-zero before the last line is printed):
 
 1. the card's name and power limit (nvidia-smi); CUDA must be present;
 2. build the hand-written kernels from tpulc_torch/csrc (nvcc, sm_90a);
-3. each kernel (K1, the MTF start tables, K2, K4 MTF; K3 Huffman walk)
-   against its plain PyTorch version on the card at the main path's
-   shapes (7,032 chunks x 128 from a real 900 KB block; K3 on that
-   block's real stream): bit-identical, timed with CUDA events (median
-   of 5 after warm-up); then K2's walk (the share of steps it walks,
-   ns a walked step, registers, waves) and every build of the other
-   redesigned kernels at this shape, each equal to the plain version:
-   K4 at 32, 16 and 8 lanes a chunk (ms, ns a step, registers, waves),
-   K4 as `mtf_decode` calls it (identity start without symbols; without
-   the final table), the start tables at 8-, 16-, 32- and 64-chunk
-   tiles, K3 at 32-, 64- and 128-chunk tiles;
+3. each kernel (K1 with the start tables' tile maxima, the MTF start
+   tables from those maxima, K2, K4 MTF; K3 Huffman walk) against its
+   plain PyTorch version on the card at the main path's shapes (7,032
+   chunks x 128 from a real 900 KB block; K3 on that block's real
+   stream): bit-identical, timed with CUDA events (median of 5 after
+   warm-up); then K2's walk (the share of steps it walks, ns a walked
+   step, registers, waves) and every build of the other redesigned
+   kernels at this shape, each equal to the plain version: K4 at 32, 16
+   and 8 lanes a chunk (ms, ns a step, registers, waves), K4 as
+   `mtf_decode` calls it (identity start without symbols; without the
+   final table), K1 and the start tables at 8-, 16-, 32- and 64-chunk
+   tiles (K1 with and without the maxima; the start tables from K1's
+   maxima and by their own three launches), K3 at 32-, 64- and
+   128-chunk tiles;
 4. the bz main path: bz compress + decompress of pg1661 x 6 (3,569,598
    B, 900,000 B blocks) through the codec entry points on the card, with
    every kernel's launch count reset before and read after; exact round
@@ -59,9 +65,9 @@ Phases (any failure exits non-zero before the last line is printed):
    and 94 lanes a block (each output equal), with ns a step and waves;
    and K1, the start tables, K2 and K4 at the soup shape (204,800
    chunks x 128 from that block's real BWT output; the plain K2 and K4
-   once), with K2's walk and every K4 and start-table build as in
-   phase 3 and the device time of each of the start tables' three
-   launches;
+   once), with K2's walk and every K4, K1 and start-table build as in
+   phase 3 and the device time of each of the start tables' two
+   launches on K1's maxima;
 8. the bsc -e2 main path, counted as in phase 4: pg1661 x 6 at 4 MiB
    blocks (exact round trip, ratio 21.281, tpulc's sha256, K4
    launched, K1, the start tables, K2, K5, the emission and K6 once per
@@ -78,7 +84,9 @@ Every kernel entry carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its integer operations over 67 T op/s (the H100 SXM figures of
 NVIDIA's data sheet), and, where one PyTorch call computes the same
-function (K1: `scatter_reduce_` "amax"), that call's time.  The start
+function (K1's rows: `scatter_reduce_` "amax"), that call's time.  K1's
+bytes include its tile maxima; the start tables' are the function's
+(K1's rows in, the tables out), whichever route feeds them.  The start
 tables' plain version is the chain of PyTorch calls the path ran
 before they had a kernel (`cummax`, `cat`, a stable `argsort`); no one
 call computes them.  `ms` is the
@@ -386,23 +394,84 @@ def k2_walk(torch, cuda_lib, table0, syms, ms) -> dict:
     return out
 
 
-def start_tiles(torch, mk, cuda_lib, rec, want, split: bool = False) -> dict:
-    """The start tables at every tile (each output equal to `want`, the
-    plain version's), with device ms and tiles; with `split`, the device
-    ms of each of the default tile's three launches (`launch_split`)."""
-    nchunks = rec.shape[0]
-    out = {"shape": f"{nchunks}x128",
+def start_tiles(torch, mk, cuda_lib, d, want, split: bool = False) -> dict:
+    """K1 and the start tables at every tile, on K1's input `d`: K1's
+    rows and tile maxima equal to the plain versions', the start tables
+    from K1's maxima (the forward MTF's two launches) and by their own
+    three launches each equal to `want`, the plain version's; device ms
+    of each (K1 also without the maxima), tiles and K1's registers;
+    with `split`, the device ms of each launch of the default tile's
+    two-launch route (`launch_split`)."""
+    nchunks, C = d.shape
+    rec_want = mk.mtf_recency_plain(d)
+    out = {"shape": f"{nchunks}x{C}",
            "auto_tile": cuda_lib.library().tplc_mtf_start_tile(nchunks, 0),
+           "k1_registers": next((v for k, v in ptxas_registers(
+               cuda_lib.build_log.get("mtf.cu", "")).items()
+               if "mtf_recency_kernel" in k), None),
            "builds": {}}
     for tile in START_TILES:
-        fn = partial(mk.mtf_start_tables, rec, 128, tile=tile)
-        require(torch.equal(fn(), want), f"start tables at tile {tile} differ")
-        out["builds"][f"tile{tile}"] = {"device_ms": device_ms(torch, fn),
-                                        "tiles": -(-nchunks // tile)}
+        k1 = partial(mk.mtf_recency, d, partials=True, tile=tile)
+        rec, part, t = k1()
+        require(t == tile and torch.equal(rec, rec_want)
+                and torch.equal(part, mk.mtf_tile_max_plain(rec_want, C,
+                                                            tile)),
+                f"K1 at tile {tile} differs")
+        fused = partial(mk.mtf_start_tables, rec, C, tile=tile, part=part)
+        three = partial(mk.mtf_start_tables, rec, C, tile=tile)
+        require(torch.equal(fused(), want) and torch.equal(three(), want),
+                f"start tables at tile {tile} differ")
+        out["builds"][f"tile{tile}"] = {
+            "k1_device_ms": device_ms(torch, k1),
+            "k1_rows_only_device_ms": device_ms(
+                torch, partial(mk.mtf_recency, d, tile=tile)),
+            "device_ms": device_ms(torch, fused),
+            "three_launches_device_ms": device_ms(torch, three),
+            "tiles": -(-nchunks // tile)}
     if split:
+        rec, part, tile = mk.mtf_recency(d, partials=True)
         out["launches_device_ms"] = launch_split(
-            torch, lambda: mk.mtf_start_tables(rec, 128))
+            torch, lambda: mk.mtf_start_tables(rec, C, tile=tile, part=part))
     return out
+
+
+def mtf_pair_checks(mk, d, rec, part, tile: int, suffix: str,
+                    library) -> list:
+    """check_kernels entries of K1 and the start tables as the forward
+    MTF calls them: K1 with its tile maxima at `tile` (against the plain
+    rows and `mtf_tile_max_plain`), and the start tables from K1's rows
+    `rec` and maxima `part` (against the plain version)."""
+    C = d.shape[1]
+    shape = "x".join(map(str, d.shape))
+    src = "tpulc_torch/csrc/mtf.cu"
+
+    def k1_plain(x):
+        r = mk.mtf_recency_plain(x)
+        return r, mk.mtf_tile_max_plain(r, C, tile)
+
+    return [
+        dict(name="mtf_recency" + suffix, src=src,
+             replaces="tpulc/primitives/mtf_pallas.py:215",
+             kern=lambda x: mk.mtf_recency(x, partials=True, tile=tile)[:2],
+             plain=k1_plain, args=(d,), shape=shape,
+             ops=d.numel() + 256 * d.shape[0], library=library),
+        dict(name="mtf_start_tables" + suffix, src=src,
+             replaces=START_REPLACES,
+             kern=partial(mk.mtf_start_tables, tile=tile, part=part),
+             plain=mk.mtf_start_tables_plain, args=(rec, C), shape=shape,
+             ops=START_OPS * rec.numel()),
+    ]
+
+
+def bz_block_syms(torch, driver, data: bytes, dev):
+    """The first 900,000 B block of `data` as the bz compress hands it to
+    K1: its anchored BWT, int32[7,032, 128] on the card."""
+    from tpulc_torch.codecs.bwt.rotsort import bwt_encode_anchored
+
+    block = torch.zeros(driver._cap_for(BLOCK), dtype=torch.uint8)
+    block[:BLOCK] = torch.frombuffer(bytearray(data[:BLOCK]), dtype=torch.uint8)
+    last, _, _, _ = bwt_encode_anchored(block.to(dev), driver.ANCHOR_STRIDE)
+    return last.to(torch.int32).reshape(-1, 128).contiguous()
 
 
 def launch_split(torch, fn, reps: int = 20):
@@ -480,30 +549,29 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--walks", action="store_true",
                     help="one turn of the huffman walks' comparison")
+    ap.add_argument("--mtf", action="store_true",
+                    help="one turn of K1's and the start tables' comparison")
     ap.add_argument("--root", default=None,
-                    help="with --walks: the checkout whose tpulc_torch runs")
+                    help="with --walks or --mtf: the checkout whose "
+                         "tpulc_torch runs")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
-    if opts.walks:
-        return walks_turn(torch, here, os.path.abspath(opts.root or here))
+    if opts.walks or opts.mtf:
+        turn = walks_turn if opts.walks else mtf_turn
+        return turn(torch, here, os.path.abspath(opts.root or here))
     sys.path.insert(0, here)
     from tpulc_torch import cuda_lib
     from tpulc_torch.codecs.bwt import driver
-    from tpulc_torch.codecs.bwt.rotsort import bwt_encode_anchored
     from tpulc_torch.codecs.huffman import decode_kernels as dk
     from tpulc_torch.pipeline.container import Container
     from tpulc_torch.primitives import mtf_kernels as mk
 
     # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(smi)
+    print(card())
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -522,12 +590,9 @@ def main() -> int:
     # 3. kernels vs plain at the main path's shapes
     data = corpus(here)
     cap = driver._cap_for(BLOCK)
-    block = torch.zeros(cap, dtype=torch.uint8)
-    block[:BLOCK] = torch.frombuffer(bytearray(data[:BLOCK]), dtype=torch.uint8)
-    last, _, _, _ = bwt_encode_anchored(block.to(dev), driver.ANCHOR_STRIDE)
-    d = last.to(torch.int32).reshape(-1, 128).contiguous()
-    rec = mk.mtf_recency(d)
-    table0 = mk.mtf_start_tables(rec, 128)
+    d = bz_block_syms(torch, driver, data, dev)
+    rec, part, tile = mk.mtf_recency(d, partials=True)
+    table0 = mk.mtf_start_tables(rec, 128, tile=tile, part=part)
     ranks, _ = mk.mtf_encode_lockstep(table0, d)
     payload = Container.from_bytes(
         driver.compress(data[:BLOCK], block_size=BLOCK, device="cuda")
@@ -539,15 +604,7 @@ def main() -> int:
             "scatter_reduce_ differs from K1")
     walk_syms = walk[2].shape[0] * walk[6]
     kernels = check_kernels(torch, [
-        dict(name="mtf_recency", src="tpulc_torch/csrc/mtf.cu",
-             replaces="tpulc/primitives/mtf_pallas.py:215",
-             kern=mk.mtf_recency, plain=mk.mtf_recency_plain, args=(d,),
-             shape=mtf_shape, ops=d.numel() + 256 * d.shape[0],
-             library=k1_lib),
-        dict(name="mtf_start_tables", src="tpulc_torch/csrc/mtf.cu",
-             replaces=START_REPLACES, kern=mk.mtf_start_tables,
-             plain=mk.mtf_start_tables_plain, args=(rec, 128),
-             shape=mtf_shape, ops=START_OPS * rec.numel()),
+        *mtf_pair_checks(mk, d, rec, part, tile, "", k1_lib),
         dict(name="mtf_encode_lockstep", src="tpulc_torch/csrc/mtf.cu",
              replaces="tpulc/primitives/mtf_pallas.py:156",
              kern=mk.mtf_encode_lockstep, plain=mk.mtf_encode_lockstep_plain,
@@ -569,7 +626,7 @@ def main() -> int:
     kernels[-1]["calls"] = {t: k4[t] for t in ("perm", "syms")}
     print(json.dumps({"bz_shape_builds": {
         "k2": k2_walk(torch, cuda_lib, table0, d, kernels[2]["device_ms"]),
-        "start_tables": start_tiles(torch, mk, cuda_lib, rec,
+        "start_tables": start_tiles(torch, mk, cuda_lib, d,
                                     mk.mtf_start_tables_plain(rec, 128)),
         "k4": k4, "k3": k3_tiles(torch, dk, cuda_lib, walk, False,
                                  dk.huffman_walk_plain(*walk))}}), flush=True)
@@ -658,23 +715,13 @@ def walks_turn(torch, here: str, root: str) -> int:
     of the output of K3 unpacked on the bz block of phase 3, and of K3
     packed, K7 and K8 on the 100 MB group of phase 5; the decode-only
     GB/s of every decoder (`decode_only_s`)."""
-    sys.path.insert(0, root)
-    from tpulc_torch import cuda_lib
+    smi, build_s = load_tree(root)
     from tpulc_torch.codecs.bwt import driver
     from tpulc_torch.codecs.huffman import decode as hdec
     from tpulc_torch.codecs.huffman import decode_kernels as dk
     from tpulc_torch.codecs.huffman import driver as hdrv
     from tpulc_torch.pipeline.container import Container
 
-    require(os.path.abspath(dk.__file__).startswith(root + os.sep),
-            f"tpulc_torch was not imported from {root}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    t0 = time.perf_counter()
-    cuda_lib.library()
-    build_s = time.perf_counter() - t0
     dev = torch.device("cuda")
     data = corpus(here)
     payload = Container.from_bytes(driver.compress(
@@ -702,6 +749,94 @@ def walks_turn(torch, here: str, root: str) -> int:
                                for k, v in secs.items()}
     print(smi)
     print(json.dumps({"walks": out}), flush=True)
+    return 0
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def load_tree(root: str) -> tuple[str, float]:
+    """Put the tpulc_torch package under `root` first on the path and
+    build its kernels -> (the card's line, build seconds)."""
+    sys.path.insert(0, root)
+    from tpulc_torch import cuda_lib
+
+    require(os.path.abspath(cuda_lib.__file__).startswith(root + os.sep),
+            f"tpulc_torch was not imported from {root}")
+    t0 = time.perf_counter()
+    cuda_lib.library()
+    return card(), time.perf_counter() - t0
+
+
+def mtf_turn(torch, here: str, root: str) -> int:
+    """One turn of K1's and the start tables' parent/change comparison,
+    with the tpulc_torch package under `root`: device ms (`device_ms`)
+    of K1, of the start tables and of the pair as that tree's
+    `mtf_encode` calls them (K1 with its tile maxima and the start
+    tables from them, where the tree has them), and the sha256 of the
+    tables, on the bz block of phase 3 and the soup block of phase 7;
+    then the compress MB/s of bz on pg1661 x 6 and of bsc -e2 on pg1661
+    x 6 at 4 MiB and on the 100 MB soup at 25 MiB (host clock,
+    synchronised, median of 3 after a warm call)."""
+    import inspect
+
+    smi, build_s = load_tree(root)
+    from tpulc_torch.codecs.bsclike import driver as bsc
+    from tpulc_torch.codecs.bwt import driver
+    from tpulc_torch.primitives import mtf_kernels as mk
+    from tpulc_torch.primitives.mtf import mtf_decode
+
+    dev = torch.device("cuda")
+    fused = "partials" in inspect.signature(mk.mtf_recency).parameters
+    pg6, big = corpus(here), soup(SOUP_SIZE)
+    ranks, _ = block_ranks(torch, bsc, big, SOUP_BLOCK, dev)
+    shapes = (("bz", bz_block_syms(torch, driver, pg6, dev)),
+              ("soup", mtf_decode(ranks.to(torch.uint8)).to(
+                  torch.int32).reshape(-1, 128).contiguous()))
+    del ranks
+    out = {"root": root, "card": smi, "build_s": build_s,
+           "k1_tile_maxima": fused, "device_ms": {}, "sha256": {},
+           "compress_MBps": {}}
+    for label, d in shapes:
+        if fused:
+            k1 = partial(mk.mtf_recency, d, partials=True)
+            rec, part, tile = k1()
+            tables = partial(mk.mtf_start_tables, rec, 128, tile=tile,
+                             part=part)
+
+            def pair(d=d):
+                r, p, t = mk.mtf_recency(d, partials=True)
+                return mk.mtf_start_tables(r, 128, tile=t, part=p)
+        else:
+            k1 = partial(mk.mtf_recency, d)
+            tables = partial(mk.mtf_start_tables, k1(), 128)
+
+            def pair(d=d):
+                return mk.mtf_start_tables(mk.mtf_recency(d), 128)
+        got = pair().cpu().numpy()
+        out["sha256"][label] = hashlib.sha256(got.tobytes()).hexdigest()
+        for name, fn in (("k1", k1), ("start_tables", tables),
+                         ("pair", pair)):
+            out["device_ms"][f"{name}_{label}"] = device_ms(torch, fn)
+    for label, data, fn in (
+            ("bz_pg1661x6", pg6, partial(driver.compress, pg6,
+                                         block_size=BLOCK)),
+            ("bsc_e2_pg1661x6", pg6, partial(bsc.compress, pg6,
+                                             block_size=BSC_BLOCK, coder=2)),
+            ("bsc_e2_soup100MB", big, partial(bsc.compress, big,
+                                              block_size=SOUP_BLOCK,
+                                              coder=2))):
+        synced(torch, lambda: fn(device="cuda"))
+        secs = statistics.median(synced(torch, lambda: fn(device="cuda"))[1]
+                                 for _ in range(3))
+        out["compress_MBps"][label] = len(data) / 1e6 / secs
+    print(smi)
+    print(json.dumps({"mtf": out}), flush=True)
     return 0
 
 
@@ -961,14 +1096,12 @@ def walk_edges(torch, dk, wargs, fargs, hostile) -> dict:
     return out
 
 
-def grc_grid(torch, bsc, data: bytes, block: int, dev):
-    """K5's inputs as the bsc -e2 path builds them for the first block
-    of `data` (filter, LZP, masked BWT + MTF, lane pre-pass, event grid,
-    wired inits) -> (gmb, init, cinit, nsteps, lane_bits, ranks), ranks
-    being the block's MTF ranks int32[cap]."""
+def block_ranks(torch, bsc, data: bytes, block: int, dev):
+    """The MTF ranks of the first block of `data` as the bsc -e2 path
+    makes them (filter, LZP, masked BWT + MTF) -> (ranks int32[cap] on
+    the card, the stage's length)."""
     import numpy as np
 
-    from tpulc_torch.codecs.bsclike import grc
     from tpulc_torch.codecs.bsclike.filters import apply_filter_np
     from tpulc_torch.codecs.bwt.masked import forward_ranks_anchored
     from tpulc_torch.gold.lzp import lzp_encode
@@ -983,9 +1116,20 @@ def grc_grid(torch, bsc, data: bytes, block: int, dev):
     padded[: stage.shape[0]] = stage
     ranks, _, _, _ = forward_ranks_anchored(
         torch.from_numpy(padded).to(dev), stage.shape[0], bsc.ANCHOR_STRIDE)
-    lane_bits, _ = grc.grc_lane_bits(ranks, stage.shape[0])
+    return ranks, stage.shape[0]
+
+
+def grc_grid(torch, bsc, data: bytes, block: int, dev):
+    """K5's inputs as the bsc -e2 path builds them for the first block
+    of `data` (`block_ranks`, lane pre-pass, event grid, wired inits) ->
+    (gmb, init, cinit, nsteps, lane_bits, ranks), ranks being the
+    block's MTF ranks int32[cap]."""
+    from tpulc_torch.codecs.bsclike import grc
+
+    ranks, n = block_ranks(torch, bsc, data, block, dev)
+    lane_bits, _ = grc.grc_lane_bits(ranks, n)
     nsteps = int(lane_bits.max())
-    gmb, _ = grc._binarize(ranks, stage.shape[0], grc.bucket_bits(nsteps))
+    gmb, _ = grc._binarize(ranks, n, grc.bucket_bits(nsteps))
     init, cinit, _ = grc._stats_quant(gmb)
     return (gmb, init.contiguous(), cinit.contiguous(), nsteps, lane_bits,
             ranks)
@@ -1156,10 +1300,10 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
 def mtf_soup_entries(torch, ranks) -> list:
     """K1, the start tables, K2 and K4 at the bsc soup shape: the first
     25 MiB block's MTF ranks int32[cap] as 204,800 chunks of 128, its
-    BWT output recovered through `mtf_decode`, the start tables as the
-    forward path makes them.  The plain K2 and K4 run once (~0.3 s
-    each).  Also prints K2's walk and every K4 and start-table build at
-    this shape."""
+    BWT output recovered through `mtf_decode`, K1 and the start tables
+    as the forward path calls them.  The plain K2 and K4 run once (~0.3
+    s each).  Also prints K2's walk and every K4, K1 and start-table
+    build at this shape."""
     from tpulc_torch import cuda_lib
     from tpulc_torch.primitives import mtf_kernels as mk
     from tpulc_torch.primitives.mtf import mtf_decode
@@ -1167,21 +1311,15 @@ def mtf_soup_entries(torch, ranks) -> list:
     r = ranks.reshape(-1, 128).contiguous()
     d = mtf_decode(ranks.to(torch.uint8)).to(torch.int32).reshape(
         -1, 128).contiguous()
-    rec = mk.mtf_recency(d)
-    table0 = mk.mtf_start_tables(rec, 128)
+    rec, part, tile = mk.mtf_recency(d, partials=True)
+    table0 = mk.mtf_start_tables(rec, 128, tile=tile, part=part)
     require(torch.equal(mk.mtf_encode_lockstep(table0, d)[0], r),
             "K2 does not re-encode the soup block's ranks")
     shape = "x".join(map(str, d.shape))
     src = "tpulc_torch/csrc/mtf.cu"
     entries = check_kernels(torch, [
-        dict(name="mtf_recency@soup", src=src,
-             replaces="tpulc/primitives/mtf_pallas.py:215",
-             kern=mk.mtf_recency, plain=mk.mtf_recency_plain, args=(d,),
-             shape=shape, ops=d.numel() + 256 * d.shape[0],
-             library=k1_library(torch, d)),
-        dict(name="mtf_start_tables@soup", src=src, replaces=START_REPLACES,
-             kern=mk.mtf_start_tables, plain=mk.mtf_start_tables_plain,
-             args=(rec, 128), shape=shape, ops=START_OPS * rec.numel()),
+        *mtf_pair_checks(mk, d, rec, part, tile, "@soup",
+                         k1_library(torch, d)),
         dict(name="mtf_encode_lockstep@soup", src=src,
              replaces="tpulc/primitives/mtf_pallas.py:156",
              kern=mk.mtf_encode_lockstep,
@@ -1200,7 +1338,7 @@ def mtf_soup_entries(torch, ranks) -> list:
         e["ns_per_step"] = e["device_ms"] * 1e6 / d.shape[1]
     print(json.dumps({"soup_shape_builds": {
         "k2": k2_walk(torch, cuda_lib, table0, d, entries[2]["device_ms"]),
-        "start_tables": start_tiles(torch, mk, cuda_lib, rec,
+        "start_tables": start_tiles(torch, mk, cuda_lib, d,
                                     mk.mtf_start_tables_plain(rec, 128),
                                     split=True),
         "k4": k4, "zero_rank_share": float((r == 0).float().mean())}}),

@@ -6,11 +6,14 @@ import numpy as np
 import pytest
 import torch
 from test_torch_walk_cases import (
+    K1_CASES,
+    K1_SHAPES,
     K2_CASES,
     K3_CASES,
     K4_CASES,
     K8_CASES,
     START_CASES,
+    k1_case,
     k2_case,
     k3_case,
     k4_case,
@@ -49,8 +52,13 @@ def test_k1_k2_k4_equal_plain(cuda):
     t0, seq = _seq(0)
     tc, sc = t0.to(cuda), seq.to(cuda)
     n = mk.mtf_recency.launches
-    assert torch.equal(mk.mtf_recency(sc).cpu(), mk.mtf_recency_plain(seq))
+    want = mk.mtf_recency_plain(seq)
+    assert torch.equal(mk.mtf_recency(sc).cpu(), want)
     assert mk.mtf_recency.launches == n + 1
+    rec, part, tile = mk.mtf_recency(sc, partials=True)
+    assert mk.mtf_recency.launches == n + 2
+    assert tile in mk.START_TILES and torch.equal(rec.cpu(), want)
+    assert torch.equal(part.cpu(), mk.mtf_tile_max_plain(want, 128, tile))
     for kern, plain in ((mk.mtf_encode_lockstep, mk.mtf_encode_lockstep_plain),
                         (mk.mtf_lockstep, mk.mtf_lockstep_plain)):
         got = kern(tc, sc)
@@ -68,6 +76,34 @@ def _shifted(t, dev, by=1):
     out = wide[by:].view(t.shape)
     assert out.is_contiguous() and out.data_ptr() % 16 != 0
     return out
+
+
+@pytest.mark.parametrize("tile", [0, *mk.START_TILES])
+@pytest.mark.parametrize("name", K1_CASES)
+def test_k1_rows_and_tile_maxima_equal_plain(cuda, name, tile):
+    """K1 at every tile (0: the start tables' pick), with and without
+    the tile maxima, on every chunk length of K1_SHAPES (1 to 5,000
+    steps) at 0, 1, under-a-tile and ragged chunk counts; and from a
+    view 4 bytes into its storage (4-byte, not 16-byte aligned)."""
+    for nchunks, C in K1_SHAPES:
+        syms = k1_case(name, nchunks, C)
+        want = mk.mtf_recency_plain(syms)
+        n = mk.mtf_recency.launches
+        rows = mk.mtf_recency(syms.to(cuda), tile=tile)
+        rec, part, t = mk.mtf_recency(syms.to(cuda), partials=True, tile=tile)
+        torch.cuda.synchronize()
+        assert mk.mtf_recency.launches == n + (2 if nchunks else 0)
+        assert t in mk.START_TILES and tile in (0, t)
+        assert torch.equal(rows.cpu(), want), (nchunks, C)
+        assert torch.equal(rec.cpu(), want), (nchunks, C)
+        assert torch.equal(part.cpu(), mk.mtf_tile_max_plain(want, C, t)), \
+            (nchunks, C)
+        if nchunks:
+            rec, part, t = mk.mtf_recency(_shifted(syms, cuda), partials=True,
+                                          tile=tile)
+            torch.cuda.synchronize()
+            assert torch.equal(rec.cpu(), want), (nchunks, C)
+            assert torch.equal(part.cpu(), mk.mtf_tile_max_plain(want, C, t))
 
 
 @pytest.mark.parametrize("lanes", mk.LANES)
@@ -151,8 +187,24 @@ def test_start_tables_equal_plain(cuda, name, tile):
         torch.cuda.synchronize()
         assert mk.mtf_start_tables.launches == n + 1
         assert torch.equal(got.cpu(), want), nchunks
+        # from K1's tile maxima (the forward MTF's route): the same tables,
+        # and the maxima are read, not written
+        rec, part, t = mk.mtf_recency(
+            torch.from_numpy(d.astype(np.int32)).to(cuda), partials=True,
+            tile=tile)
+        kept = part.clone()
+        got = mk.mtf_start_tables(rec, C, tile=t, part=part)
+        again = mk.mtf_start_tables(rec, C, tile=t, part=part)
+        torch.cuda.synchronize()
+        assert mk.mtf_start_tables.launches == n + 3
+        assert torch.equal(got.cpu(), want), nchunks
+        assert torch.equal(again, got) and torch.equal(part, kept)
     empty = torch.empty((0, 256), dtype=torch.int32, device=cuda)
     assert mk.mtf_start_tables(empty, 128, tile=tile).shape == (0, 256)
+    _, part, t = mk.mtf_recency(torch.empty((0, 128), dtype=torch.int32,
+                                            device=cuda), partials=True,
+                                tile=tile)
+    assert mk.mtf_start_tables(empty, 128, tile=t, part=part).shape == (0, 256)
 
 
 def test_start_tables_refuse_what_the_kernel_cannot_do(cuda):

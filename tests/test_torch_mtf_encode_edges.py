@@ -1,7 +1,7 @@
-"""What the CUDA designs of K2 (the MTF encode walk) and of the start
-tables between K1 and K2 must get right, pinned on the CPU: the plain
-versions (the card's arbiters) against scalar references of the two
-contracts, and against tpulc on the same inputs.
+"""What the CUDA designs of K2 (the MTF encode walk), of the start
+tables between K1 and K2 and of K1's tile maxima must get right, pinned
+on the CPU: the plain versions (the card's arbiters) against scalar
+references of the contracts, and against tpulc on the same inputs.
 
 The start tables are held to the serial MTF from the identity, whose
 table before each chunk is that chunk's start table; K2 to tpulc's
@@ -18,6 +18,7 @@ import torch
 from test_torch_walk_cases import (
     K2_CASES,
     START_CASES,
+    k1_case,
     k2_case,
     k2_reference,
     start_case,
@@ -43,6 +44,11 @@ def test_start_tables_plain_match_the_serial_mtf(name, nchunks):
     got = mk.mtf_start_tables_plain(rec, C)
     np.testing.assert_array_equal(got.numpy(), want)
     assert torch.equal(mk.mtf_start_tables(rec, C), got)
+    for tile in mk.START_TILES:   # from K1's tile maxima: the same tables
+        rec_p, part, t = mk.mtf_recency(torch.from_numpy(d.astype(np.int32)),
+                                        partials=True, tile=tile)
+        assert torch.equal(rec_p, rec)
+        assert torch.equal(mk.mtf_start_tables(rec, C, tile=t, part=part), got)
 
 
 @pytest.mark.parametrize("name", START_CASES)
@@ -57,6 +63,17 @@ def test_mtf_encode_matches_tpulc(name):
         jnp.asarray(data))))
     np.testing.assert_array_equal(
         mtf_decode(torch.from_numpy(got)).numpy(), data)
+
+
+@pytest.mark.parametrize("name", ["random", "one_run", "long_runs"])
+def test_mtf_encode_matches_tpulc_on_k1_cases(name):
+    """The forward path, K1 with its tile maxima included, on runs of
+    one symbol a chunk and BWT-like runs: tpulc's `mtf_encode`."""
+    data = k1_case(name, 37, 128).numpy().astype(np.uint8).reshape(-1)
+    got = mtf_encode(torch.from_numpy(data)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jmtf.mtf_encode(
+        jnp.asarray(data))))
+    np.testing.assert_array_equal(got, jmtf.mtf_encode_np(data))
 
 
 def test_start_tables_wrapper_checks_its_domain():
@@ -83,11 +100,47 @@ def test_start_tables_wrapper_checks_its_domain():
         mk.mtf_start_tables(rec[:, :255].contiguous(), C)
 
 
+def test_k1_partials_wrapper_checks_its_domain():
+    """K1's tile maxima need int32 positions and a tile the kernel is
+    built for, on both routes; the start tables take them only with
+    that tile and at its shape.  Without partials any chunk count
+    goes."""
+    d, C = start_case("text", 5)
+    syms = torch.from_numpy(d.astype(np.int32))
+    rec, part, tile = mk.mtf_recency(syms, partials=True)
+    assert tile == mk.START_TILES[0] and part.shape == (256, 1)
+    big = torch.empty((1 << 19, 4096), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="2\\^31"):
+        mk.mtf_recency(big, partials=True)
+    for bad in (12, -8, 128):
+        with pytest.raises(ValueError, match="tile"):
+            mk.mtf_recency(syms, partials=True, tile=bad)
+        with pytest.raises(ValueError, match="tile"):
+            mk.mtf_recency(syms, tile=bad)
+    with pytest.raises(ValueError, match="tile"):
+        mk.mtf_start_tables(rec, C, part=part)           # tile 0
+    with pytest.raises(ValueError, match="last dim"):
+        mk.mtf_start_tables(rec, C, tile=8, part=torch.cat([part, part], 1))
+    with pytest.raises(ValueError, match="256 rows"):
+        mk.mtf_start_tables(rec, C, tile=8, part=part[:128].contiguous())
+    with pytest.raises(ValueError, match="int32"):
+        mk.mtf_start_tables(rec, C, tile=8, part=part.long())
+    wide = rec.repeat(8, 1)
+    with pytest.raises(ValueError, match="last dim"):   # tile 8's part, 5 tiles
+        mk.mtf_start_tables(wide, C, tile=16, part=mk.mtf_tile_max_plain(
+            wide, C, 8))
+
+
 def test_empty_block_gives_no_tables():
     """0 chunks: no tables (the plain chain alone would make one), so
     the forward path of an empty input is empty."""
     rec = torch.empty((0, 256), dtype=torch.int32)
     assert mk.mtf_start_tables(rec, 128).shape == (0, 256)
+    _, part, tile = mk.mtf_recency(torch.empty((0, 128), dtype=torch.int32),
+                                   partials=True)
+    assert part.shape == (256, 0)
+    assert mk.mtf_start_tables(rec, 128, tile=tile,
+                               part=part).shape == (0, 256)
     assert mtf_encode(torch.empty(0, dtype=torch.uint8)).shape == (0,)
 
 

@@ -1,7 +1,8 @@
 """Edge-case inputs for K3 (the canonical Huffman chunk walk, whose
 contract K7 shares), K8 (the flat walk), K4 (the MTF decode walk), K2
-(the MTF encode walk) and the MTF start tables between K1 and K2, made
-from a numpy seed, with scalar references of the contracts.  The CPU
+(the MTF encode walk), K1 (the MTF recency rows and the start tables'
+tile maxima) and the MTF start tables between K1 and K2, made from a
+numpy seed, with scalar references of the contracts.  The CPU
 tests hold the plain versions to these references and to tpulc; the
 card tests hold the CUDA kernels to the plain versions on the same
 inputs."""
@@ -22,6 +23,11 @@ K4_CASES = ("random", "zeros", "all255", "out_of_range", "nonperm",
             "negative_entries")
 K2_CASES = ("random", "repeats", "duplicates", "absent", "int32")
 START_CASES = ("text", "one_symbol", "all_symbols", "vanishing")
+K1_CASES = ("random", "one_run", "long_runs", "out_of_range")
+# (nchunks, C): every chunk length the K1 tests take, at chunk counts of
+# 0, 1, under every tile, and no multiple of any
+K1_SHAPES = ((0, 128), (1, 128), (5, 128), (37, 128), (130, 128), (9, 1),
+             (9, 5), (9, 31), (9, 127), (9, 129), (9, 300), (3, 5000))
 
 
 def code_lengths(rng, L, nreal, nrand, S=257):
@@ -348,6 +354,46 @@ def k2_reference(table0, syms):
             ranks[c, s] = r
         tabs[c] = tab
     return ranks, tabs
+
+
+def k1_case(name, nchunks, C, seed=0):
+    """-> symbols int32[nchunks, C]: K1's input.
+
+    random        uniform over [0, 256)
+    one_run       every chunk one run of one symbol (a new one a chunk)
+    long_runs     runs of 1 to 300 steps over 20 symbols, as after a BWT
+    out_of_range  long runs of in-range symbols, symbols below 0 and at
+                  or above 256 (-2^31, -1, 256, 300, 2^31 - 1), which K1
+                  ignores
+    """
+    rng = np.random.default_rng([seed, K1_CASES.index(name), nchunks, C])
+    n = nchunks * C
+    if name == "random":
+        d = rng.integers(0, 256, size=n)
+    elif name == "one_run":
+        d = np.repeat(rng.integers(0, 256, size=nchunks), C)
+    elif name in ("long_runs", "out_of_range"):
+        lens = rng.integers(1, 301, size=n + 1)
+        syms = rng.integers(0, 20, size=lens.shape[0])
+        if name == "out_of_range":
+            odd = np.array([-2**31, -1, 256, 300, 2**31 - 1])
+            bad = rng.random(lens.shape[0]) < 0.3
+            syms[bad] = rng.choice(odd, size=int(bad.sum()))
+        d = np.repeat(syms, lens)[:n]
+    else:
+        raise ValueError(name)
+    return torch.from_numpy(d.astype(np.int32).reshape(nchunks, C))
+
+
+def k1_reference(syms):
+    """Scalar K1: the last step of each symbol in [0, 256) a chunk, -1 if
+    absent -> int64[nchunks, 256]."""
+    out = np.full((syms.shape[0], 256), -1, np.int64)
+    for c, row in enumerate(np.asarray(syms).tolist()):
+        for t, v in enumerate(row):
+            if 0 <= v < 256:
+                out[c, v] = t
+    return out
 
 
 def start_case(name, nchunks, seed=0):

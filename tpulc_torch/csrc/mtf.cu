@@ -14,33 +14,134 @@
 namespace {
 
 constexpr int kAlpha = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // ---------------------------------------------------------------------
 // K1 — replaces tpulc/primitives/mtf_pallas.py:mtf_recency_pallas
 // (_recency_kernel): for each chunk, the last step index of every
-// symbol, -1 where absent.  int32[nchunks, C] -> int32[nchunks, 256].
+// symbol, -1 where absent (symbols outside [0, 256) are ignored).
+// int32[nchunks, C] -> int32[nchunks, 256]; and, where the caller asks,
+// the start tables' tile maxima in the same pass (below).
 //
-// Bound on the H100: the 256-int output row per chunk (1 KB written per
-// 512 B of int32 input) and launch latency; there is almost no compute.
-// Design: one block of 128 threads per chunk, a 256-entry shared
-// array set to -1, one atomicMax of the step index per symbol.  This
-// replaces the TPU's 128-step lane-masked loop (mtf_pallas.py:190-198)
-// with a single parallel step.  Symbols outside [0, 256) are ignored.
+// Bound on the H100: bytes.  A 128-step chunk is 512 B of symbols in
+// and a 1 KB row out (314.6 MB, 0.094 ms, at a 25 MiB block's 204,800
+// chunks), the tile maxima 1 KB a tile more; there is almost no
+// compute.  Design: a block owns one start-table tile of T chunks (the
+// tile the start tables take for this chunk count, so that its maxima
+// land where they look for them), and its kRecWarps warps take the
+// tile's chunks in turn, a warp a chunk.  Lane i reads steps i, i+32,
+// ...: each 32-step round is one coalesced 128-byte load, and the next
+// batch of kRecRounds rounds (the warp's next chunk, for C <= 128) is in
+// flight while the current one is reduced.  After a BWT, long runs of
+// one symbol are the rule, and one shared-memory atomicMax a symbol
+// serialises the lanes of a run on one address.  Here, in each round,
+// __match_any_sync names the lanes that hold the same symbol and only
+// the highest of them (the last step) stores its step into the warp's
+// 256-entry row in shared memory; rounds go in ascending step order, so
+// the last store is the last occurrence.  (The same kernel with an
+// atomicMax a symbol in place of the match took 7-22 % longer at both
+// of chip_smoke.py's shapes: PERF.md.)  The row leaves as two 16-byte
+// stores a lane (a warp stores 512 contiguous bytes at a time) and is
+// reset to -1 for the warp's next chunk.  The tile maxima: each lane keeps the running max
+// of c*C + step over the 8 entries of its stores, the warps merge these
+// through shared memory at the end of the tile, and the block writes
+// part[s * ntiles + tile] as the start tables' first pass
+// (mtf_tile_max_kernel) would, without their reading the rows again.
 // ---------------------------------------------------------------------
-__global__ void mtf_recency_kernel(const int32_t* __restrict__ syms,
-                                   int32_t* __restrict__ out, int C) {
-  __shared__ int last[kAlpha];
-  const size_t c = blockIdx.x;
-  for (int i = threadIdx.x; i < kAlpha; i += blockDim.x) last[i] = -1;
-  __syncthreads();
-  const int32_t* row = syms + c * C;
-  for (int t = threadIdx.x; t < C; t += blockDim.x) {
-    const unsigned s = static_cast<unsigned>(row[t]);
-    if (s < kAlpha) atomicMax(&last[s], t);
+constexpr int kRecWarps = 8;
+constexpr int kRecThreads = 32 * kRecWarps;
+constexpr int kRecRounds = 4;  // 32-step rounds a batch
+constexpr int kRecBatch = 32 * kRecRounds;
+static_assert(kRecThreads == kAlpha, "the merge takes a thread a symbol");
+
+// batch q of row p (C steps): register r of lane i holds step
+// kRecBatch*q + 32*r + i, -1 past the row's end
+__device__ __forceinline__ void rec_batch(int32_t (&v)[kRecRounds],
+                                          const int32_t* __restrict__ p,
+                                          int q, int C, int lane) {
+#pragma unroll
+  for (int r = 0; r < kRecRounds; ++r) {
+    const int t = kRecBatch * q + 32 * r + lane;
+    v[r] = t < C ? p[t] : -1;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kAlpha; i += blockDim.x)
-    out[c * kAlpha + i] = last[i];
+}
+
+__device__ __forceinline__ int32_t rec_key(int32_t rec, int base) {
+  return rec >= 0 ? rec + base : -1;
+}
+
+__global__ void __launch_bounds__(kRecThreads)
+    mtf_recency_kernel(const int32_t* __restrict__ syms,
+                       int32_t* __restrict__ out, int32_t* __restrict__ part,
+                       int nchunks, int C, int T, int ntiles) {
+  __shared__ __align__(16) int32_t rows[kRecWarps][kAlpha];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int32_t* last = rows[warp];
+  int4* row = reinterpret_cast<int4*>(last);
+  const int4 none = make_int4(-1, -1, -1, -1);
+  row[lane] = none;
+  row[lane + 32] = none;
+  const int c0 = blockIdx.x * T;
+  const int c1 = min(c0 + T, nchunks);
+  const int nb = max((C + kRecBatch - 1) / kRecBatch, 1);
+  // this lane's tile maxima: entries 4*lane .. +3 and 128 + 4*lane .. +3
+  int32_t m[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) m[j] = -1;
+  int c = c0 + warp, q = 0;
+  int32_t cur[kRecRounds], nxt[kRecRounds];
+  if (c < c1) rec_batch(cur, syms + static_cast<size_t>(c) * C, 0, C, lane);
+  __syncwarp();
+  while (c < c1) {  // uniform in the warp
+    // the next batch: this chunk's next, or the warp's next chunk's first
+    const int qn = q + 1 < nb ? q + 1 : 0;
+    const int cn = qn == 0 ? c + kRecWarps : c;
+    if (cn < c1)
+      rec_batch(nxt, syms + static_cast<size_t>(cn) * C, qn, C, lane);
+#pragma unroll
+    for (int r = 0; r < kRecRounds; ++r) {
+      const int32_t s = cur[r];
+      const bool live = static_cast<unsigned>(s) < kAlpha;
+      const unsigned peers = __match_any_sync(kFullMask, s);
+      if (live && 31 - __clz(peers) == lane)
+        last[s] = kRecBatch * q + 32 * r + lane;
+      __syncwarp();  // orders this round's stores before the next's
+    }
+    if (qn == 0) {  // chunk c is done
+      const int4 a = row[lane], b = row[lane + 32];
+      int4* o = reinterpret_cast<int4*>(out + static_cast<size_t>(c) * kAlpha);
+      o[lane] = a;
+      o[lane + 32] = b;
+      row[lane] = none;
+      row[lane + 32] = none;
+      if (part != nullptr) {  // then nchunks * C < 2^31
+        const int base = c * C;
+        m[0] = max(m[0], rec_key(a.x, base));
+        m[1] = max(m[1], rec_key(a.y, base));
+        m[2] = max(m[2], rec_key(a.z, base));
+        m[3] = max(m[3], rec_key(a.w, base));
+        m[4] = max(m[4], rec_key(b.x, base));
+        m[5] = max(m[5], rec_key(b.y, base));
+        m[6] = max(m[6], rec_key(b.z, base));
+        m[7] = max(m[7], rec_key(b.w, base));
+      }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int r = 0; r < kRecRounds; ++r) cur[r] = nxt[r];
+    c = cn;
+    q = qn;
+  }
+  if (part != nullptr) {  // uniform in the block
+    row[lane] = make_int4(m[0], m[1], m[2], m[3]);
+    row[lane + 32] = make_int4(m[4], m[5], m[6], m[7]);
+    __syncthreads();
+    const int s = threadIdx.x;
+    int32_t v = rows[0][s];
+#pragma unroll
+    for (int w = 1; w < kRecWarps; ++w) v = max(v, rows[w][s]);
+    part[static_cast<size_t>(s) * ntiles + blockIdx.x] = v;
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -74,7 +175,6 @@ __global__ void mtf_recency_kernel(const int32_t* __restrict__ syms,
 // ---------------------------------------------------------------------
 constexpr int kDecThreads = 128;
 constexpr int kAutoLanes = 32;  // set from the sweep in chip_smoke.py
-constexpr unsigned kFullMask = 0xffffffffu;
 
 // 4 consecutive int32 at p[i..i+3] of a row of n: one 16-byte access
 // when `vec` (the caller checked alignment), else guarded scalars
@@ -361,13 +461,15 @@ __global__ void __launch_bounds__(kDecThreads)
 //
 // Bound on the H100: bytes, K1's rows read once and the tables written
 // once (420 MB a 25 MiB block: 0.125 ms).  Design, three launches over
-// tiles of T chunks:
+// tiles of T chunks, two where K1 wrote the tile maxima (the forward
+// MTF's route):
 // (a) tile max: a block a tile, a thread a symbol, the max key of each
-//     symbol over the tile's T rows (coalesced 1 KB row loads);
-// (b) an exclusive max-scan of those [ntiles] partials, a block a
-//     symbol: the symbol's partials are a contiguous row (written by (a)
-//     symbol-major), scanned by 1,024 threads with warp shuffles and a
-//     carry between segments;
+//     symbol over the tile's T rows (coalesced 1 KB row loads); K1 with
+//     `part` computes the same in its own pass and (a) is skipped;
+// (b) an exclusive max-scan of those [ntiles] partials into the
+//     scratch, a block a symbol: the symbol's partials are a contiguous
+//     row (symbol-major), scanned by 1,024 threads with warp shuffles
+//     and a carry between segments;
 // (c) a walk of each tile's T chunks in order, a block a tile, a thread
 //     a symbol and a table position.  The tile's first table: each
 //     symbol's position is the count of keys above its own (ties to
@@ -429,10 +531,13 @@ __global__ void __launch_bounds__(kAlpha)
   part[static_cast<size_t>(s) * ntiles + blockIdx.x] = m;
 }
 
+// in and out may be one array: each element is read before it is
+// written, by the same thread
 __global__ void __launch_bounds__(kScanThreads)
-    mtf_tile_scan_kernel(int32_t* __restrict__ part, int ntiles) {
+    mtf_tile_scan_kernel(const int32_t* part, int32_t* excl, int ntiles) {
   __shared__ int32_t wtot[kScanThreads / 32];
-  int32_t* row = part + static_cast<size_t>(blockIdx.x) * ntiles;
+  const int32_t* row = part + static_cast<size_t>(blockIdx.x) * ntiles;
+  int32_t* xrow = excl + static_cast<size_t>(blockIdx.x) * ntiles;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int32_t carry = -1;
   for (int i0 = 0; i0 < ntiles; i0 += kScanThreads) {
@@ -458,7 +563,7 @@ __global__ void __launch_bounds__(kScanThreads)
     int32_t ex = __shfl_up_sync(kFullMask, v, 1);
     if (lane == 0) ex = -1;
     if (warp > 0) ex = max(ex, wtot[warp - 1]);
-    if (i < ntiles) row[i] = max(ex, carry);
+    if (i < ntiles) xrow[i] = max(ex, carry);
     carry = max(carry, wtot[kScanThreads / 32 - 1]);
     __syncthreads();
   }
@@ -550,11 +655,23 @@ __global__ void __launch_bounds__(kAlpha)
 
 }  // namespace
 
-extern "C" int tplc_mtf_recency(const void* syms, void* out, int nchunks,
-                                int C, void* stream) {
-  if (nchunks > 0)
-    mtf_recency_kernel<<<nchunks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(syms), static_cast<int32_t*>(out), C);
+// tile: one of kStartTiles, or 0 for the start tables' pick
+// (start_tile).  part == nullptr writes the rows alone; else also the
+// tile maxima int32[256 * ceil(nchunks / tile)], symbol-major, which
+// needs nchunks * C < 2^31.
+extern "C" int tplc_mtf_recency(const void* syms, void* out, void* part,
+                                int nchunks, int C, int tile, void* stream) {
+  if (tile == 0) tile = start_tile(nchunks);
+  if (!known_tile(tile) || C < 0 || nchunks < 0 ||
+      (part != nullptr && static_cast<long long>(nchunks) * C > 0x7fffffffLL))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nchunks > 0) {
+    const int ntiles = (nchunks + tile - 1) / tile;
+    mtf_recency_kernel<<<ntiles, kRecThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(syms), static_cast<int32_t*>(out),
+        static_cast<int32_t*>(part), nchunks, C, tile, ntiles);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -584,24 +701,31 @@ extern "C" int tplc_mtf_start_tile(int nchunks, int tile) {
   return known_tile(tile) ? tile : -1;
 }
 
-// scratch: int32[256 * ceil(nchunks / tile)]; tile one of kStartTiles;
-// 1 <= C <= kMaxStartChunk (the walk's step mask) and nchunks * C < 2^31
+// part: K1's tile maxima at this tile (read, not written), or nullptr
+// to compute them here; scratch: int32[256 * ceil(nchunks / tile)];
+// tile one of kStartTiles; 1 <= C <= kMaxStartChunk (the walk's step
+// mask) and nchunks * C < 2^31
 extern "C" int tplc_mtf_start_tables(const void* rec, void* out,
-                                     void* scratch, int nchunks, int C,
-                                     int tile, void* stream) {
+                                     const void* part, void* scratch,
+                                     int nchunks, int C, int tile,
+                                     void* stream) {
   if (!known_tile(tile) || C < 1 || C > kMaxStartChunk || nchunks < 0 ||
       static_cast<long long>(nchunks) * C > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (nchunks > 0) {
     auto* s = static_cast<cudaStream_t>(stream);
     const auto* r = static_cast<const int32_t*>(rec);
-    auto* part = static_cast<int32_t*>(scratch);
+    auto* excl = static_cast<int32_t*>(scratch);
+    const auto* p = static_cast<const int32_t*>(part);
     const int ntiles = (nchunks + tile - 1) / tile;
-    mtf_tile_max_kernel<<<ntiles, kAlpha, 0, s>>>(r, part, nchunks, C, tile,
-                                                 ntiles);
-    mtf_tile_scan_kernel<<<kAlpha, kScanThreads, 0, s>>>(part, ntiles);
+    if (p == nullptr) {
+      mtf_tile_max_kernel<<<ntiles, kAlpha, 0, s>>>(r, excl, nchunks, C, tile,
+                                                   ntiles);
+      p = excl;
+    }
+    mtf_tile_scan_kernel<<<kAlpha, kScanThreads, 0, s>>>(p, excl, ntiles);
     mtf_start_walk_kernel<<<ntiles, kAlpha, 0, s>>>(
-        r, part, static_cast<int32_t*>(out), nchunks, C, tile, ntiles);
+        r, excl, static_cast<int32_t*>(out), nchunks, C, tile, ntiles);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,10 +32,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "tplc_mtf_recency": [_P, _P, _I, _I, _P],
+    "tplc_mtf_recency": [_P, _P, _P, _I, _I, _I, _P],
     "tplc_mtf_encode_lockstep": [_P, _P, _P, _P, _I, _I, _P],
     "tplc_mtf_start_tile": [_I, _I],
-    "tplc_mtf_start_tables": [_P, _P, _P, _I, _I, _I, _P],
+    "tplc_mtf_start_tables": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tplc_mtf_lockstep": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tplc_huffman_walk": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I,
                           _I, _I, _I, _P],

@@ -3,11 +3,13 @@
 
 Forward: the MTF table before chunk c is fixed by the last-occurrence
   position of every symbol in the prefix, and last-occurrence composes
-  with `max`.  K1 (`mtf_recency`) gives each chunk's recency row,
-  `mtf_start_tables` turns the rows into each chunk's start table (an
-  exclusive max-scan over chunks and a sort by recency, `mtf.py:85-96`;
-  one kernel of three launches on the card), and K2
-  (`mtf_encode_lockstep`) encodes all chunks in lockstep.
+  with `max`.  K1 (`mtf_recency`) gives each chunk's recency row and,
+  in the same pass, the max of those positions over each tile of
+  chunks; `mtf_start_tables` turns them into each chunk's start table
+  (an exclusive max-scan over chunks and a sort by recency,
+  `mtf.py:85-96`; two launches on the card, a scan of the tile maxima
+  and a walk of each tile's chunks), and K2 (`mtf_encode_lockstep`)
+  encodes all chunks in lockstep.
 
 Inverse: decoding a rank is a positional permutation of the table, and
   permutations compose by gather.  K4 (`mtf_lockstep`) from the
@@ -40,7 +42,8 @@ def mtf_encode(data: torch.Tensor, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     if n % chunk:
         raise ValueError("pad input to a multiple of `chunk`")
     d = data.to(torch.int32).reshape(n // chunk, chunk).contiguous()
-    table0 = mtf_start_tables(mtf_recency(d), chunk)
+    rec, part, tile = mtf_recency(d, partials=True)
+    table0 = mtf_start_tables(rec, chunk, tile=tile, part=part)
     ranks, _ = mtf_encode_lockstep(table0, d)
     return ranks.to(torch.uint8).reshape(n)
 

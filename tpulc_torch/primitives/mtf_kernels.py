@@ -63,6 +63,24 @@ def _move_to_front(table, rank, value):
 
 # --------------------------------------------------------------- K1
 
+# the start tables' chunks a tile, which K1's blocks follow
+# (csrc/mtf.cu kStartTiles)
+START_TILES = (8, 16, 32, 64)
+
+
+def _check_tile(tile: int, partials: bool) -> None:
+    allowed = START_TILES if partials else (0, *START_TILES)
+    if tile not in allowed:
+        raise ValueError(f"tile: not one the kernel is built for {allowed}"
+                         + (" (with partials, the tile they were made at)"
+                            if partials else ""))
+
+
+def _check_positions(nchunks: int, chunk: int) -> None:
+    if nchunks * chunk >= 1 << 31:
+        raise ValueError("nchunks * chunk must stay under 2^31")
+
+
 def mtf_recency_plain(syms: torch.Tensor) -> torch.Tensor:
     """int32[nchunks, C] -> int32[nchunks, 256]: last step index of each
     symbol in its chunk, -1 when absent (symbols outside [0,256) are
@@ -77,20 +95,60 @@ def mtf_recency_plain(syms: torch.Tensor) -> torch.Tensor:
     return out[:, :ALPHA].contiguous()
 
 
-def mtf_recency(syms: torch.Tensor) -> torch.Tensor:
-    """K1 wrapper (see `mtf_recency_plain`)."""
+def mtf_tile_max_plain(rec_rel: torch.Tensor, chunk: int,
+                       tile: int) -> torch.Tensor:
+    """The start tables' tile maxima from K1's rows int32[nchunks, 256]
+    of chunks of `chunk` steps: for each tile of `tile` chunks and each
+    symbol s, the max of c * chunk + rec_rel[c][s] over the tile's
+    chunks c where rec_rel[c][s] >= 0, else -1.  Symbol-major
+    int32[256, ceil(nchunks / tile)] (positions are int32: nchunks *
+    chunk must stay under 2^31)."""
+    nchunks = rec_rel.shape[0]
+    dev = rec_rel.device
+    ntiles = -(-nchunks // tile)
+    base = (torch.arange(nchunks, device=dev, dtype=torch.int32)
+            * chunk)[:, None]
+    key = torch.where(rec_rel >= 0, rec_rel + base, -1)
+    pad = torch.full((ntiles * tile - nchunks, ALPHA), -1, dtype=torch.int32,
+                     device=dev)
+    key = torch.cat([key, pad]).reshape(ntiles, tile, ALPHA)
+    return key.amax(dim=1).T.contiguous()
+
+
+def mtf_recency(syms: torch.Tensor, partials: bool = False, tile: int = 0):
+    """K1 wrapper (see `mtf_recency_plain`).  With `partials`, returns
+    (rows, part, tile): also the start tables' tile maxima at `tile`
+    (`mtf_tile_max_plain`), which `mtf_start_tables(rows, C, tile=tile,
+    part=part)` takes in place of reading the rows a second time; then
+    nchunks * C must stay under 2^31.  `tile` is one of START_TILES, or
+    0 for the start tables' own pick on the card (START_TILES[0] on the
+    CPU); without partials it only sets the chunks a block on the card
+    and changes no output."""
     _check_i32("syms", syms, 2, None)
-    if _route(syms) == "cpu":
-        return mtf_recency_plain(syms)
-    lib = cuda_lib.library()
     nchunks, C = syms.shape
+    _check_tile(tile, False)
+    if partials:
+        _check_positions(nchunks, C)
+    if _route(syms) == "cpu":
+        rec = mtf_recency_plain(syms)
+        if not partials:
+            return rec
+        tile = tile or START_TILES[0]
+        return rec, mtf_tile_max_plain(rec, C, tile), tile
+    lib = cuda_lib.library()
     out = torch.empty((nchunks, ALPHA), dtype=torch.int32, device=syms.device)
     with torch.cuda.device(syms.device):
+        tile = lib.tplc_mtf_start_tile(nchunks, tile)
+        part = torch.empty((ALPHA, -(-nchunks // tile)), dtype=torch.int32,
+                           device=syms.device) if partials else None
+        if nchunks == 0:   # nothing to launch
+            return (out, part, tile) if partials else out
         cuda_lib.check(lib.tplc_mtf_recency(
-            syms.data_ptr(), out.data_ptr(), nchunks, C,
+            syms.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), nchunks, C, tile,
             cuda_lib.stream_of(syms)), "mtf_recency")
     mtf_recency.launches += 1
-    return out
+    return (out, part, tile) if partials else out
 
 
 mtf_recency.launches = 0
@@ -116,8 +174,8 @@ def mtf_start_tables_plain(rec_rel: torch.Tensor, chunk: int) -> torch.Tensor:
     return torch.argsort(-key, dim=1, stable=True).to(torch.int32)
 
 
-def mtf_start_tables(rec_rel: torch.Tensor, chunk: int,
-                     tile: int = 0) -> torch.Tensor:
+def mtf_start_tables(rec_rel: torch.Tensor, chunk: int, tile: int = 0,
+                     part: torch.Tensor | None = None) -> torch.Tensor:
     """Start-table wrapper (see `mtf_start_tables_plain`).  Its domain is
     K1's output for chunks of `chunk` steps: every row holds values in
     [-1, chunk), and each step index at most once a row.  There every
@@ -130,15 +188,24 @@ def mtf_start_tables(rec_rel: torch.Tensor, chunk: int,
     `tile` forces the kernel's chunks a tile (8, 16, 32 or 64: a hook
     for tests and `chip_smoke.py`'s sweep, unused on the CPU); 0 lets
     the C entry point pick from the shape and the card.  It changes no
-    output.  0 chunks give 0 tables."""
+    output.  `part`: K1's tile maxima of these rows at `tile` (from
+    `mtf_recency(..., partials=True)`, which also gives the tile); the
+    kernel then skips its own first pass over the rows.  The CPU route
+    checks and ignores it.  0 chunks give 0 tables."""
     _check_i32("rec_rel", rec_rel, 2, ALPHA)
     nchunks = rec_rel.shape[0]
-    if nchunks * chunk >= 1 << 31:
-        raise ValueError("nchunks * chunk must stay under 2^31")
+    _check_positions(nchunks, chunk)
+    tensors = (rec_rel,)
+    if part is not None:
+        _check_tile(tile, True)
+        _check_i32("part", part, 2, -(-nchunks // tile))
+        if part.shape[0] != ALPHA:
+            raise ValueError(f"part: need {ALPHA} rows, one a symbol")
+        tensors = (rec_rel, part)
     if nchunks == 0:
         return torch.empty((0, ALPHA), dtype=torch.int32,
                            device=rec_rel.device)
-    if _route(rec_rel) == "cpu":
+    if _route(*tensors) == "cpu":
         return mtf_start_tables_plain(rec_rel, chunk)
     lib = cuda_lib.library()
     out = torch.empty_like(rec_rel)
@@ -149,8 +216,10 @@ def mtf_start_tables(rec_rel: torch.Tensor, chunk: int,
         scratch = torch.empty(ALPHA * -(-nchunks // tile), dtype=torch.int32,
                               device=rec_rel.device)
         cuda_lib.check(lib.tplc_mtf_start_tables(
-            rec_rel.data_ptr(), out.data_ptr(), scratch.data_ptr(), nchunks,
-            chunk, tile, cuda_lib.stream_of(rec_rel)), "mtf_start_tables")
+            rec_rel.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), scratch.data_ptr(),
+            nchunks, chunk, tile, cuda_lib.stream_of(rec_rel)),
+            "mtf_start_tables")
     mtf_start_tables.launches += 1
     return out
 
