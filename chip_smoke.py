@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --walks [--root DIR]
     python3 chip_smoke.py --mtf [--root DIR]
+    python3 chip_smoke.py --e1
 
 The second and third forms run one turn of a parent/change comparison
 with the tpulc_torch package under DIR (default: this checkout), e.g. a
@@ -12,6 +13,7 @@ change, parent.  `--walks`: K3, K7 and K8 device ms and the decode-only
 GB/s of every decoder at the huffman path's full width.  `--mtf`: K1
 and the start tables as that tree's `mtf_encode` calls them, device ms
 at the bz and soup shapes, and the bz and bsc -e2 compress MB/s.
+`--e1`: the card, the build and phase 9 alone.
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -78,7 +80,18 @@ Phases (any failure exits non-zero before the last line is printed):
    and K6 once and K4 twice per block, MB/s, stage times, peak device
    memory, and a
    torch.profiler trace of one warm compress and one warm decompress:
-   device-busy share and the top device times).
+   device-busy share and the top device times);
+9. the bsc -e1 main path (tpulc's default coder, through
+   get_codec("bsc") with tpulc's defaults): first coder 1's encode and
+   decode walks (csrc/rans_ctx.cu) against their plain versions on the
+   arguments each cell's path gives them, timed as in phase 3; then,
+   counted as in phase 4, pg1661 x 6 at 4 MiB blocks (exact round trip,
+   177,610 B, ratio 20.098, tpulc's sha256, K1, the start tables and K2
+   once a block, K4 twice, each walk once a call, the card's container
+   equal to the CPU path's on 50 KB, MB/s from warm repeats) and 100 MB
+   of word soup at 25 MiB blocks (the same checks at 8,361,750 B, stage
+   times, peak device memory and a trace as in phase 8).  The script's
+   total seconds are printed before the last two lines.
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
@@ -132,6 +145,15 @@ BSC_SHA256 = "8fc81d25cff86f7dd3b5838e17d92333e3b04a8bb0731ae12d5baac9bc26e82b"
 SOUP_SIZE = 100_000_000
 SOUP_BLOCK = 25 << 20
 SOUP_SHA256 = "93286634ddbf920ee02839cd0a6640a9808ad85df88fdd3d2c402849534066b4"
+# bsc -e1 (tpulc's defaults: coder 1, bench.py's bsc setting) on pg1661 x
+# 6 at 4 MiB and on the soup at 25 MiB: tpulc's containers (JAX
+# reference, CPU run)
+BSC_E1_BYTES = 177_610
+BSC_E1_RATIO = 20.098
+BSC_E1_SHA256 = "12807218c93267d082dc1123e032925e186e0be902eb2d3e78d0cb5a18070462"
+SOUP_E1_BYTES = 8_361_750
+SOUP_E1_RATIO = 11.959
+SOUP_E1_SHA256 = "c9ad5986f2de0a097b60446e9564a7beac0b4f944f50a174c7b33bb9cb9d4731"
 # the forward MTF's kernels, each launched once a compress block
 MTF_FORWARD = ("mtf_recency", "mtf_start_tables", "mtf_encode_lockstep")
 # the start-table kernel's tiles, swept (csrc/mtf.cu picks one by shape)
@@ -163,6 +185,11 @@ START_OPS = 9
 K5_OPS = 50
 K6_OPS = 140
 EMIT_OPS = 35
+# a coder-1 rANS step, either way: two table reads, the renormalisation
+# test, a 32-bit divide of ~20 (encode) or a multiply (decode), the
+# state update and the next context
+RANS_OPS = 35
+RANS_SRC = "tpulc_torch/csrc/rans_ctx.cu"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -551,6 +578,8 @@ def main() -> int:
                     help="one turn of the huffman walks' comparison")
     ap.add_argument("--mtf", action="store_true",
                     help="one turn of K1's and the start tables' comparison")
+    ap.add_argument("--e1", action="store_true",
+                    help="phase 9 alone (bsc -e1 on both cells)")
     ap.add_argument("--root", default=None,
                     help="with --walks or --mtf: the checkout whose "
                          "tpulc_torch runs")
@@ -559,6 +588,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     if opts.walks or opts.mtf:
         turn = walks_turn if opts.walks else mtf_turn
@@ -586,6 +616,13 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas {src}: {line.strip()}")
+
+    if opts.e1:
+        kernels = []
+        bsc_e1_phase(torch, here, kernels)
+        print(f"total: {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": kernels}))
+        return 0
 
     # 3. kernels vs plain at the main path's shapes
     data = corpus(here)
@@ -702,6 +739,8 @@ def main() -> int:
         flush=True)
     huffman_phases(torch, here, dev, kernels)
     bsc_phases(torch, here, dev, kernels)
+    bsc_e1_phase(torch, here, kernels)
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1142,7 +1181,6 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
     from tpulc_torch.codecs.bsclike import grc_kernels as gk
     from tpulc_torch.pipeline.container import Container
     from tpulc_torch.primitives import mtf_kernels as mk
-    from tpulc_torch.utils import timing
 
     pg6 = corpus(here)
     big = soup(SOUP_SIZE)
@@ -1216,26 +1254,9 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
         return c, bsc.decompress(c, device="cuda")
 
     def warm(data, block, reps):
-        cs, ds, stages = [], [], None
-        for i in range(reps):
-            timer = timing.enable() if i == 0 else None
-            c, tc = synced(torch, lambda: bsc.compress(
-                data, block_size=block, coder=2, device="cuda"))
-            back, td = synced(torch, lambda: bsc.decompress(c, device="cuda"))
-            if timer is not None:
-                stages = timer.report(total_bytes=len(data))
-                timing.disable()
-            require(back == data, "warm round trip is not exact")
-            cs.append(tc)
-            ds.append(td)
-        c_s, d_s = statistics.median(cs), statistics.median(ds)
-        mb = len(data) / 1e6
-        return {"compress_s": c_s, "decompress_s": d_s,
-                "compress_MBps": mb / c_s, "decompress_MBps": mb / d_s,
-                "roundtrip_MBps": mb / (c_s + d_s),
-                "timing": f"median of {reps} warm runs, host clock, "
-                          "synchronized",
-                "stages_first_warm_run": stages}
+        return warm_runs(torch, lambda: bsc.compress(
+            data, block_size=block, coder=2, device="cuda"),
+            lambda c: bsc.decompress(c, device="cuda"), data, reps)
 
     (comp, back), dt, counts = counted(torch, path,
                                        lambda: round_trip(pg6, BSC_BLOCK))
@@ -1295,6 +1316,163 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
             big, block_size=SOUP_BLOCK, coder=2, device="cuda")),
         "decompress": traced(torch, lambda: bsc.decompress(
             comp, device="cuda"))}}), flush=True)
+
+
+def warm_runs(torch, compress, decompress, data: bytes, reps: int) -> dict:
+    """MB/s of `reps` warm round trips, each exact (median, host clock,
+    synchronised), and the codec's stage timers over the first."""
+    from tpulc_torch.utils import timing
+
+    cs, ds, stages = [], [], None
+    for i in range(reps):
+        timer = timing.enable() if i == 0 else None
+        c, tc = synced(torch, compress)
+        back, td = synced(torch, lambda: decompress(c))
+        if timer is not None:
+            stages = timer.report(total_bytes=len(data))
+            timing.disable()
+        require(back == data, "warm round trip is not exact")
+        cs.append(tc)
+        ds.append(td)
+    c_s, d_s = statistics.median(cs), statistics.median(ds)
+    mb = len(data) / 1e6
+    return {"compress_s": c_s, "decompress_s": d_s,
+            "compress_MBps": mb / c_s, "decompress_MBps": mb / d_s,
+            "roundtrip_MBps": mb / (c_s + d_s),
+            "timing": f"median of {reps} warm runs, host clock, "
+                      "synchronized",
+            "stages_first_warm_run": stages}
+
+
+def captured(module, name: str, fn) -> tuple:
+    """The positional arguments of the last call of module.name while
+    fn() runs.  A wrapper counts its launches on the module's name, so
+    the spy carries the count while it stands there."""
+    orig, calls = getattr(module, name), []
+
+    def spy(*args):
+        calls.append(args)
+        return orig(*args)
+
+    spy.launches = orig.launches
+    setattr(module, name, spy)
+    try:
+        fn()
+    finally:
+        setattr(module, name, orig)
+        orig.launches = spy.launches
+    return calls[-1]
+
+
+def rans_checks(rans, enc: tuple, dec: tuple, suffix: str) -> list:
+    """`check_kernels` entries of the coder-1 walks on the arguments the
+    path gave them.  Bytes: the valid steps' table entries (encode) or
+    the rows' words (decode), the lane vectors and the tables read once,
+    the words or symbols written once; operations RANS_OPS a valid
+    step."""
+    idx, nsym, fc = enc
+    C, L = idx.shape
+    steps = int(nsym.sum())
+    nwords = int(rans.rans_encode_walk(*enc)[1].sum())
+    lut, Ld = dec[4], dec[0].shape[0]
+    return [
+        dict(name=f"rans_encode_walk{suffix}", src=RANS_SRC,
+             replaces="tpulc/codecs/bsclike/rans.py:388-412 (XLA fori_loop, "
+                      "no pallas_call)",
+             kern=rans.rans_encode_walk, plain=rans.rans_encode_walk_plain,
+             args=enc, shape=f"{C}x{L}",
+             bytes=4 * steps + 4 * L + 4 * fc.numel() + 2 * nwords + 16 * L,
+             ops=RANS_OPS * steps, plain_reps=1),
+        dict(name=f"rans_decode_walk{suffix}", src=RANS_SRC,
+             replaces="tpulc/codecs/bsclike/rans.py:458-480 (XLA fori_loop, "
+                      "no pallas_call)",
+             kern=rans.rans_decode_walk, plain=rans.rans_decode_walk_plain,
+             args=dec, shape=f"{Ld}x{dec[7]}",
+             bytes=2 * nwords + 20 * Ld + 2 * lut.numel() + 4 * fc.numel()
+             + 4 * Ld * dec[7],
+             ops=RANS_OPS * int(dec[3].sum()), plain_reps=1),
+    ]
+
+
+def bsc_e1_phase(torch, here: str, kernels: list) -> None:
+    """Phase 9: bsc -e1, tpulc's default coder, through
+    get_codec("bsc") with tpulc's defaults, counted as in phase 4, on
+    pg1661 x 6 at 4 MiB and on 100 MB of word soup at 25 MiB; first the
+    coder-1 walks against their plain versions on the arguments each
+    cell's path gives them.  Appends the walks at both shapes to
+    `kernels`."""
+    from tpulc_torch.codecs.bsclike import rans
+    from tpulc_torch.pipeline.container import Container
+    from tpulc_torch.pipeline.registry import get_codec
+    from tpulc_torch.primitives import mtf_kernels as mk
+
+    bsc = get_codec("bsc")
+    walks = ("rans_encode_walk", "rans_decode_walk")
+    path = {k: getattr(mk, k) for k in (*MTF_FORWARD, "mtf_lockstep")}
+    path.update((k, getattr(rans, k)) for k in walks)
+    cells = (("bsc_e1_pg1661x6", corpus(here), BSC_BLOCK, BSC_E1_BYTES,
+              BSC_E1_RATIO, BSC_E1_SHA256, ""),
+             ("bsc_e1_soup100MB", soup(SOUP_SIZE), SOUP_BLOCK, SOUP_E1_BYTES,
+              SOUP_E1_RATIO, SOUP_E1_SHA256, "@soup"))
+    for label, data, block, size, want_ratio, want_sha, suffix in cells:
+        compress = partial(bsc.compress, data, block_size=block,
+                           device="cuda")
+
+        def decompress(c):
+            return bsc.decompress(c, device="cuda")
+
+        def round_trip():
+            c = compress()
+            return c, decompress(c)
+
+        comp = []
+        enc = captured(rans, "rans_encode_walk",
+                       lambda: comp.append(compress()))
+        dec = captured(rans, "rans_decode_walk", lambda: decompress(comp[0]))
+        entries = check_kernels(torch, rans_checks(rans, enc, dec, suffix))
+        del enc, dec, comp
+        torch.cuda.reset_peak_memory_stats()
+        (comp, back), dt, counts = counted(torch, path, round_trip)
+        peak = torch.cuda.max_memory_allocated()
+        sha = hashlib.sha256(comp).hexdigest()
+        ratio = len(data) / len(comp)
+        nblocks = len(Container.from_bytes(comp).payloads)
+        print(f"{label}: {dt:.3f} s, {len(comp)} B, {nblocks} blocks, "
+              f"sha256 {sha}, launches {counts}", flush=True)
+        require(back == data, f"{label}: round trip is not exact")
+        require(len(comp) == size, f"{label}: {len(comp)} B != {size}")
+        require(round(ratio, 3) == want_ratio,
+                f"{label}: ratio {ratio} != {want_ratio}")
+        require(sha == want_sha, f"{label}: container differs from tpulc's")
+        require(all(counts[k] == nblocks for k in MTF_FORWARD)
+                and counts["mtf_lockstep"] == 2 * nblocks,
+                f"{label}: K1, the start tables, K2 not once and K4 not "
+                f"twice per block: {counts}")
+        require(all(counts[k] == 1 for k in walks),
+                f"{label}: the coder-1 walks not once a call: {counts}")
+        for e in entries:
+            e["launches"] = counts[e["name"][: len(e["name"]) - len(suffix)]]
+        kernels += entries
+        res = {"walks": entries,
+               "input_bytes": len(data), "block_size": block,
+               "blocks": nblocks, "container_bytes": len(comp),
+               "ratio": ratio, "sha256": sha,
+               "sha256_equals_tpulc": sha == want_sha, "launches": counts,
+               "first_roundtrip_s": dt, "peak_mem_bytes": peak,
+               **warm_runs(torch, compress, decompress, data,
+                           3 if dt < 60 else 1)}
+        if label == "bsc_e1_pg1661x6":
+            small = data[:50_000]
+            on_card = bsc.compress(small, block_size=1 << 16, device="cuda")
+            on_cpu = bsc.compress(small, block_size=1 << 16, device="cpu")
+            require(on_card == on_cpu, "bsc -e1 card and CPU containers differ")
+            require(bsc.decompress(on_cpu, device="cuda") == small,
+                    "card fails to decode the CPU bsc -e1 container")
+        else:
+            res["trace"] = {"compress": traced(torch, compress),
+                            "decompress": traced(torch,
+                                                 lambda: decompress(comp))}
+        print(json.dumps({label: res}), flush=True)
 
 
 def mtf_soup_entries(torch, ranks) -> list:

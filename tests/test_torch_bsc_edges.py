@@ -1,7 +1,9 @@
 """The port's bsc `-e2` codec on the edges, against tpulc: random bytes
 (stored), one byte and empty give tpulc's containers and cross-decode;
-a flipped byte raises; what is not ported yet (coder 1, the ST sorters,
-tpulc's coder-1 payloads) raises NotImplementedError."""
+a flipped byte raises; what is not ported yet (the ST sorters, tpulc's
+ST-sorted payloads) raises NotImplementedError, and a coder compress
+does not take raises ValueError.  Coder 1's edges are in
+`test_torch_bsc_e1.py`."""
 
 import numpy as np
 import pytest
@@ -73,10 +75,13 @@ def test_hostile_lane_count_raises():
 def test_not_ported_yet_raises():
     data = _pg(5000)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pd.compress(data, block_size=65536, device="cpu")  # coder 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         pd.compress(data, block_size=65536, coder=2, sorter="st8",
                     device="cpu")
-    theirs = td.compress(data, block_size=65536)  # tpulc's coder 1
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pd.compress(data, block_size=65536, sorter="st4", device="cpu")
+    theirs = td.compress(data, block_size=65536, sorter="st4")  # coder 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pd.decompress(theirs, device="cpu")
+    # tpulc writes a coder-1 container here; the port refuses the value
+    with pytest.raises(ValueError, match="coder 1 or 2"):
+        pd.compress(data, block_size=65536, coder=4, device="cpu")

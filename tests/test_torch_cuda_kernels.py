@@ -632,3 +632,91 @@ def test_bsc_on_card_matches_cpu(cuda, name):
     assert on_card == bsc.compress(data, block_size=1 << 16, coder=2,
                                    device="cpu")
     assert bsc.decompress(on_card, device="cuda") == data
+
+
+@pytest.mark.parametrize("name", ["pg1661_50k", "text_random",
+                                  "three_blocks", "tiny"])
+def test_bsc_e1_on_card_matches_cpu(cuda, name):
+    """The card writes the CPU path's bsc -e1 bytes (tpulc's default
+    coder) and both decode them."""
+    from tpulc_torch.codecs.bsclike import driver as bsc
+
+    with open("tests/data/pg1661.txt", "rb") as f:
+        text = f.read(150000)
+    noise = np.random.default_rng(3).integers(0, 256, 8000).astype(np.uint8)
+    data = {"pg1661_50k": text[:50000],
+            "text_random": text[:30000] + noise.tobytes(),
+            "three_blocks": text, "tiny": b"x"}[name]
+    on_card = bsc.compress(data, block_size=1 << 16, device="cuda")
+    assert on_card == bsc.compress(data, block_size=1 << 16, device="cpu")
+    assert bsc.decompress(on_card, device="cuda") == data
+
+
+def _rans_case(name):
+    """Inputs of the coder-1 walks: (idx, nsym, fc) of the encode, as
+    `rans_encode_ctx_batch` builds them, and (lut, nlanes) for the
+    decode.  B blocks of cap symbols (RLE2-like ranks, zeros past each
+    block's m) with their normalised order-2 tables."""
+    from tpulc_torch.codecs.bsclike import rans
+
+    rng = np.random.default_rng(len(name))
+    B, cap, ms = {"one": (1, 4096, [3333]),
+                  "three": (3, 2048, [2048, 701, 1537]),
+                  "lanes33": (3, 512 * 11, [5632, 4000, 100]),
+                  "zero_words": (2, 2048, [2000, 1500])}[name]
+    syms = np.minimum(rng.geometric(0.3, size=(B, cap)) - 1, 256)
+    if name == "zero_words":
+        syms[:] = 0   # one symbol a context: f = 2^14, no word
+    for b in range(B):
+        syms[b, ms[b]:] = 0
+    syms = torch.from_numpy(syms.astype(np.int32))
+    ctx = torch.stack([rans.ctx_of_stream(s) for s in syms])
+    fqs = []
+    for b in range(B):
+        h = np.zeros((rans.NCTX, 257), np.int64)
+        np.add.at(h, (ctx[b, : ms[b]].numpy(), syms[b, : ms[b]].numpy()), 1)
+        fqs.append(rans.normalize_freqs_ctx(h))
+    fq = torch.from_numpy(np.concatenate(fqs))
+    cum = torch.cat([torch.zeros(B * rans.NCTX, 1, dtype=torch.int32),
+                     fq.cumsum(1)[:, :-1].to(torch.int32)], 1)
+    gctx = ctx + (torch.arange(B, dtype=torch.int32) * rans.NCTX)[:, None]
+    L = B * cap // rans.CHUNK
+    idx = (gctx * 257 + syms).reshape(L, rans.CHUNK).T.contiguous()
+    nsym = rans._lane_counts(ms, B, cap // rans.CHUNK, rans.CHUNK,
+                             torch.device("cpu"))
+    fctx = gctx.reshape(L, rans.CHUNK)[:, 0].to(torch.int64)
+    return (idx, nsym, rans.packed_table(fq, cum),
+            rans.slot_table(fq, cum), fctx, cap // rans.CHUNK)
+
+
+@pytest.mark.parametrize("name", ["one", "three", "lanes33", "zero_words"])
+def test_rans_walks_equal_plain(cuda, name):
+    """The coder-1 encode and decode kernels against their plain
+    versions (true and random states), lane counts of 8, 12 and 33."""
+    from tpulc_torch.codecs.bsclike import rans
+
+    idx, nsym, fc, lut, fctx, nlanes = _rans_case(name)
+    want = rans.rans_encode_walk_plain(idx, nsym, fc)
+    n = rans.rans_encode_walk.launches
+    got = rans.rans_encode_walk(idx.to(cuda), nsym.to(cuda), fc.to(cuda))
+    torch.cuda.synchronize()
+    assert rans.rans_encode_walk.launches == n + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    words, counts, states = want
+    assert (int(counts.sum()) == 0) == (name == "zero_words")
+    hostile = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 1 << 32, states.shape[0], dtype=np.uint64).astype(np.int64))
+    for st in (states, hostile):
+        args = (words, st, fctx, nsym, lut, fc, nlanes)
+        plain = rans.rans_decode_walk_plain(*args)
+        n = rans.rans_decode_walk.launches
+        dec = rans.rans_decode_walk(*(a.to(cuda) if torch.is_tensor(a)
+                                      else a for a in args))
+        torch.cuda.synchronize()
+        assert rans.rans_decode_walk.launches == n + 1
+        assert torch.equal(dec.cpu(), plain)
+    valid = torch.arange(rans.CHUNK)[None, :] < nsym[:, None]
+    assert torch.equal(torch.where(valid, rans.rans_decode_walk_plain(
+        words, states, fctx, nsym, lut, fc, nlanes), 0),
+        torch.where(valid, (idx % 257).T, 0))

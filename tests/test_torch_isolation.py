@@ -39,6 +39,7 @@ BSC_SLICE = ["tpulc_torch.gold.lzp", "tpulc_torch.codecs.bsclike.driver",
              "tpulc_torch.codecs.bsclike.filters",
              "tpulc_torch.codecs.bsclike.grc",
              "tpulc_torch.codecs.bsclike.grc_kernels",
+             "tpulc_torch.codecs.bsclike.rans",
              "tpulc_torch.codecs.bwt.masked"]
 
 

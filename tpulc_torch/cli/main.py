@@ -3,16 +3,16 @@
 Usage:
     python -m tpulc_torch.cli compress   [-c huffman] -i IN -o OUT [-b 1048576]
                                          [--device cuda|cpu] [--timings]
-                                         [bsc: -e 2 --no-lzp --filter F]
+                                         [bsc: -e 1|2 --no-lzp --filter F]
     python -m tpulc_torch.cli decompress -i IN -o OUT [--device cuda|cpu]
     python -m tpulc_torch.cli info       -i IN
 
 The container is tpulc's and so are the defaults (huffman, 1 MiB
 blocks), so either CLI decodes what the other wrote, and the same
 codec arguments write the same bytes.  Ported: huffman, bz, store and
-bsc's `-e 2` on the BWT sorter; asking for anything else (another codec,
-bsc's default `-e 1`, an ST sorter) exits with status 2 and names the
-ROADMAP item that ports it.
+bsc on the BWT sorter, with either coder (`-e 1`, the default, or `-e
+2`); asking for anything else (another codec, an ST sorter) exits with
+status 2 and names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -50,8 +50,9 @@ def _parse(argv):
                         "(none|reverse|reorder:N|auto); `none` passes "
                         "nothing, so the codec's default `auto` applies")
     c.add_argument("-e", "--coder", type=int, default=1, choices=[1, 2],
-                   help="bsc: entropy coder — 1 static context rANS (not "
-                        "ported yet), 2 the group-rank coder (best ratio)")
+                   help="bsc: entropy coder — 1 static order-2 context "
+                        "rANS (the default), 2 the group-rank coder (best "
+                        "ratio)")
     d = sub.add_parser("decompress")
     d.add_argument("-i", "--input", required=True)
     d.add_argument("-o", "--output", required=True)

@@ -1,37 +1,53 @@
-"""bsc-class large-block codec, the `-e2` path on the BWT sorter (port
-of `tpulc/codecs/bsclike/driver.py`; the same container and payload
+"""bsc-class large-block codec on the BWT sorter (port of
+`tpulc/codecs/bsclike/driver.py`; the same container and payload
 bytes).
 
-Compress, per block: the entropy-model segmentation gate, the filter
-choice, host LZP (`gold/lzp.c`), the masked BWT + anchors and MTF on
-the block's device (`bwt/masked.py`: K1, K2), then the group-rank coder
-(`grc.py`: K5) and the payload, or the stored fallback when coding does
-not shrink the block.  Decompress: K6 decodes the ranks, MTF decode (K4)
-and the anchored masked inverse BWT (or pointer doubling for
-anchor-less blocks) rebuild the LZP stage, then LZP decode and the
-inverse filter on the host.
+Compress: the entropy-model segmentation gate, the filter choice, host
+LZP (`gold/lzp.c`), the masked BWT + anchors and MTF on the block's
+device (`bwt/masked.py`: K1, the start tables, K2), then one of two
+coders, or the stored fallback when coding does not shrink the block:
+- coder 1 (`-e1`, the default): RLE2, order-2 context statistics and
+  the static context rANS (`rans.py`).  Blocks that no segmentation
+  splits are batched as tpulc batches them: LZP in two worker threads,
+  every block transformed at one common capacity, one pull of the small
+  outputs, one encode of all blocks' lanes, one compaction of the words;
+- coder 2 (`-e2`): the group-rank coder (`grc.py`: K5 and the
+  emission), block by block; its payloads carry coder byte 4.
+Decompress: coder-1 blocks in one batched decode of all their lanes,
+then RLE2 decode, MTF decode (K4) and the anchored masked inverse BWT
+(or pointer doubling for anchor-less blocks); group-rank blocks through
+K6, MTF decode and the same inverse; then LZP decode and the inverse
+filter on the host.
 
-Not ported yet, each raising `NotImplementedError` that names its
-ROADMAP item: coder 1 (`-e1`, tpulc's default; `rans.py` and the
-batched path `driver.py:969-1173`), `CODER_ABC` payloads and the ST
-sorters (`rans_adaptive.py`, `bwt/stk.py`).
+Not ported yet, raising `NotImplementedError` that names its ROADMAP
+item: the ST sorters and `CODER_ABC` payloads (`rans_adaptive.py`,
+`bwt/stk.py`, item 10c).
 
-Per-block payload (little-endian), as tpulc writes it for coder 2:
+Per-block payload (little-endian), as tpulc writes it:
 
     n           u32   raw bytes in this block
     m_lzp       u32   LZP-stage bytes (== n when LZP was skipped)
-    m           u32   == m_lzp (the group coder reads the MTF stream)
+    m           u32   RLE2 symbol count (coder 1); == m_lzp (coder 4)
     idx0        u32   BWT primary index
     nwords      u32   total rANS u16 words (segment count when segmented)
-    flags       u8    bit0 LZP applied; bit1 stored raw; bit3 anchors;
-                      bits4-6 sorter (0 = BWT); bit7 filter byte
-    coder       u8    4 = group-rank coder, 3 = segmented wrapper
+    flags       u8    bit0 LZP applied; bit1 stored raw; bit2 order-2
+                      context model (always set by coder 1); bit3
+                      anchors; bits4-6 sorter (0 = BWT); bit7 filter byte
+    coder       u8    1 = static context rANS, 4 = group-rank coder,
+                      3 = segmented wrapper
     [filter     u8    when flags bit7]
     [anchors    ceil(log2(cap))-bit-packed, ceil(m_lzp/1024)   when bit3]
+  coder 1:
+    freqs       u32 mask of the contexts present, then for each present
+                context a 33-byte bitmap of its symbols + u16 per symbol
+    nlanes      u32
+    first_ctx   5-bit-packed context id entering each lane
+  coder 4:
     inits       NM-bit bitmap of used models + u16 per used model
     cinits      u16 * NFAM
     maxbits     u32   deepest lane's event count (decode loop bound)
     nlanes      u32
+  both:
     counts      u16 * nlanes   per-lane word counts
     states      u32 * nlanes   final rANS states
     words       u16 * nwords   per-lane streams back to back
@@ -40,6 +56,7 @@ Per-block payload (little-endian), as tpulc writes it for coder 2:
 from __future__ import annotations
 
 import struct
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -53,11 +70,27 @@ from tpulc_torch.codecs.bsclike.filters import (
     invert_filter_np,
 )
 from tpulc_torch.codecs.bsclike.grc_kernels import grc_decode_walk
+from tpulc_torch.codecs.bsclike.rans import (
+    CHUNK,
+    NCTX,
+    PROB_SCALE,
+    compact_words,
+    ctx_of_stream,
+    expand_words,
+    normalize_freqs_ctx,
+    rans_decode_ctx_batch,
+    rans_encode_ctx_batch,
+    slot_table,
+)
 from tpulc_torch.codecs.bwt.masked import (
+    forward_masked_anchored,
     forward_ranks_anchored,
+    inverse_masked,
+    inverse_masked_anchored,
     inverse_ranks,
     inverse_ranks_anchored,
 )
+from tpulc_torch.codecs.bwt.rle import ALPHABET
 from tpulc_torch.device import resolve
 from tpulc_torch.gold.lzp import lzp_decode, lzp_encode
 from tpulc_torch.pipeline.container import Container
@@ -68,9 +101,8 @@ from tpulc_torch.utils import timing
 
 DEFAULT_BLOCK = 25 * 1024 * 1024
 ANCHOR_STRIDE = 1024  # bsc blocks are large; halve anchor count
-# lane sizes of tpulc's two coders (rans.CHUNK, rans_adaptive.ACHUNK):
-# block capacities and transform buckets tile to both
-CHUNK = 512
+# lane size of tpulc's adaptive coder (rans_adaptive.ACHUNK): block
+# capacities and transform buckets tile to it and to rans.CHUNK
 ACHUNK = 1024
 
 _HEAD = struct.Struct("<IIIIIBB")  # ..., flags, coder
@@ -85,13 +117,14 @@ CODER_SEGMENTED = 3
 CODER_GRC = 4
 FLAG_LZP = 1
 FLAG_STORED = 2
+FLAG_CTX = 4
 FLAG_ANCHORS = 8
 SORTER_SHIFT = 4
 SORTER_MASK = 0x7 << SORTER_SHIFT
 FLAG_FILTER = 0x80
+FCTX_BITS = 5  # context ids < NCTX = 32
 
-_E1 = "ROADMAP queue 1 item 10 (bsc -e1: rans.py)"
-_ST = "ROADMAP queue 1 item 10 (bsc ST sorters: bwt/stk.py, rans_adaptive.py)"
+_ST = "ROADMAP queue 1 item 10c (bsc ST sorters: bwt/stk.py, rans_adaptive.py)"
 
 
 def _filter_byte_for(block: np.ndarray, filter_mode: str) -> int:
@@ -129,11 +162,64 @@ def _check_coder(sorter: str, coder: int) -> None:
     if sorter != "bwt":
         raise NotImplementedError(
             f"bsc sorter {sorter!r} is not ported to tpulc_torch yet: {_ST}")
-    if coder == CODER_RANS:
-        raise NotImplementedError(
-            f"bsc coder 1 is not ported to tpulc_torch yet: {_E1}")
-    if coder not in (CODER_ABC, CODER_GRC):
+    if coder not in (CODER_RANS, CODER_ABC, CODER_GRC):
         raise ValueError(f"unknown bsc coder {coder}")
+
+
+def _cum_of(fq: np.ndarray) -> np.ndarray:
+    """[R, S] quantised tables -> their exclusive cumulative sums."""
+    return np.concatenate(
+        [np.zeros((fq.shape[0], 1), np.int32),
+         np.cumsum(fq, axis=1)[:, :-1].astype(np.int32)], axis=1)
+
+
+def _pack_freq_tables(fq: np.ndarray) -> bytes:
+    """[NCTX, ALPHABET] quantized freqs -> u32 context-presence mask,
+    then per present context a 33-byte presence bitmap + u16 per present
+    symbol.  A context whose table is the default (symbol 0 certain,
+    what normalize_freqs gives a context never entered) ships as one
+    clear mask bit; the decoder rebuilds the same table."""
+    used = ~((fq[:, 0] == PROB_SCALE) & (fq[:, 1:].sum(axis=1) == 0))
+    mask = int(sum(1 << k for k in np.flatnonzero(used)))
+    parts = [struct.pack("<I", mask)]
+    for k in np.flatnonzero(used):
+        present = fq[k] > 0
+        bits = np.zeros(264, np.uint8)
+        bits[: ALPHABET] = present
+        parts.append(np.packbits(bits).tobytes())
+        parts.append(fq[k][present].astype("<u2").tobytes())
+    return b"".join(parts)
+
+
+def _unpack_freq_tables(buf: bytes, off: int):
+    """Inverse of `_pack_freq_tables` -> (fq int32[NCTX, ALPHABET], the
+    offset past them).  Raises ValueError on a truncated table or one
+    that does not sum to PROB_SCALE (tpulc decodes those through
+    clamped gathers)."""
+    if off + 4 > len(buf):
+        raise ValueError("bad coder-1 payload: truncated tables")
+    (mask,) = struct.unpack("<I", buf[off: off + 4])
+    off += 4
+    fq = np.zeros((NCTX, ALPHABET), np.int32)
+    for k in range(NCTX):
+        if not (mask >> k) & 1:
+            fq[k][0] = PROB_SCALE
+            continue
+        if off + 33 > len(buf):
+            raise ValueError("bad coder-1 payload: truncated tables")
+        bits = np.unpackbits(
+            np.frombuffer(buf[off: off + 33], np.uint8))[:ALPHABET]
+        off += 33
+        nnz = int(bits.sum())
+        if off + 2 * nnz > len(buf):
+            raise ValueError("bad coder-1 payload: truncated tables")
+        fq[k][bits.astype(bool)] = np.frombuffer(
+            buf[off: off + 2 * nnz], "<u2")
+        off += 2 * nnz
+    if (fq.sum(axis=1) != PROB_SCALE).any():
+        raise ValueError("bad coder-1 payload: a table does not sum to "
+                         f"{PROB_SCALE}")
+    return fq, off
 
 
 # ------------------------------------------------------------ compress
@@ -186,9 +272,83 @@ def _finish_block_grc(ranks, idx0, anchors, a_ok, orig_block, n, m_lzp,
     return payload
 
 
+def _ctx_stats(syms: torch.Tensor, m):
+    """Order-2 statistics of the valid prefix -> (hists int64[NCTX,
+    ALPHABET], per-position contexts int32[cap]); tpulc's sort and
+    searchsorted histogram as a bincount of ctx * ALPHABET + sym."""
+    ctx = ctx_of_stream(syms)
+    valid = torch.arange(syms.shape[0], device=syms.device) < m
+    key = torch.where(valid, ctx * ALPHABET + syms, NCTX * ALPHABET)
+    hists = torch.bincount(key, minlength=NCTX * ALPHABET + 1)
+    return hists[: NCTX * ALPHABET].reshape(NCTX, ALPHABET), ctx
+
+
+def _fwd_packed(padded: torch.Tensor, n: int):
+    """Transform + statistics of one block, its small outputs in one
+    int64 row: [m, idx0, ok, anchors (Rcap), hists (NCTX * ALPHABET),
+    first contexts (lanes)] -> (syms, ctx, meta); syms and ctx stay on
+    the device for the batched coder."""
+    syms, m, idx0, _, anchors, a_ok = forward_masked_anchored(
+        padded, n, ANCHOR_STRIDE)
+    hists, ctx = _ctx_stats(syms, m)
+    dev = padded.device
+    meta = torch.cat([
+        torch.stack([m.to(dev), torch.tensor(idx0, device=dev),
+                     torch.tensor(int(a_ok), device=dev)]),
+        anchors.to(torch.int64), hists.reshape(-1),
+        ctx.reshape(-1, CHUNK)[:, 0].to(torch.int64)])
+    return syms, ctx, meta
+
+
+def _rans_payload(fq, used: int, counts_np, nwords: int, a_ok: bool,
+                  r_used: int, aw: int, n: int, head: tuple, fb: int,
+                  anchors_np, fctx_np, states_np, flat) -> bytes | None:
+    """Coder-1 payload of one block, or None when it would not be
+    smaller than the block (tpulc's `body_size` test; the caller
+    stores the block raw)."""
+    body_size = _HEAD.size + 33 * NCTX + 2 * int((fq > 0).sum()) + 4 \
+        + 6 * used + -(-used * FCTX_BITS // 8) + 2 * nwords \
+        + (-(-r_used * aw // 8) if a_ok else 0)
+    if body_size >= n:
+        return None
+    m_lzp, m, idx0, flags = head
+    flags |= FLAG_CTX | (FLAG_ANCHORS if a_ok else 0)
+    payload = _HEAD.pack(n, m_lzp, m, idx0, nwords, flags, CODER_RANS)
+    if flags & FLAG_FILTER:
+        payload += bytes([fb])
+    if a_ok:
+        payload += pack_fields_np(anchors_np[:r_used], aw)
+    payload += _pack_freq_tables(fq)
+    payload += struct.pack("<I", used)
+    payload += pack_fields_np(fctx_np[:used], FCTX_BITS)
+    payload += counts_np.astype("<u2").tobytes()
+    payload += states_np.astype("<u4").tobytes()
+    payload += flat.tobytes()
+    return payload
+
+
+def _encode_rans(syms2, gctx2, ms, fqs: np.ndarray, dev):
+    """One batched encode of every block's lanes -> host (counts
+    int64[B * lanes], states int64[B * lanes], words uint16, all lanes'
+    streams back to back)."""
+    B = fqs.shape[0]
+    fq = fqs.reshape(B * NCTX, ALPHABET)
+    words, counts, states = rans_encode_ctx_batch(
+        syms2, gctx2, ms, torch.from_numpy(fq).to(dev),
+        torch.from_numpy(_cum_of(fq)).to(dev))
+    small = torch.cat([counts, states]).cpu().numpy()
+    flat = compact_words(words, counts).cpu().numpy().view("<u2")
+    return small[: counts.shape[0]], small[counts.shape[0]:], flat
+
+
+def _stored(block: np.ndarray, coder: int) -> bytes:
+    n = block.shape[0]
+    return _HEAD.pack(n, n, 0, 0, 0, FLAG_STORED, coder) + block.tobytes()
+
+
 def compress_block(block: np.ndarray, block_cap: int, use_lzp: bool = True,
                    sorter: str = "bwt", filter_mode: str = "auto",
-                   coder: int = CODER_ABC, _segments=None,
+                   coder: int = CODER_RANS, _segments=None,
                    device: str | None = None) -> bytes:
     """One block -> payload (segmented when the detector splits it)."""
     _check_coder(sorter, coder)
@@ -207,6 +367,9 @@ def compress_block(block: np.ndarray, block_cap: int, use_lzp: bool = True,
         head = _HEAD.pack(n, 0, 0, 0, len(subs), 0, CODER_SEGMENTED)
         return head + np.asarray(
             [len(s) for s in subs], "<u4").tobytes() + b"".join(subs)
+    if coder == CODER_RANS:
+        return _compress_batched([block], block_cap, use_lzp, filter_mode,
+                                 dev)[0]
     cap = _cap_for(block_cap)
     flags = 0
     orig_block = block
@@ -231,20 +394,90 @@ def compress_block(block: np.ndarray, block_cap: int, use_lzp: bool = True,
                              m_lzp, cap, flags, fb)
 
 
+def _compress_batched(blocks: list[np.ndarray], block_cap: int,
+                      use_lzp: bool, filter_mode: str,
+                      dev: torch.device) -> list[bytes]:
+    """Coder 1 -> one payload a block: tpulc's batched path (`:969-1173`);
+    with one block, the coder-1 tail of its `compress_block` (`:576-654`,
+    which makes the same bytes).  LZP runs in two worker threads before
+    the first dispatch, so that one transform capacity, from the largest
+    LZP output, covers every block."""
+    cap = _cap_for(block_cap)
+    aw = max(1, int(cap - 1).bit_length())
+    B = len(blocks)
+
+    def _lzp_one(orig):
+        fbb = _filter_byte_for(orig, filter_mode)
+        blk = apply_filter_np(orig, fbb) if fbb != FILTER_NONE else orig
+        return orig, blk, fbb, (lzp_encode(blk) if use_lzp else None)
+
+    with timing.stage("bsc.lzp"):
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            lzp_results = list(pool.map(_lzp_one, blocks))
+    stages, flags_l, fbs = [], [], []
+    for orig, blk, fbb, lz in lzp_results:
+        flags = FLAG_FILTER if fbb != FILTER_NONE else 0
+        stage = blk
+        if lz is not None:
+            stage = np.frombuffer(lz, np.uint8)
+            flags |= FLAG_LZP
+        stages.append((orig, stage))
+        flags_l.append(flags)
+        fbs.append(fbb)
+    tcap = _tcap_for(max(st.shape[0] for _, st in stages), cap)
+    lcap = max(1, tcap // CHUNK)
+    r_cap = -(-tcap // ANCHOR_STRIDE)
+    with timing.stage("bsc.transform"):
+        devs = []
+        for _, stage in stages:
+            padded = np.zeros(tcap, np.uint8)
+            padded[: stage.shape[0]] = stage
+            devs.append(_fwd_packed(torch.from_numpy(padded).to(dev),
+                                    stage.shape[0]))
+        metas = torch.stack([d[2] for d in devs]).cpu().numpy()  # one pull
+    ms = metas[:, 0]
+    hists = metas[:, 3 + r_cap: 3 + r_cap + NCTX * ALPHABET].reshape(
+        B, NCTX, ALPHABET)
+    fqs = np.stack([normalize_freqs_ctx(h) for h in hists])
+    with timing.stage("bsc.rans"):
+        offs = (torch.arange(B, device=dev) * NCTX)[:, None]
+        counts_np, states_np, flat = _encode_rans(
+            torch.stack([d[0] for d in devs]),
+            torch.stack([d[1] for d in devs]) + offs, ms, fqs, dev)
+        del devs
+    lane_offs = np.concatenate([[0], np.cumsum(counts_np)])
+    payloads = []
+    for b, (orig, stage) in enumerate(stages):
+        m = int(ms[b])
+        used = max(1, -(-m // CHUNK))
+        lane0 = b * lcap
+        cnts = counts_np[lane0: lane0 + used]
+        nwords = int(cnts.sum())
+        payload = _rans_payload(
+            fqs[b], used, cnts, nwords, bool(metas[b, 2]),
+            max(1, -(-stage.shape[0] // ANCHOR_STRIDE)), aw, orig.shape[0],
+            (stage.shape[0], m, int(metas[b, 1]), flags_l[b]), fbs[b],
+            metas[b, 3: 3 + r_cap], metas[b, 3 + r_cap + NCTX * ALPHABET:],
+            states_np[lane0: lane0 + used],
+            flat[lane_offs[lane0]: lane_offs[lane0] + nwords])
+        # tpulc stores with the `coder` argument here (`:1140`), which
+        # is CODER_RANS on every call that reaches this path
+        payloads.append(payload if payload is not None
+                        else _stored(orig, CODER_RANS))
+    return payloads
+
+
 def compress(data: bytes | np.ndarray, block_size: int = DEFAULT_BLOCK,
              use_lzp: bool = True, sorter: str = "bwt",
              filter_mode: str = "auto", coder: int = CODER_RANS,
              device: str | None = None) -> bytes:
     """bytes -> bsc container, tpulc's signature and defaults; each
-    block transformed and coded on `device` (default "cuda").  Only
-    coder 2 (`-e2`) on the BWT sorter is ported: the default coder 1
-    raises NotImplementedError."""
+    block transformed and coded on `device` (default "cuda").  coder 1
+    (the default) or 2; tpulc sends any other value down its coder-1
+    path, the port raises ValueError."""
     _check_coder(sorter, coder)
-    if coder != CODER_ABC:
-        # tpulc's compress sends every other coder value down its
-        # coder-1 batched path
-        raise NotImplementedError(
-            f"bsc coder {coder} is not ported to tpulc_torch yet: {_E1}")
+    if coder not in (CODER_RANS, CODER_ABC):
+        raise ValueError(f"bsc compress takes coder 1 or 2, not {coder}")
     dev = resolve(device)
     arr = np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray)) \
         else np.asarray(data, np.uint8)
@@ -252,9 +485,16 @@ def compress(data: bytes | np.ndarray, block_size: int = DEFAULT_BLOCK,
     blocks = [arr[s: s + block_size] for s in starts]
     segs = [detect_segments_gated(b) if filter_mode == "auto" else None
             for b in blocks]
-    payloads = [compress_block(b, block_size, use_lzp, sorter, filter_mode,
-                               coder, _segments=sl, device=dev)
-                for b, sl in zip(blocks, segs)]
+    if coder == CODER_RANS and not any(
+            sl is not None and len(sl) > 1 for sl in segs):
+        payloads = _compress_batched(blocks, block_size, use_lzp,
+                                     filter_mode, dev)
+    else:
+        # a segmented input, or the group-rank coder: block by block
+        payloads = [compress_block(b, block_size, use_lzp, sorter,
+                                   filter_mode, coder, _segments=sl,
+                                   device=dev)
+                    for b, sl in zip(blocks, segs)]
     c = Container(
         codec_id=CODEC_BSC, flags=0, orig_len=arr.shape[0],
         block_size=block_size, comp_sizes=[len(p) for p in payloads],
@@ -322,6 +562,113 @@ def grc_block_args(payload: bytes, block_cap: int, dev: torch.device):
     return (filt, anchors, dcap), args
 
 
+def rans_block_args(payload: bytes, block_cap: int) -> tuple:
+    """Parse and validate one coder-1 payload -> (n, m_lzp, m, idx0,
+    flags, filter byte, anchors or None, fq int32[NCTX, ALPHABET], fctx,
+    counts, states, words uint16).  Raises ValueError where tpulc would
+    assert (no FLAG_CTX) or decode through clamped gathers: more lanes
+    than the transform holds, a lane count over CHUNK + 2, nwords other
+    than the counts' sum or past the payload, m or m_lzp over the
+    capacity, idx0 or an anchor not a row of the stage."""
+    n, m_lzp, m, idx0, nwords, flags, _ = _HEAD.unpack(payload[: _HEAD.size])
+    if flags & SORTER_MASK:
+        raise NotImplementedError(
+            f"bsc ST-sorted payloads are not ported to tpulc_torch yet: {_ST}")
+    if not flags & FLAG_CTX:
+        raise ValueError("bad coder-1 payload: no FLAG_CTX (pre-context "
+                         "bsc streams are not supported)")
+    off = _HEAD.size
+    filt = FILTER_NONE
+    if flags & FLAG_FILTER:
+        filt = payload[off]
+        off += 1
+    cap = _cap_for(block_cap)
+    anchors = None
+    if flags & FLAG_ANCHORS:
+        r_used = max(1, -(-m_lzp // ANCHOR_STRIDE))
+        aw = max(1, int(cap - 1).bit_length())
+        nb = -(-r_used * aw // 8)
+        anchors = unpack_fields_np(payload[off: off + nb], aw, r_used)
+        off += nb
+    dcap = _tcap_for(max(m, m_lzp), cap)
+    fq, off = _unpack_freq_tables(payload, off)
+    (nlanes,) = struct.unpack("<I", payload[off: off + 4])
+    off += 4
+    rows = max(m_lzp, 1)
+    if (nlanes > max(1, dcap // CHUNK) or max(m, m_lzp) > dcap
+            or idx0 >= rows
+            or (anchors is not None and int(anchors.max()) >= rows)):
+        raise ValueError("bad coder-1 payload geometry")
+    fb = -(-nlanes * FCTX_BITS // 8)
+    fctx = unpack_fields_np(payload[off: off + fb], FCTX_BITS, nlanes)
+    off += fb
+    counts = np.frombuffer(payload[off: off + 2 * nlanes], "<u2").astype(
+        np.int64)
+    off += 2 * nlanes
+    states = np.frombuffer(payload[off: off + 4 * nlanes], "<u4")
+    off += 4 * nlanes
+    if (int(counts.max(initial=0)) > CHUNK + 2 or int(counts.sum()) != nwords
+            or off + 2 * nwords > len(payload)):
+        raise ValueError("bad coder-1 payload lanes")
+    flat = np.frombuffer(payload[off: off + 2 * nwords], "<u2")
+    return (n, m_lzp, m, idx0, flags, filt, anchors, fq, fctx, counts,
+            states, flat)
+
+
+def _decode_rans(blocks: list[tuple], cap: int, dev) -> list[np.ndarray]:
+    """tpulc's batched decode of coder-1 blocks (`:1251-1299`, `:1341-
+    1383`): one decode of every block's lanes at one capacity, from the
+    largest of the blocks' max(m_lzp, m); each lane past a block's own
+    lanes gets state 2^16 and the block's first context.  Then each
+    block's inverse -> its LZP-stage bytes (uint8[m_lzp])."""
+    B = len(blocks)
+    dcap = _tcap_for(max(max(b[1], b[2]) for b in blocks), cap)
+    lcap = max(1, dcap // CHUNK)
+    counts = np.zeros(B * lcap, np.int64)
+    states = np.full(B * lcap, 1 << 16, np.int64)
+    fctx = np.repeat(np.arange(B, dtype=np.int64) * NCTX, lcap)
+    fq = np.zeros((B * NCTX, ALPHABET), np.int32)
+    for j, b in enumerate(blocks):
+        nl = b[8].shape[0]
+        fctx[j * lcap: j * lcap + nl] += b[8]
+        counts[j * lcap: j * lcap + nl] = b[9]
+        states[j * lcap: j * lcap + nl] = b[10]
+        fq[j * NCTX: (j + 1) * NCTX] = b[7]
+    flat = np.concatenate([b[11] for b in blocks]).view(np.int16)
+    with timing.stage("bsc.rans.decode"):
+        freq_d = torch.from_numpy(fq).to(dev)
+        cum_d = torch.from_numpy(_cum_of(fq)).to(dev)
+        counts_d = torch.from_numpy(counts).to(dev)
+        syms2 = rans_decode_ctx_batch(
+            expand_words(torch.from_numpy(flat).to(dev), counts_d),
+            counts_d, torch.from_numpy(states).to(dev),
+            torch.from_numpy(fctx).to(dev), [b[2] for b in blocks], freq_d,
+            cum_d, slot_table(freq_d, cum_d), B)
+    out = []
+    with timing.stage("bsc.inverse"):
+        for j, (_, m_lzp, m, idx0, _, _, anchors, *_) in enumerate(blocks):
+            if anchors is not None:
+                anch_p = np.full(-(-dcap // ANCHOR_STRIDE), idx0, np.int32)
+                anch_p[: anchors.shape[0]] = anchors
+                stage = inverse_masked_anchored(
+                    syms2[j], m, m_lzp, torch.from_numpy(anch_p).to(dev),
+                    ANCHOR_STRIDE)
+            else:
+                stage = inverse_masked(syms2[j], m, m_lzp, idx0)
+            out.append(stage[:m_lzp].cpu().numpy())
+    return out
+
+
+def _unstage(stage: np.ndarray, n: int, flags: int, filt: int) -> np.ndarray:
+    """LZP decode (when applied) and the inverse filter on the host."""
+    if flags & FLAG_LZP:
+        with timing.stage("bsc.lzp.decode"):
+            out = np.frombuffer(lzp_decode(stage, n), np.uint8)
+    else:
+        out = stage[:n]
+    return invert_filter_np(out, filt)
+
+
 def decompress_block(payload: bytes, block_cap: int,
                      device: str | None = None, _depth: int = 0):
     """One payload -> uint8 block."""
@@ -353,8 +700,9 @@ def decompress_block(payload: bytes, block_cap: int,
         raise NotImplementedError(
             f"bsc ST-sorted payloads are not ported to tpulc_torch yet: {_ST}")
     if coder == CODER_RANS:
-        raise NotImplementedError(
-            f"bsc coder-1 payloads are not ported to tpulc_torch yet: {_E1}")
+        blk = rans_block_args(payload, block_cap)
+        (stage,) = _decode_rans([blk], _cap_for(block_cap), dev)
+        return _unstage(stage, n, flags, blk[5])
     if coder != CODER_GRC:
         raise NotImplementedError(
             f"bsc coder-{coder} payloads are not ported to tpulc_torch yet: "
@@ -372,22 +720,31 @@ def decompress_block(payload: bytes, block_cap: int,
         else:
             stage = inverse_ranks(ranks, m_lzp, idx0)
         stage = stage[:m_lzp].cpu().numpy()
-    if flags & FLAG_LZP:
-        with timing.stage("bsc.lzp.decode"):
-            out = np.frombuffer(lzp_decode(stage, n), np.uint8)
-    else:
-        out = stage[:n]
-    return invert_filter_np(out, filt)
+    return _unstage(stage, n, flags, filt)
 
 
 def decompress(buf: bytes, device: str | None = None) -> bytes:
     """bsc container -> bytes, every block decoded on `device` (default
-    "cuda"; raises when CUDA is absent)."""
+    "cuda"; raises when CUDA is absent).  Coder-1 blocks share one
+    batched decode; stored, segmented and group-rank payloads go block
+    by block."""
     dev = resolve(device)
     c = Container.from_bytes(buf)
     if c.codec_id != CODEC_BSC:
         raise ValueError(f"not a bsc container (codec {c.codec_id})")
-    parts = [decompress_block(p, c.block_size, dev) for p in c.payloads]
+    batched = {}
+    for i, p in enumerate(c.payloads):
+        flags, coder = _HEAD.unpack(p[: _HEAD.size])[5:]
+        if coder == CODER_RANS and not flags & FLAG_STORED:
+            batched[i] = rans_block_args(p, c.block_size)
+    outs = {}
+    if batched:
+        stages = _decode_rans(list(batched.values()), _cap_for(c.block_size),
+                              dev)
+        for (i, blk), stage in zip(batched.items(), stages):
+            outs[i] = _unstage(stage, blk[0], blk[4], blk[5])
+    parts = [outs[i] if i in outs else decompress_block(p, c.block_size, dev)
+             for i, p in enumerate(c.payloads)]
     out = b"".join(x.tobytes() for x in parts)[: c.orig_len]
     if not c.verify_data(np.frombuffer(out, np.uint8)):
         raise ValueError("data checksum mismatch after decompress")

@@ -83,23 +83,6 @@ def _lanes(lanes: int | None) -> int:
     return lanes
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
-    if t.dtype != dtype or not t.is_contiguous() or t.dim() != len(shape) \
-            or any(s is not None and s != d for s, d in zip(shape, t.shape)):
-        raise ValueError(f"{name}: need contiguous {dtype} of shape {shape}, "
-                         f"got {t.dtype} {tuple(t.shape)}")
-
-
-def _device(*tensors: torch.Tensor) -> torch.device:
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
 def _mix(pf, pc, pi):
     return ((19 * pf + 7 * pc + 6 * pi) >> 5).clamp(8, SCALE - 8)
 
@@ -140,11 +123,11 @@ def grc_walk_probs(gmb: torch.Tensor, init: torch.Tensor,
                    cinit: torch.Tensor, nsteps: int,
                    lanes: int | None = None) -> torch.Tensor:
     """K5 wrapper (see the module docstring)."""
-    _check("gmb", gmb, torch.int32, (None, None))
-    _check("init", init, torch.int32, (NM,))
-    _check("cinit", cinit, torch.int32, (NFAM,))
+    cuda_lib.check_tensor("gmb", gmb, torch.int32, (None, None))
+    cuda_lib.check_tensor("init", init, torch.int32, (NM,))
+    cuda_lib.check_tensor("cinit", cinit, torch.int32, (NFAM,))
     lanes = _lanes(lanes)
-    if _device(gmb, init, cinit).type == "cpu":
+    if cuda_lib.device_of(gmb, init, cinit).type == "cpu":
         return grc_walk_probs_plain(gmb, init, cinit, nsteps)
     lib = cuda_lib.library()
     W, L = gmb.shape
@@ -202,10 +185,10 @@ def grc_reverse_rans_plain(gmb: torch.Tensor, probs: torch.Tensor,
 
 def grc_reverse_rans(gmb: torch.Tensor, probs: torch.Tensor, nsteps: int):
     """Emission wrapper (see the module docstring)."""
-    _check("gmb", gmb, torch.int32, (None, None))
+    cuda_lib.check_tensor("gmb", gmb, torch.int32, (None, None))
     W, L = gmb.shape
-    _check("probs", probs, torch.int32, (W, L))
-    if _device(gmb, probs).type == "cpu":
+    cuda_lib.check_tensor("probs", probs, torch.int32, (W, L))
+    if cuda_lib.device_of(gmb, probs).type == "cpu":
         return grc_reverse_rans_plain(gmb, probs, nsteps)
     lib = cuda_lib.library()
     words = torch.zeros((L, W + 2), dtype=torch.int32, device=gmb.device)
@@ -369,15 +352,15 @@ def grc_decode_walk(words: torch.Tensor, states: torch.Tensor,
                     nsteps: int, chunk: int,
                     lanes: int | None = None) -> torch.Tensor:
     """K6 wrapper (see the module docstring)."""
-    _check("words", words, torch.int16, (None, None))
+    cuda_lib.check_tensor("words", words, torch.int16, (None, None))
     L, Wc = words.shape
-    _check("states", states, torch.int32, (L,))
-    _check("init", init, torch.int32, (NM,))
-    _check("cinit", cinit, torch.int32, (NFAM,))
+    cuda_lib.check_tensor("states", states, torch.int32, (L,))
+    cuda_lib.check_tensor("init", init, torch.int32, (NM,))
+    cuda_lib.check_tensor("cinit", cinit, torch.int32, (NFAM,))
     if Wc < 1 or chunk < 1:
         raise ValueError("need at least one word column and chunk >= 1")
     lanes = _lanes(lanes)
-    if _device(words, states, init, cinit).type == "cpu":
+    if cuda_lib.device_of(words, states, init, cinit).type == "cpu":
         return grc_decode_walk_plain(words, states, init, cinit, m, nsteps,
                                      chunk)
     lib = cuda_lib.library()

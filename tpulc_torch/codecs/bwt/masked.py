@@ -1,6 +1,6 @@
 """Dynamic-length BWT at a fixed capacity (port of
-`tpulc/codecs/bwt/masked.py`; `last`, `idx0`, anchors, `ok` and ranks
-bit-identical).
+`tpulc/codecs/bwt/masked.py`; `last`, `idx0`, anchors, `ok`, ranks and
+the RLE2 symbols, their count and histogram bit-identical).
 
 The bsc codec transforms the LZP output, whose length n is data
 dependent, in a zero-padded buffer of capacity `cap`.  Padding rows get
@@ -27,6 +27,7 @@ from tpulc_torch.codecs.bwt.rotsort import (
     _stable_multikey_order,
     _tied_rows,
 )
+from tpulc_torch.codecs.bwt.rle import ALPHABET, rle2_decode, rle2_encode
 from tpulc_torch.primitives.mtf import mtf_decode, mtf_encode
 
 ANCHOR_STRIDE = 512
@@ -183,6 +184,41 @@ def forward_ranks_anchored(block: torch.Tensor, n: int,
     ranks = mtf_encode(last).to(torch.int32)
     idx = torch.arange(cap, device=block.device)
     return torch.where(idx < n, ranks, 0), idx0, anchors, ok
+
+
+def forward_masked_anchored(block: torch.Tensor, n: int,
+                            anchor_stride: int = ANCHOR_STRIDE):
+    """BWT + MTF + RLE2 for coder 1 -> (syms int32[cap], m int64 0-dim
+    (the RLE2 symbols of the first n bytes), idx0, hist int64[ALPHABET]
+    of syms[:m], anchors, ok).  Pads are MTF rank 255, each one literal
+    symbol, so m = m_all - (cap - n).  MTF runs K1, the start tables and
+    K2.  tpulc's histogram is a sort and a searchsorted; a bincount
+    gives the same integers."""
+    cap = block.shape[0]
+    last, idx0, anchors, ok = bwt_encode_masked_anchored(
+        block, n, anchor_stride)
+    idx = torch.arange(cap, device=block.device)
+    ranks = torch.where(idx < n, mtf_encode(last), 255).to(torch.uint8)
+    syms, m_all = rle2_encode(ranks)
+    m = m_all - (cap - n)
+    hist = torch.bincount(torch.where(idx < m, syms, ALPHABET),
+                          minlength=ALPHABET + 1)[:ALPHABET]
+    return syms, m, idx0, hist, anchors, ok
+
+
+def inverse_masked(syms: torch.Tensor, m: int, n: int, idx0: int):
+    """RLE2 -> MTF (K4) -> BWT inverse by pointer doubling -> uint8[cap]."""
+    ranks, _ = rle2_decode(syms, m)
+    return bwt_decode_masked(mtf_decode(ranks), n, idx0)
+
+
+def inverse_masked_anchored(syms: torch.Tensor, m: int, n: int,
+                            anchors: torch.Tensor,
+                            anchor_stride: int = ANCHOR_STRIDE):
+    """Anchored inverse pipeline: RLE2 -> MTF (K4) -> anchored IBWT."""
+    ranks, _ = rle2_decode(syms, m)
+    return bwt_decode_masked_anchored(mtf_decode(ranks), n, anchors,
+                                      anchor_stride)
 
 
 def inverse_ranks_anchored(ranks: torch.Tensor, n: int,

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "tplc_grc_walk_probs": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tplc_grc_reverse_rans": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tplc_grc_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "tplc_rans_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "tplc_rans_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: types.SimpleNamespace | None = None
@@ -138,6 +140,27 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_tensor(name: str, t, dtype, shape) -> None:
+    """A wrapper's argument check: t contiguous, of dtype, with shape
+    (None matches any size); raises ValueError."""
+    if t.dtype != dtype or not t.is_contiguous() or t.dim() != len(shape) \
+            or any(s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: need contiguous {dtype} of shape {shape}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+
+
+def device_of(*tensors):
+    """The one device of a wrapper's tensors, "cpu" or "cuda"; raises
+    ValueError for several devices or another kind."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def check(err: int, name: str) -> None:
