@@ -5,6 +5,7 @@
     python3 chip_smoke.py --walks [--root DIR]
     python3 chip_smoke.py --mtf [--root DIR]
     python3 chip_smoke.py --e1
+    python3 chip_smoke.py --st
 
 The second and third forms run one turn of a parent/change comparison
 with the tpulc_torch package under DIR (default: this checkout), e.g. a
@@ -13,7 +14,8 @@ change, parent.  `--walks`: K3, K7 and K8 device ms and the decode-only
 GB/s of every decoder at the huffman path's full width.  `--mtf`: K1
 and the start tables as that tree's `mtf_encode` calls them, device ms
 at the bz and soup shapes, and the bz and bsc -e2 compress MB/s.
-`--e1`: the card, the build and phase 9 alone.
+`--e1`: the card, the build and phase 9 alone; `--st`: the same for
+phase 10.
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -90,8 +92,20 @@ Phases (any failure exits non-zero before the last line is printed):
    once a block, K4 twice, each walk once a call, the card's container
    equal to the CPU path's on 50 KB, MB/s from warm repeats) and 100 MB
    of word soup at 25 MiB blocks (the same checks at 8,361,750 B, stage
-   times, peak device memory and a trace as in phase 8).  The script's
-   total seconds are printed before the last two lines.
+   times, peak device memory and a trace as in phase 8);
+10. bsc on the ST sorters (`ST_CELLS`: `-m st8`, `st8 -e2` and `st8w
+   -e2` on pg1661 x 6 at 4 MiB, `st8 -e2` and `st8w -e2` on one 25 MiB
+   block of bench.py's soup), counted as in phase 4: each container's
+   size, ratio and sha256 equal to tpulc's, an exact round trip, K1,
+   the start tables and K2 once a compress block, K4 twice a decompress
+   block, each coder walk once a call, the host inverse-ST walk once a
+   hybrid block; the adaptive coder's encode and decode walks
+   (csrc/abc.cu) against their plain versions on the arguments each
+   -e2 cell's run gave them, and K1, the start tables, K2 and K4 at
+   st8w's 409,600 chunks; stage times (the host walk's seconds a
+   block), peak device memory, MB/s (the hybrid soup cell decodes once,
+   under the profiler) and the soup cells' traces.  The script's total
+   seconds are printed before the last two lines.
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
@@ -154,6 +168,26 @@ BSC_E1_SHA256 = "12807218c93267d082dc1123e032925e186e0be902eb2d3e78d0cb5a1807046
 SOUP_E1_BYTES = 8_361_750
 SOUP_E1_RATIO = 11.959
 SOUP_E1_SHA256 = "c9ad5986f2de0a097b60446e9564a7beac0b4f944f50a174c7b33bb9cb9d4731"
+# bsc on the ST sorters (`-m st8`, `st8w`; `-e 1` and `-e 2`, the
+# adaptive binary coder) on pg1661 x 6 at 4 MiB and on one 25 MiB block
+# of bench.py's make_soup(26_214_400): tpulc's containers (JAX
+# reference, CPU run) -> (label, input, block, sorter, coder, bytes,
+# ratio, sha256)
+ST_SOUP_SIZE = 25 << 20
+ST_SOUP_SHA256 = "fec9871127e52845634d68da4111927e3006deb0a6092b5a2f223c1ae6b073f4"
+ST_CELLS = (
+    ("st8", "pg", BSC_BLOCK, "st8", 1, 176_455, 20.230,
+     "7c14c7e761e1432456dc70630c541570105901597a9acc98bea5699b15904937"),
+    ("st8_e2", "pg", BSC_BLOCK, "st8", 2, 168_249, 21.216,
+     "efb425baf67d981b511dc065355e1320cbd63e7da26d334a10bfc3ff78b48374"),
+    ("st8w_e2", "pg", BSC_BLOCK, "st8w", 2, 481_240, 7.418,
+     "36e5606936fa7b19299f59bb5495bec0a0276740846344db45c1e271054dac92"),
+    ("soup25_st8_e2", "soup", SOUP_BLOCK, "st8", 2, 2_140_816, 12.245,
+     "7968dfe488ef04da0eff5d59845ca0ca2062c0e7687d5a78f7f699a05b2aea84"),
+    ("soup25_st8w_e2", "soup", SOUP_BLOCK, "st8w", 2, 4_298_370, 6.099,
+     "7cf872d7b17bc9c378154f86bf50e0479bdcebacf0e4a337f1f8b37339c31195"),
+)
+ABC_SRC = "tpulc_torch/csrc/abc.cu"
 # the forward MTF's kernels, each launched once a compress block
 MTF_FORWARD = ("mtf_recency", "mtf_start_tables", "mtf_encode_lockstep")
 # the start-table kernel's tiles, swept (csrc/mtf.cu picks one by shape)
@@ -190,6 +224,12 @@ EMIT_OPS = 35
 # state update and the next context
 RANS_OPS = 35
 RANS_SRC = "tpulc_torch/csrc/rans_ctx.cu"
+# an adaptive-coder event: encode, the model read and adaptation (~10)
+# and a rANS step with its 32-bit divide (~35); decode, the FSM's model
+# id and transition (~25), the rANS step (~15), the adaptation (~10)
+# and the symbol's rebuild (~10)
+ABC_ENC_OPS = 45
+ABC_DEC_OPS = 60
 
 
 def require(cond: bool, msg: str) -> None:
@@ -282,7 +322,8 @@ def max_abs_err(torch, got, want) -> int:
 def check_kernels(torch, checks: list[dict]) -> list[dict]:
     """Each check (name, src, replaces, kern, plain, args, shape, ops,
     and optionally bytes, library, plain_reps) against its plain version
-    on the same card tensors.  `ms` is the wrapper's call between two
+    on the same card tensors (a plain version of plain_reps 1, a loop of
+    seconds, is timed on the one run that the equality reads).  `ms` is the wrapper's call between two
     CUDA events, `device_ms` the kernel alone (see `device_ms`).
     `bytes` defaults to every tensor argument read once plus the
     output written once; `library` is one PyTorch
@@ -291,15 +332,18 @@ def check_kernels(torch, checks: list[dict]) -> list[dict]:
     kernels = []
     for c in checks:
         kern, plain, args = c["kern"], c["plain"], c["args"]
-        got, want = kern(*args), plain(*args)
-        torch.cuda.synchronize()
+        got, reps = kern(*args), c.get("plain_reps", 5)
+        want = []
+        once_ms = time_ms(torch, lambda: want.append(plain(*args)), 1, False)
+        want = want[0]
         err = max_abs_err(torch, got, want)
         moved = c.get("bytes") or nbytes(list(args)) + nbytes(got)
         del got, want
         ms = time_ms(torch, lambda: kern(*args))
         dev_ms = device_ms(torch, lambda: kern(*args))
-        reps = c.get("plain_reps", 5)
-        plain_ms = time_ms(torch, lambda: plain(*args), reps, reps > 1)
+        # a plain version run once (plain_reps 1) is timed on that run
+        plain_ms = once_ms if reps == 1 else time_ms(
+            torch, lambda: plain(*args), reps)
         library_ms = None
         if c.get("library") is not None:
             library_ms = time_ms(torch, c["library"])
@@ -580,6 +624,8 @@ def main() -> int:
                     help="one turn of K1's and the start tables' comparison")
     ap.add_argument("--e1", action="store_true",
                     help="phase 9 alone (bsc -e1 on both cells)")
+    ap.add_argument("--st", action="store_true",
+                    help="phase 10 alone (bsc's ST sorters, both coders)")
     ap.add_argument("--root", default=None,
                     help="with --walks or --mtf: the checkout whose "
                          "tpulc_torch runs")
@@ -617,9 +663,9 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas {src}: {line.strip()}")
 
-    if opts.e1:
+    if opts.e1 or opts.st:
         kernels = []
-        bsc_e1_phase(torch, here, kernels)
+        (bsc_e1_phase if opts.e1 else st_phase)(torch, here, kernels)
         print(f"total: {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": kernels}))
         return 0
@@ -740,6 +786,7 @@ def main() -> int:
     huffman_phases(torch, here, dev, kernels)
     bsc_phases(torch, here, dev, kernels)
     bsc_e1_phase(torch, here, kernels)
+    st_phase(torch, here, kernels)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1475,13 +1522,208 @@ def bsc_e1_phase(torch, here: str, kernels: list) -> None:
         print(json.dumps({label: res}), flush=True)
 
 
-def mtf_soup_entries(torch, ranks) -> list:
-    """K1, the start tables, K2 and K4 at the bsc soup shape: the first
-    25 MiB block's MTF ranks int32[cap] as 204,800 chunks of 128, its
-    BWT output recovered through `mtf_decode`, K1 and the start tables
-    as the forward path calls them.  The plain K2 and K4 run once (~0.3
-    s each).  Also prints K2's walk and every K4, K1 and start-table
-    build at this shape."""
+def spying(targets: list, fn):
+    """Run fn() with each (module, name) of `targets` wrapped to record
+    the positional arguments of its last call -> (fn(), {name: args}).
+    For wrappers that count their launches on another module's function
+    object (the call site imported them), so the counts are untouched."""
+    calls, origs = {}, [(m, n, getattr(m, n)) for m, n in targets]
+
+    def spy_of(name, orig):
+        def spy(*args):
+            calls[name] = args
+            return orig(*args)
+        return spy
+
+    for m, n, f in origs:
+        setattr(m, n, spy_of(n, f))
+    try:
+        out = fn()
+    finally:
+        for m, n, f in origs:
+            setattr(m, n, f)
+    return out, calls
+
+
+def abc_checks(ak, enc: tuple, dec: tuple, suffix: str) -> list:
+    """`check_kernels` entries of the adaptive coder's walks on the
+    arguments the path gave them.  Bytes: the events read (one byte
+    each, the grid's filled entries), the lane vectors and inits, the
+    words written and the counts and states (encode); the words read,
+    the lane vectors, the symbols written (decode).  Operations
+    ABC_ENC_OPS / ABC_DEC_OPS an event."""
+    grid, nbits, inits, lcap = enc
+    W, L = grid.shape
+    events = int(nbits.sum())
+    nwords = int(ak.abc_encode_walk(*enc)[1].sum())
+    words, chunk = dec[0], dec[7]
+    Ld = words.shape[0]
+    return [
+        dict(name=f"abc_encode_walk{suffix}", src=ABC_SRC,
+             replaces="tpulc/codecs/bsclike/rans_adaptive.py:228-311 (XLA "
+                      "fori_loops, no pallas_call)",
+             kern=ak.abc_encode_walk, plain=ak.abc_encode_walk_plain,
+             args=enc, shape=f"{W}x{L}",
+             bytes=events + 4 * L + 4 * inits.numel() + 2 * nwords + 16 * L,
+             ops=ABC_ENC_OPS * events, plain_reps=1),
+        dict(name=f"abc_decode_walk{suffix}", src=ABC_SRC,
+             replaces="tpulc/codecs/bsclike/rans_adaptive.py:314-445 (XLA "
+                      "fori_loop, no pallas_call)",
+             kern=ak.abc_decode_walk, plain=ak.abc_decode_walk_plain,
+             args=dec, shape=f"{Ld}x{words.shape[1]}",
+             bytes=2 * nwords + 16 * Ld + 4 * inits.numel()
+             + 4 * Ld * chunk, ops=ABC_DEC_OPS * events, plain_reps=1),
+    ]
+
+
+def st_phase(torch, here: str, kernels: list) -> None:
+    """Phase 10: bsc on the ST sorters through get_codec("bsc"), counted
+    as in phase 4, on the five cells of ST_CELLS: each container's size,
+    ratio and sha256 equal to tpulc's, an exact round trip, K1, the
+    start tables and K2 once a compress block, K4 twice a decompress
+    block, each coder walk once a call, the host walk once a hybrid
+    block.  The adaptive coder's walks are held against their plain
+    versions on the arguments each `-e2` cell's run gave them, and K1,
+    the start tables, K2 and K4 at st8w's soup shape (409,600 chunks).
+    The hybrid soup cell decodes once, under the profiler (its host
+    walk takes a minute); the others run warm repeats.  Appends every
+    entry to `kernels`."""
+    from tpulc_torch.codecs.bsclike import abc_kernels as ak
+    from tpulc_torch.codecs.bsclike import rans
+    from tpulc_torch.codecs.bsclike import rans_adaptive as ra
+    from tpulc_torch.gold import st_inverse as sti
+    from tpulc_torch.pipeline.container import Container
+    from tpulc_torch.pipeline.registry import get_codec
+    from tpulc_torch.primitives import mtf as mtf_mod
+    from tpulc_torch.primitives import mtf_kernels as mk
+    from tpulc_torch.utils import timing
+
+    bsc = get_codec("bsc")
+    inputs = {"pg": corpus(here), "soup": soup(ST_SOUP_SIZE)}
+    require(hashlib.sha256(inputs["soup"]).hexdigest() == ST_SOUP_SHA256,
+            "the 25 MiB soup differs from bench.py's make_soup")
+    small = inputs["pg"][:50_000]
+    on_card = bsc.compress(small, block_size=1 << 16, sorter="st8", coder=2,
+                           device="cuda")
+    require(on_card == bsc.compress(small, block_size=1 << 16, sorter="st8",
+                                    coder=2, device="cpu"),
+            "bsc -m st8 -e2 card and CPU containers differ")
+    require(bsc.decompress(on_card, device="cpu") == small,
+            "the CPU fails to decode the card's st8 -e2 container")
+    for (label, src, block, sorter, coder, size, want_ratio,
+         want_sha) in ST_CELLS:
+        data = inputs[src]
+        walks = ((ak.abc_encode_walk, ak.abc_decode_walk) if coder == 2
+                 else (rans.rans_encode_walk, rans.rans_decode_walk))
+        path = {k: getattr(mk, k) for k in (*MTF_FORWARD, "mtf_lockstep")}
+        path.update((w.__name__, w) for w in walks)
+        path["st_inverse"] = sti.st_inverse
+        hybrid = sorter != "st8w"
+        one_decode = src == "soup" and hybrid
+        compress = partial(bsc.compress, data, block_size=block,
+                           sorter=sorter, coder=coder, device="cuda")
+
+        def decompress(c):
+            return bsc.decompress(c, device="cuda")
+
+        res = {}
+
+        def round_trip():
+            c, tc = synced(torch, compress)
+            if one_decode:
+                keep = []
+                res["trace_decompress"] = traced(
+                    torch, lambda: decompress(c), keep)
+                return c, keep[0], tc, res["trace_decompress"]["wall_s"]
+            back, td = synced(torch, lambda: decompress(c))
+            return c, back, tc, td
+
+        timer = timing.enable()
+        torch.cuda.reset_peak_memory_stats()
+        ((comp, back, tc, td), dt, counts), calls = spying(
+            [(ra, "abc_encode_walk"), (ra, "abc_decode_walk"),
+             (mtf_mod, "mtf_encode_lockstep")],
+            lambda: counted(torch, path, round_trip))
+        stages = timer.report(total_bytes=len(data))
+        timing.disable()
+        peak = torch.cuda.max_memory_allocated()
+        sha = hashlib.sha256(comp).hexdigest()
+        ratio = len(data) / len(comp)
+        nblocks = len(Container.from_bytes(comp).payloads)
+        print(f"{label}: compress {tc:.3f} s, decompress {td:.3f} s, "
+              f"{len(comp)} B, {nblocks} blocks, sha256 {sha}, launches "
+              f"{counts}", flush=True)
+        require(back == data, f"{label}: round trip is not exact")
+        require(len(comp) == size, f"{label}: {len(comp)} B != {size}")
+        require(round(ratio, 3) == want_ratio,
+                f"{label}: ratio {ratio} != {want_ratio}")
+        require(sha == want_sha, f"{label}: container differs from tpulc's")
+        require(all(counts[k] == nblocks for k in MTF_FORWARD)
+                and counts["mtf_lockstep"] == 2 * nblocks,
+                f"{label}: K1, the start tables, K2 not once and K4 not "
+                f"twice per block: {counts}")
+        require(all(counts[w.__name__] == 1 for w in walks),
+                f"{label}: the coder's walks not once a call: {counts}")
+        require(counts["st_inverse"] == (nblocks if hybrid else 0),
+                f"{label}: the host walk not once a hybrid block: {counts}")
+        walk_s = stages.get("bsc.unsort.walk", {}).get("seconds", 0.0)
+        res.update({
+            "input_bytes": len(data), "block_size": block,
+            "sorter": sorter, "coder": coder, "blocks": nblocks,
+            "container_bytes": len(comp), "ratio": ratio, "sha256": sha,
+            "sha256_equals_tpulc": sha == want_sha, "launches": counts,
+            "first_compress_s": tc, "first_decompress_s": td,
+            "stages_first_run": stages,
+            "host_walk_s_a_block": walk_s / nblocks if hybrid else None,
+            "peak_mem_bytes": peak})
+        entries = []
+        if coder == 2:
+            entries = check_kernels(torch, abc_checks(
+                ak, calls["abc_encode_walk"], calls["abc_decode_walk"],
+                "@" + label))
+        if label == "soup25_st8w_e2":
+            table0, d = calls["mtf_encode_lockstep"]
+            ranks = mk.mtf_encode_lockstep(table0, d)[0].reshape(-1)
+            del table0, d
+            entries += mtf_soup_entries(torch, ranks, "@st8w", builds=False)
+            del ranks
+        for e in entries:
+            e["launches"] = counts[e["name"].split("@")[0]]
+        kernels += entries
+        res["kernels"] = entries
+        del calls
+        if one_decode:
+            cs = [synced(torch, compress) for _ in range(3)]
+            require(all(c == comp for c, _ in cs),
+                    f"{label}: compress is not deterministic")
+            c_s = statistics.median(t for _, t in cs)
+            mb = len(data) / 1e6
+            res.update({"compress_s": c_s, "decompress_s": td,
+                        "compress_MBps": mb / c_s, "decompress_MBps": mb / td,
+                        "roundtrip_MBps": mb / (c_s + td),
+                        "timing": "compress: median of 3 warm runs; "
+                                  "decompress: the one counted run, under "
+                                  "the profiler; host clock, synchronized"})
+        else:
+            res.update(warm_runs(torch, compress, decompress, data,
+                                 3 if dt < 60 else 1))
+        if src == "soup":
+            res["trace_compress"] = traced(torch, compress)
+            if not one_decode:
+                res["trace_decompress"] = traced(
+                    torch, lambda: decompress(comp))
+        print(json.dumps({label: res}), flush=True)
+
+
+def mtf_soup_entries(torch, ranks, suffix: str = "@soup",
+                     builds: bool = True) -> list:
+    """K1, the start tables, K2 and K4 at a bsc soup shape: a 25 MiB
+    block's MTF ranks int32[cap] as chunks of 128 (204,800 after the
+    BWT; 409,600 for st8w's last column and next-char stream), its
+    sorted stream recovered through `mtf_decode`, K1 and the start
+    tables as the forward path calls them.  The plain K2 and K4 run
+    once (~0.3 s each at 204,800 chunks).  With `builds`, also prints
+    K2's walk and every K4, K1 and start-table build at this shape."""
     from tpulc_torch import cuda_lib
     from tpulc_torch.primitives import mtf_kernels as mk
     from tpulc_torch.primitives.mtf import mtf_decode
@@ -1496,24 +1738,26 @@ def mtf_soup_entries(torch, ranks) -> list:
     shape = "x".join(map(str, d.shape))
     src = "tpulc_torch/csrc/mtf.cu"
     entries = check_kernels(torch, [
-        *mtf_pair_checks(mk, d, rec, part, tile, "@soup",
+        *mtf_pair_checks(mk, d, rec, part, tile, suffix,
                          k1_library(torch, d)),
-        dict(name="mtf_encode_lockstep@soup", src=src,
+        dict(name="mtf_encode_lockstep" + suffix, src=src,
              replaces="tpulc/primitives/mtf_pallas.py:156",
              kern=mk.mtf_encode_lockstep,
              plain=mk.mtf_encode_lockstep_plain, args=(table0, d),
              shape=shape, ops=int((2 * r.long() + 2).sum()), plain_reps=1),
-        dict(name="mtf_lockstep@soup", src=src,
+        dict(name="mtf_lockstep" + suffix, src=src,
              replaces="tpulc/primitives/mtf_pallas.py:89",
              kern=mk.mtf_lockstep, plain=mk.mtf_lockstep_plain,
              args=(table0, r), shape=shape, ops=k4_ops(r), plain_reps=1),
     ])
-    k4 = k4_variants(torch, mk, cuda_lib, table0, r,
-                     mk.mtf_lockstep_plain(table0, r))
-    entries[-1]["calls"] = {t: k4[t] for t in ("perm", "syms")}
     for e in entries:
         e["shape"] = shape
         e["ns_per_step"] = e["device_ms"] * 1e6 / d.shape[1]
+    if not builds:
+        return entries
+    k4 = k4_variants(torch, mk, cuda_lib, table0, r,
+                     mk.mtf_lockstep_plain(table0, r))
+    entries[-1]["calls"] = {t: k4[t] for t in ("perm", "syms")}
     print(json.dumps({"soup_shape_builds": {
         "k2": k2_walk(torch, cuda_lib, table0, d, entries[2]["device_ms"]),
         "start_tables": start_tiles(torch, mk, cuda_lib, d,
@@ -1560,17 +1804,20 @@ def resident_blocks(nl: int) -> int:
     return 233_472 // (2 * 1221 * (nl + 1) + 1024)
 
 
-def traced(torch, fn) -> dict:
+def traced(torch, fn, keep: list | None = None) -> dict:
     """One run of fn under torch.profiler: host wall, device-busy time
     (the union of the device events' intervals: kernels and copies) and
-    share, and the ten largest device times by name."""
+    share, and the ten largest device times by name; fn's output is
+    appended to `keep` when one is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = synced(torch, fn)
+        out, wall = synced(torch, fn)
+    if keep is not None:
+        keep.append(out)
     spans, by_name = [], {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:

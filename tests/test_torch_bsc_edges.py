@@ -1,9 +1,9 @@
 """The port's bsc `-e2` codec on the edges, against tpulc: random bytes
 (stored), one byte and empty give tpulc's containers and cross-decode;
-a flipped byte raises; what is not ported yet (the ST sorters, tpulc's
-ST-sorted payloads) raises NotImplementedError, and a coder compress
-does not take raises ValueError.  Coder 1's edges are in
-`test_torch_bsc_e1.py`."""
+a flipped byte raises; the ST sorters, once refused, now compress and
+decode tpulc's ST containers, and a coder compress does not take raises
+ValueError.  Coder 1's edges are in `test_torch_bsc_e1.py`, the ST
+sorters' in `test_torch_bsc_st.py`."""
 
 import numpy as np
 import pytest
@@ -73,15 +73,19 @@ def test_hostile_lane_count_raises():
 
 
 def test_not_ported_yet_raises():
+    """What this test once refused (the ST sorters, both coders, and
+    tpulc's ST containers) now works; coder 4 still raises."""
     data = _pg(5000)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pd.compress(data, block_size=65536, coder=2, sorter="st8",
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pd.compress(data, block_size=65536, sorter="st4", device="cpu")
+    st8_e2 = pd.compress(data, block_size=65536, coder=2, sorter="st8",
+                         device="cpu")
+    assert st8_e2 == td.compress(data, block_size=65536, coder=2,
+                                 sorter="st8")
+    assert pd.decompress(st8_e2, device="cpu") == data
+    st4 = pd.compress(data, block_size=65536, sorter="st4", device="cpu")
+    assert pd.decompress(st4, device="cpu") == data
     theirs = td.compress(data, block_size=65536, sorter="st4")  # coder 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pd.decompress(theirs, device="cpu")
+    assert st4 == theirs
+    assert pd.decompress(theirs, device="cpu") == data
     # tpulc writes a coder-1 container here; the port refuses the value
     with pytest.raises(ValueError, match="coder 1 or 2"):
         pd.compress(data, block_size=65536, coder=4, device="cpu")

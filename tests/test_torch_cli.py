@@ -1,6 +1,7 @@
 """The port's CLI against tpulc's: given tpulc's argv (no -c, no -b: both
 default to huffman with 1 MiB blocks; `-c bz -b 65536`; `-c bsc -b
-65536` with bsc's default `-e 1`; `-c bsc -e 2 -b 65536`), it writes
+65536` with bsc's default `-e 1`; `-c bsc -e 2 -b 65536`; the same two
+on the ST-8 sorter, `-m st8`), it writes
 tpulc's bytes, and `info` reports the same on either package's output.
 The port's argv adds `--device cpu`, its only option tpulc lacks,
 because this check runs without a card."""
@@ -18,8 +19,12 @@ torch.set_num_threads(1)
 
 @pytest.mark.parametrize("extra", [[], ["-c", "bz", "-b", "65536"],
                                    ["-c", "bsc", "-b", "65536"],
-                                   ["-c", "bsc", "-e", "2", "-b", "65536"]],
-                         ids=["defaults", "bz", "bsc_e1", "bsc_e2"])
+                                   ["-c", "bsc", "-e", "2", "-b", "65536"],
+                                   ["-c", "bsc", "-m", "st8", "-b", "65536"],
+                                   ["-c", "bsc", "-m", "st8", "-e", "2", "-b",
+                                    "65536"]],
+                         ids=["defaults", "bz", "bsc_e1", "bsc_e2",
+                              "bsc_st8", "bsc_st8_e2"])
 def test_same_argv_same_bytes(tmp_path, capsys, extra):
     src = tmp_path / "in.txt"
     with open("tests/data/pg1661.txt", "rb") as f:

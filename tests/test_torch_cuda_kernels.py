@@ -720,3 +720,84 @@ def test_rans_walks_equal_plain(cuda, name):
     assert torch.equal(torch.where(valid, rans.rans_decode_walk_plain(
         words, states, fctx, nsym, lut, fc, nlanes), 0),
         torch.where(valid, (idx % 257).T, 0))
+
+
+def _abc_case(name):
+    """Adaptive-coder walk arguments as `abc_encode` builds them: the
+    event grid and lane bit counts of B blocks' symbols, and each
+    block's initial probabilities -> (grid, nbits, inits, lcap, syms,
+    ms, lane_cls)."""
+    from tpulc_torch.codecs.bsclike import rans_adaptive as ra
+
+    rng = np.random.default_rng({"one": 1, "three": 3, "empty_lane": 5,
+                                 "lanes40": 40}[name])
+    B, lcap, ms = {"one": (1, 4, [3333]),
+                   "three": (3, 2, [2048, 701, 1537]),
+                   "empty_lane": (2, 3, [2048, 0]),
+                   "lanes40": (4, 10, [10240, 9000, 77, 5000])}[name]
+    syms = np.minimum(rng.geometric(0.3, size=(B, lcap * ra.ACHUNK)) - 1,
+                      256).astype(np.int32)
+    syms[0, :40] = 256  # the longest binarization, 16 events
+    syms = torch.from_numpy(syms)
+    ones, tot, lane_bits, lane_cls = ra.abc_stats(syms, ms)
+    inits = torch.from_numpy(ra.quantize_inits(ones.numpy(), tot.numpy())
+                             .astype(np.int32))
+    W = ra.bucket_bits(max(int(lane_bits.max()), 1))
+    grid, nbits = ra.event_grid(syms, ms, W)
+    return grid, nbits, inits, lcap, syms, ms, lane_cls.to(torch.int32)
+
+
+@pytest.mark.parametrize("name", ["one", "three", "empty_lane", "lanes40"])
+def test_abc_walks_equal_plain(cuda, name):
+    """The adaptive coder's encode and decode kernels against their
+    plain versions: 4 to 40 lanes, an empty lane and an empty block,
+    the decode from true and random states and at nsteps 0."""
+    from tpulc_torch.codecs.bsclike import abc_kernels as ak
+    from tpulc_torch.codecs.bsclike import rans_adaptive as ra
+
+    grid, nbits, inits, lcap, syms, ms, lane_cls = _abc_case(name)
+    want = ak.abc_encode_walk_plain(grid, nbits, inits, lcap)
+    n = ak.abc_encode_walk.launches
+    got = ak.abc_encode_walk(grid.to(cuda), nbits.to(cuda), inits.to(cuda),
+                             lcap)
+    torch.cuda.synchronize()
+    assert ak.abc_encode_walk.launches == n + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    words, counts, states = want
+    nsym = ra._lane_counts(ms, len(ms), lcap, ra.ACHUNK, torch.device("cpu"))
+    hostile = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 1 << 32, states.shape[0], dtype=np.uint64).astype(np.int64))
+    nsteps = int(nbits.max())
+    for st, steps in ((states, nsteps), (hostile, nsteps), (states, 0)):
+        args = (words, st, lane_cls, nsym, inits, lcap, steps, ra.ACHUNK)
+        plain = ak.abc_decode_walk_plain(*args)
+        n = ak.abc_decode_walk.launches
+        dec = ak.abc_decode_walk(*(a.to(cuda) if torch.is_tensor(a) else a
+                                   for a in args))
+        torch.cuda.synchronize()
+        assert ak.abc_decode_walk.launches == n + 1
+        assert torch.equal(dec.cpu(), plain)
+    valid = torch.arange(ra.ACHUNK)[None, :] < nsym[:, None].to(torch.int64)
+    dec = ak.abc_decode_walk_plain(words, states, lane_cls, nsym, inits,
+                                   lcap, nsteps, ra.ACHUNK)
+    assert torch.equal(torch.where(valid, dec, 0), torch.where(
+        valid, syms.reshape(-1, ra.ACHUNK), 0))
+
+
+@pytest.mark.parametrize("sorter,coder", [("st3", 1), ("st5", 2),
+                                          ("st8", 2), ("st8w", 1),
+                                          ("st8w", 2)])
+def test_bsc_st_on_card_matches_cpu(cuda, sorter, coder):
+    """The card writes the CPU path's bsc bytes on the ST sorters, and
+    each decodes the other's."""
+    from tpulc_torch.codecs.bsclike import driver as bsc
+
+    with open("tests/data/pg1661.txt", "rb") as f:
+        data = f.read()[:150000]
+    kw = dict(block_size=1 << 16, sorter=sorter, coder=coder)
+    on_card = bsc.compress(data, device="cuda", **kw)
+    on_cpu = bsc.compress(data, device="cpu", **kw)
+    assert on_card == on_cpu
+    assert bsc.decompress(on_card, device="cuda") == data
+    assert bsc.decompress(on_card, device="cpu") == data

@@ -1,6 +1,6 @@
 """The port stands alone: importing every tpulc_torch module (the bsc
-slice's `gold/lzp.py`, `codecs/bsclike/*` and `codecs/bwt/masked.py`
-among them) pulls in neither jax nor triton nor tpulc (the card's
+slices' `gold/lzp.py`, `gold/st_inverse.py`, `codecs/bsclike/*`,
+`codecs/bwt/masked.py` and `codecs/bwt/stk.py` among them) pulls in neither jax nor triton nor tpulc (the card's
 machine has no jax) and builds nothing, and asking for CUDA without a
 card raises instead of running on the CPU."""
 
@@ -30,7 +30,8 @@ bad = sorted(k for k in sys.modules
 print("BAD", bad)
 print("BUILT", tpulc_torch.cuda_lib._lib is not None)
 import tpulc_torch.gold.lzp as lzp
-print("LZP_BUILT", lzp._lib is not None)
+import tpulc_torch.gold.st_inverse as st_inverse
+print("LZP_BUILT", lzp._lib is not None or st_inverse._lib is not None)
 print("MODULES", sorted(m.name for m in pkgutil.walk_packages(
     tpulc_torch.__path__, "tpulc_torch.")))
 """
@@ -40,7 +41,10 @@ BSC_SLICE = ["tpulc_torch.gold.lzp", "tpulc_torch.codecs.bsclike.driver",
              "tpulc_torch.codecs.bsclike.grc",
              "tpulc_torch.codecs.bsclike.grc_kernels",
              "tpulc_torch.codecs.bsclike.rans",
-             "tpulc_torch.codecs.bwt.masked"]
+             "tpulc_torch.codecs.bsclike.rans_adaptive",
+             "tpulc_torch.codecs.bsclike.abc_kernels",
+             "tpulc_torch.gold.st_inverse", "tpulc_torch.gold.build",
+             "tpulc_torch.codecs.bwt.masked", "tpulc_torch.codecs.bwt.stk"]
 
 
 def test_import_pulls_in_no_jax_triton_or_tpulc():

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from tpulc.gold import lzp as tlzp
+from tpulc_torch.gold import build
 from tpulc_torch.gold import lzp as plzp
 
 torch.set_num_threads(1)
@@ -50,5 +51,5 @@ def test_lzp_decode_rejects_a_short_stream():
 
 def test_lzp_library_is_built_from_the_port_sources():
     plzp._load()
-    assert plzp._so_path().startswith(plzp._BUILD)
+    assert build.so_path(plzp._SRC).startswith(build._BUILD)
     assert "tpulc_torch" in plzp._SRC and "libtpulc_gold" not in plzp._SRC

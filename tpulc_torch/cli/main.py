@@ -3,16 +3,18 @@
 Usage:
     python -m tpulc_torch.cli compress   [-c huffman] -i IN -o OUT [-b 1048576]
                                          [--device cuda|cpu] [--timings]
-                                         [bsc: -e 1|2 --no-lzp --filter F]
+                                         [bsc: -m bwt|st3..st8|st8w -e 1|2
+                                          --no-lzp --filter F]
     python -m tpulc_torch.cli decompress -i IN -o OUT [--device cuda|cpu]
     python -m tpulc_torch.cli info       -i IN
 
 The container is tpulc's and so are the defaults (huffman, 1 MiB
 blocks), so either CLI decodes what the other wrote, and the same
 codec arguments write the same bytes.  Ported: huffman, bz, store and
-bsc on the BWT sorter, with either coder (`-e 1`, the default, or `-e
-2`); asking for anything else (another codec, an ST sorter) exits with
-status 2 and names the ROADMAP item that ports it.
+bsc on every sorter (`-m bwt`, the default, `st3`..`st8`, `st8w`) with
+either coder (`-e 1`, the default, or `-e 2`); asking for another codec
+(lzss, culzss, bzip2) exits with status 2 and names the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -44,15 +46,19 @@ def _parse(argv):
     c.add_argument("-m", "--sorter", default="bwt",
                    choices=["bwt", "st3", "st4", "st5", "st6", "st7", "st8",
                             "st8w"],
-                   help="bsc: block sorter (only bwt is ported)")
+                   help="bsc: block sorter — bwt (the default), ST-k "
+                        "(st3..st8, inverse walk on the host) or st8w "
+                        "(ST-8 with its next-char stream, inverse on the "
+                        "device)")
     c.add_argument("--filter", default="none", dest="filter_mode",
                    help="bsc: preprocessing filter "
                         "(none|reverse|reorder:N|auto); `none` passes "
                         "nothing, so the codec's default `auto` applies")
     c.add_argument("-e", "--coder", type=int, default=1, choices=[1, 2],
                    help="bsc: entropy coder — 1 static order-2 context "
-                        "rANS (the default), 2 the group-rank coder (best "
-                        "ratio)")
+                        "rANS (the default), 2 the best-ratio coder (the "
+                        "group-rank coder on bwt, the adaptive binary "
+                        "coder on an ST sorter)")
     d = sub.add_parser("decompress")
     d.add_argument("-i", "--input", required=True)
     d.add_argument("-o", "--output", required=True)

@@ -1,27 +1,34 @@
-"""bsc-class large-block codec on the BWT sorter (port of
+"""bsc-class large-block codec (port of
 `tpulc/codecs/bsclike/driver.py`; the same container and payload
 bytes).
 
 Compress: the entropy-model segmentation gate, the filter choice, host
-LZP (`gold/lzp.c`), the masked BWT + anchors and MTF on the block's
-device (`bwt/masked.py`: K1, the start tables, K2), then one of two
-coders, or the stored fallback when coding does not shrink the block:
+LZP (`gold/lzp.c`), a block sorter on the block's device, then one of
+three coders, or the stored fallback when coding does not shrink the
+block.  Sorters (libbsc's `-m`): the masked BWT with anchors
+(`bwt/masked.py`, the default), or ST-k for k = 3..8 (`bwt/stk.py`, one
+stable sort), or `st8w`, ST-8 with the next-char stream F coded after
+the last column so that the inverse runs on the device.  MTF runs K1,
+the start tables and K2 on either.  Coders (libbsc's `-e`):
 - coder 1 (`-e1`, the default): RLE2, order-2 context statistics and
-  the static context rANS (`rans.py`).  Blocks that no segmentation
-  splits are batched as tpulc batches them: LZP in two worker threads,
-  every block transformed at one common capacity, one pull of the small
-  outputs, one encode of all blocks' lanes, one compaction of the words;
-- coder 2 (`-e2`): the group-rank coder (`grc.py`: K5 and the
-  emission), block by block; its payloads carry coder byte 4.
+  the static context rANS (`rans.py`);
+- coder 2 (`-e2`): on the BWT, the group-rank coder (`grc.py`: K5 and
+  the emission; payload coder byte 4); on an ST sorter, the adaptive
+  binary coder over the RLE2 symbols (`rans_adaptive.py`, its walks in
+  `csrc/abc.cu`; coder byte 2).
+Blocks that no segmentation splits are batched as tpulc batches them,
+except the group-rank coder and `st8w`, which go block by block: LZP in
+two worker threads, every block transformed at one common capacity,
+one pull of the small outputs, one encode of all blocks' lanes, one
+compaction of the words.
 Decompress: coder-1 blocks in one batched decode of all their lanes,
-then RLE2 decode, MTF decode (K4) and the anchored masked inverse BWT
-(or pointer doubling for anchor-less blocks); group-rank blocks through
-K6, MTF decode and the same inverse; then LZP decode and the inverse
-filter on the host.
-
-Not ported yet, raising `NotImplementedError` that names its ROADMAP
-item: the ST sorters and `CODER_ABC` payloads (`rans_adaptive.py`,
-`bwt/stk.py`, item 10c).
+adaptive-coder blocks in another; then RLE2 decode and MTF decode (K4)
+and the sorter's inverse: the anchored masked inverse BWT (or pointer
+doubling for anchor-less blocks); for ST-k the context keys on the
+device and the serial walk on the host (`gold/st_inverse.c`); for
+`st8w` the predecessor permutation and pointer doubling on the device.
+Group-rank blocks go through K6, MTF decode and the inverse BWT; then
+LZP decode and the inverse filter on the host.
 
 Per-block payload (little-endian), as tpulc writes it:
 
@@ -32,9 +39,10 @@ Per-block payload (little-endian), as tpulc writes it:
     nwords      u32   total rANS u16 words (segment count when segmented)
     flags       u8    bit0 LZP applied; bit1 stored raw; bit2 order-2
                       context model (always set by coder 1); bit3
-                      anchors; bits4-6 sorter (0 = BWT); bit7 filter byte
-    coder       u8    1 = static context rANS, 4 = group-rank coder,
-                      3 = segmented wrapper
+                      anchors; bits4-6 sorter (0 = BWT, k-2 = ST-k, 7 =
+                      st8w); bit7 filter byte
+    coder       u8    1 = static context rANS, 2 = adaptive binary
+                      rANS, 4 = group-rank coder, 3 = segmented wrapper
     [filter     u8    when flags bit7]
     [anchors    ceil(log2(cap))-bit-packed, ceil(m_lzp/1024)   when bit3]
   coder 1:
@@ -42,12 +50,17 @@ Per-block payload (little-endian), as tpulc writes it:
                 context a 33-byte bitmap of its symbols + u16 per symbol
     nlanes      u32
     first_ctx   5-bit-packed context id entering each lane
+  coder 2:
+    inits       NMODELS * u16  initial model probabilities
+    maxbits     u32   deepest lane's bit count (decode loop bound)
+    nlanes      u32
+    lane_cls    5-bit-packed context classes entering each lane
   coder 4:
     inits       NM-bit bitmap of used models + u16 per used model
     cinits      u16 * NFAM
     maxbits     u32   deepest lane's event count (decode loop bound)
     nlanes      u32
-  both:
+  all three:
     counts      u16 * nlanes   per-lane word counts
     states      u32 * nlanes   final rANS states
     words       u16 * nwords   per-lane streams back to back
@@ -57,6 +70,7 @@ from __future__ import annotations
 
 import struct
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 import torch
@@ -70,6 +84,16 @@ from tpulc_torch.codecs.bsclike.filters import (
     invert_filter_np,
 )
 from tpulc_torch.codecs.bsclike.grc_kernels import grc_decode_walk
+from tpulc_torch.codecs.bsclike.rans_adaptive import (
+    ACHUNK,
+    MAX_SYM_BITS,
+    NMODELS,
+    abc_decode,
+    abc_encode,
+    abc_stats,
+    bucket_bits,
+    quantize_inits,
+)
 from tpulc_torch.codecs.bsclike.rans import (
     CHUNK,
     NCTX,
@@ -90,20 +114,24 @@ from tpulc_torch.codecs.bwt.masked import (
     inverse_ranks,
     inverse_ranks_anchored,
 )
-from tpulc_torch.codecs.bwt.rle import ALPHABET
+from tpulc_torch.codecs.bwt.rle import ALPHABET, rle2_decode, rle2_encode
+from tpulc_torch.codecs.bwt.stk import (
+    st_decode,
+    st_decode_device_masked,
+    st_encode_masked,
+    st_encode_with_next_masked,
+)
 from tpulc_torch.device import resolve
 from tpulc_torch.gold.lzp import lzp_decode, lzp_encode
 from tpulc_torch.pipeline.container import Container
 from tpulc_torch.pipeline.registry import CODEC_BSC
 from tpulc_torch.primitives.bits import pack_fields_np, unpack_fields_np
 from tpulc_torch.primitives.checksum import adler32_np
+from tpulc_torch.primitives.mtf import mtf_decode, mtf_encode
 from tpulc_torch.utils import timing
 
 DEFAULT_BLOCK = 25 * 1024 * 1024
 ANCHOR_STRIDE = 1024  # bsc blocks are large; halve anchor count
-# lane size of tpulc's adaptive coder (rans_adaptive.ACHUNK): block
-# capacities and transform buckets tile to it and to rans.CHUNK
-ACHUNK = 1024
 
 _HEAD = struct.Struct("<IIIIIBB")  # ..., flags, coder
 # coder byte (libbsc's `-e` switch): 1 = static order-2 context rANS,
@@ -119,12 +147,12 @@ FLAG_LZP = 1
 FLAG_STORED = 2
 FLAG_CTX = 4
 FLAG_ANCHORS = 8
+# bits 4-6: the sorter (libbsc's `-m`), 0 = BWT, k-2 = ST-k (k = 3..8),
+# 7 = st8w (ST-8 with the wired next-char stream)
 SORTER_SHIFT = 4
 SORTER_MASK = 0x7 << SORTER_SHIFT
 FLAG_FILTER = 0x80
-FCTX_BITS = 5  # context ids < NCTX = 32
-
-_ST = "ROADMAP queue 1 item 10c (bsc ST sorters: bwt/stk.py, rans_adaptive.py)"
+FCTX_BITS = 5  # context ids < NCTX = 32; adaptive lane classes < 32 too
 
 
 def _filter_byte_for(block: np.ndarray, filter_mode: str) -> int:
@@ -143,6 +171,31 @@ def _filter_byte_for(block: np.ndarray, filter_mode: str) -> int:
                      "(none, reverse, reorder:N, auto)")
 
 
+def _sorter_k(name: str) -> tuple[int, bool]:
+    """'bwt' -> (0, False); 'st3'..'st8' -> (k, False); 'st8w' -> (8,
+    True); anything else raises ValueError."""
+    if name == "bwt":
+        return 0, False
+    if name == "st8w":
+        return 8, True
+    if name.startswith("st") and name[2:] in ("3", "4", "5", "6", "7", "8"):
+        return int(name[2:]), False
+    raise ValueError(f"unknown sorter {name!r} (bwt, st3..st8, st8w)")
+
+
+def _sorter_flag_bits(k_sort: int, wired: bool = False) -> int:
+    if wired:
+        return 7 << SORTER_SHIFT
+    return ((k_sort - 2) << SORTER_SHIFT) if k_sort else 0
+
+
+def _sorter_k_of_flags(flags: int) -> tuple[int, bool]:
+    c = (flags & SORTER_MASK) >> SORTER_SHIFT
+    if c == 7:
+        return 8, True
+    return (c + 2, False) if c else (0, False)
+
+
 def _cap_for(block_size: int) -> int:
     q = max(64, CHUNK, ACHUNK)
     return -(-block_size // q) * q
@@ -158,10 +211,23 @@ def _tcap_for(nbytes: int, cap: int) -> int:
     return min(t, cap)
 
 
+def _dcap_of(m: int, m_lzp: int, flags: int, cap: int) -> int:
+    """A payload's decode-side transform capacity (tpulc `:693-697`):
+    wired ST streams code 2 * m_lzp bytes (last || F) at up to 2 * cap.
+    Raises ValueError when its counts do not fit it."""
+    if _sorter_k_of_flags(flags)[1]:
+        need, top = max(m, 2 * m_lzp), 2 * cap
+    else:
+        need, top = max(m, m_lzp), cap
+    dcap = _tcap_for(need, top)
+    if need > dcap:
+        raise ValueError(f"bad bsc payload geometry: {need} symbols over "
+                         f"the capacity {dcap}")
+    return dcap
+
+
 def _check_coder(sorter: str, coder: int) -> None:
-    if sorter != "bwt":
-        raise NotImplementedError(
-            f"bsc sorter {sorter!r} is not ported to tpulc_torch yet: {_ST}")
+    _sorter_k(sorter)
     if coder not in (CODER_RANS, CODER_ABC, CODER_GRC):
         raise ValueError(f"unknown bsc coder {coder}")
 
@@ -283,21 +349,63 @@ def _ctx_stats(syms: torch.Tensor, m):
     return hists[: NCTX * ALPHABET].reshape(NCTX, ALPHABET), ctx
 
 
+def _meta(m, idx0, ok, anchors, hists, ctx) -> torch.Tensor:
+    """One block's small transform outputs in one int64 row: [m, idx0,
+    ok, anchors (Rcap), hists (NCTX * ALPHABET), first contexts
+    (lanes)]."""
+    dev = hists.device
+    return torch.cat([
+        torch.stack([torch.as_tensor(v, device=dev).to(torch.int64)
+                     for v in (m, idx0, ok)]),
+        anchors.to(torch.int64), hists.reshape(-1),
+        ctx.reshape(-1, CHUNK)[:, 0].to(torch.int64)])
+
+
 def _fwd_packed(padded: torch.Tensor, n: int):
-    """Transform + statistics of one block, its small outputs in one
-    int64 row: [m, idx0, ok, anchors (Rcap), hists (NCTX * ALPHABET),
-    first contexts (lanes)] -> (syms, ctx, meta); syms and ctx stay on
-    the device for the batched coder."""
+    """Masked BWT + anchors, MTF, RLE2 and statistics of one block ->
+    (syms, ctx, meta); syms and ctx stay on the device for the batched
+    coder."""
     syms, m, idx0, _, anchors, a_ok = forward_masked_anchored(
         padded, n, ANCHOR_STRIDE)
     hists, ctx = _ctx_stats(syms, m)
-    dev = padded.device
-    meta = torch.cat([
-        torch.stack([m.to(dev), torch.tensor(idx0, device=dev),
-                     torch.tensor(int(a_ok), device=dev)]),
-        anchors.to(torch.int64), hists.reshape(-1),
-        ctx.reshape(-1, CHUNK)[:, 0].to(torch.int64)])
-    return syms, ctx, meta
+    return syms, ctx, _meta(m, idx0, int(a_ok), anchors, hists, ctx)
+
+
+def _rle_stats(last: torch.Tensor, n: int, idx0):
+    """MTF (K1, the start tables, K2), RLE2 and statistics of a sorted
+    stream whose first n bytes are real -> (syms, ctx, meta) with
+    tpulc's meta layout, ok = 0 and zero anchor rows (an ST block has
+    no anchors).  Pads are MTF rank 255, one literal symbol each."""
+    cap = last.shape[0]
+    idx = torch.arange(cap, device=last.device)
+    ranks = torch.where(idx < n, mtf_encode(last), 255).to(torch.uint8)
+    syms, m_all = rle2_encode(ranks)
+    m = m_all - (cap - n)
+    hists, ctx = _ctx_stats(syms, m)
+    anchors = torch.zeros(-(-cap // ANCHOR_STRIDE), dtype=torch.int64,
+                          device=last.device)
+    return syms, ctx, _meta(m, idx0, 0, anchors, hists, ctx)
+
+
+def _fwd_packed_st(padded: torch.Tensor, n: int, k: int):
+    """ST-k twin of `_fwd_packed` (tpulc `:279-306`): one stable sort
+    in place of the BWT's refinement rounds."""
+    last, idx0 = st_encode_masked(padded, n, k)
+    return _rle_stats(last, n, idx0)
+
+
+def _fwd_packed_st_wired(padded: torch.Tensor, n: int, k: int):
+    """Wired ST-k forward (tpulc `:309-342`): the combined stream
+    last[:n] || F[:n], zero-padded to 2 * cap, rides the same MTF, RLE2
+    and statistics, so that the inverse is a static permutation on the
+    device (`stk.st_decode_device_masked`); it costs one more coded
+    stream."""
+    cap = padded.shape[0]
+    last, fnext, idx0 = st_encode_with_next_masked(padded, n, k)
+    combined = torch.zeros(2 * cap, dtype=torch.uint8, device=padded.device)
+    combined[:n] = last[:n]
+    combined[n: 2 * n] = fnext[:n]
+    return _rle_stats(combined, 2 * n, idx0)
 
 
 def _rans_payload(fq, used: int, counts_np, nwords: int, a_ok: bool,
@@ -327,18 +435,21 @@ def _rans_payload(fq, used: int, counts_np, nwords: int, a_ok: bool,
     return payload
 
 
-def _encode_rans(syms2, gctx2, ms, fqs: np.ndarray, dev):
-    """One batched encode of every block's lanes -> host (counts
-    int64[B * lanes], states int64[B * lanes], words uint16, all lanes'
-    streams back to back)."""
-    B = fqs.shape[0]
-    fq = fqs.reshape(B * NCTX, ALPHABET)
-    words, counts, states = rans_encode_ctx_batch(
-        syms2, gctx2, ms, torch.from_numpy(fq).to(dev),
-        torch.from_numpy(_cum_of(fq)).to(dev))
+def _pull_words(words, counts, states):
+    """One coder's lanes -> host (counts int64[L], states int64[L],
+    words uint16, all lanes' streams back to back)."""
     small = torch.cat([counts, states]).cpu().numpy()
     flat = compact_words(words, counts).cpu().numpy().view("<u2")
     return small[: counts.shape[0]], small[counts.shape[0]:], flat
+
+
+def _encode_rans(syms2, gctx2, ms, fqs: np.ndarray, dev):
+    """One batched encode of every block's lanes -> `_pull_words`."""
+    B = fqs.shape[0]
+    fq = fqs.reshape(B * NCTX, ALPHABET)
+    return _pull_words(*rans_encode_ctx_batch(
+        syms2, gctx2, ms, torch.from_numpy(fq).to(dev),
+        torch.from_numpy(_cum_of(fq)).to(dev)))
 
 
 def _stored(block: np.ndarray, coder: int) -> bytes:
@@ -367,9 +478,9 @@ def compress_block(block: np.ndarray, block_cap: int, use_lzp: bool = True,
         head = _HEAD.pack(n, 0, 0, 0, len(subs), 0, CODER_SEGMENTED)
         return head + np.asarray(
             [len(s) for s in subs], "<u4").tobytes() + b"".join(subs)
-    if coder == CODER_RANS:
+    if coder == CODER_RANS or (coder == CODER_ABC and _sorter_k(sorter)[0]):
         return _compress_batched([block], block_cap, use_lzp, filter_mode,
-                                 dev)[0]
+                                 dev, sorter, coder)[0]
     cap = _cap_for(block_cap)
     flags = 0
     orig_block = block
@@ -395,16 +506,20 @@ def compress_block(block: np.ndarray, block_cap: int, use_lzp: bool = True,
 
 
 def _compress_batched(blocks: list[np.ndarray], block_cap: int,
-                      use_lzp: bool, filter_mode: str,
-                      dev: torch.device) -> list[bytes]:
-    """Coder 1 -> one payload a block: tpulc's batched path (`:969-1173`);
-    with one block, the coder-1 tail of its `compress_block` (`:576-654`,
-    which makes the same bytes).  LZP runs in two worker threads before
-    the first dispatch, so that one transform capacity, from the largest
-    LZP output, covers every block."""
+                      use_lzp: bool, filter_mode: str, dev: torch.device,
+                      sorter: str = "bwt",
+                      coder: int = CODER_RANS) -> list[bytes]:
+    """Coder 1 on any sorter, or the adaptive coder on an ST sorter ->
+    one payload a block: tpulc's batched path (`:969-1173`).  With one
+    block it writes the bytes of the tail of tpulc's `compress_block`
+    (`:576-654` for coder 1, `_finish_block_abc` for the adaptive
+    coder), and so serves every st8w block.  LZP runs in two worker
+    threads before the first dispatch, so that one transform capacity,
+    from the largest LZP output, covers every block."""
     cap = _cap_for(block_cap)
     aw = max(1, int(cap - 1).bit_length())
-    B = len(blocks)
+    k_sort, wired = _sorter_k(sorter)
+    sorter_bits = _sorter_flag_bits(k_sort, wired)
 
     def _lzp_one(orig):
         fbb = _filter_byte_for(orig, filter_mode)
@@ -416,7 +531,7 @@ def _compress_batched(blocks: list[np.ndarray], block_cap: int,
             lzp_results = list(pool.map(_lzp_one, blocks))
     stages, flags_l, fbs = [], [], []
     for orig, blk, fbb, lz in lzp_results:
-        flags = FLAG_FILTER if fbb != FILTER_NONE else 0
+        flags = sorter_bits | (FLAG_FILTER if fbb != FILTER_NONE else 0)
         stage = blk
         if lz is not None:
             stage = np.frombuffer(lz, np.uint8)
@@ -425,39 +540,49 @@ def _compress_batched(blocks: list[np.ndarray], block_cap: int,
         flags_l.append(flags)
         fbs.append(fbb)
     tcap = _tcap_for(max(st.shape[0] for _, st in stages), cap)
-    lcap = max(1, tcap // CHUNK)
-    r_cap = -(-tcap // ANCHOR_STRIDE)
+    # the coded stream's capacity: last || F for st8w
+    scap = 2 * tcap if wired else tcap
+    r_cap = -(-scap // ANCHOR_STRIDE)
+    fwd = (partial(_fwd_packed_st_wired, k=k_sort) if wired
+           else partial(_fwd_packed_st, k=k_sort) if k_sort else _fwd_packed)
     with timing.stage("bsc.transform"):
         devs = []
         for _, stage in stages:
             padded = np.zeros(tcap, np.uint8)
             padded[: stage.shape[0]] = stage
-            devs.append(_fwd_packed(torch.from_numpy(padded).to(dev),
-                                    stage.shape[0]))
+            devs.append(fwd(torch.from_numpy(padded).to(dev), stage.shape[0]))
         metas = torch.stack([d[2] for d in devs]).cpu().numpy()  # one pull
     ms = metas[:, 0]
-    hists = metas[:, 3 + r_cap: 3 + r_cap + NCTX * ALPHABET].reshape(
-        B, NCTX, ALPHABET)
-    fqs = np.stack([normalize_freqs_ctx(h) for h in hists])
-    with timing.stage("bsc.rans"):
-        offs = (torch.arange(B, device=dev) * NCTX)[:, None]
-        counts_np, states_np, flat = _encode_rans(
-            torch.stack([d[0] for d in devs]),
-            torch.stack([d[1] for d in devs]) + offs, ms, fqs, dev)
+    heads = [(st.shape[0], int(ms[b]), int(metas[b, 1]), flags_l[b])
+             for b, (_, st) in enumerate(stages)]
+    oks = metas[:, 2].astype(bool)
+    anchors = metas[:, 3: 3 + r_cap]
+    syms2 = torch.stack([d[0] for d in devs])
+    if coder == CODER_ABC:
         del devs
+        return _finish_blocks_abc(syms2, ms, stages, heads, fbs, oks,
+                                  anchors, aw, dev)
+    hists = metas[:, 3 + r_cap: 3 + r_cap + NCTX * ALPHABET].reshape(
+        -1, NCTX, ALPHABET)
+    fqs = np.stack([normalize_freqs_ctx(h) for h in hists])
+    lcap = max(1, scap // CHUNK)
+    with timing.stage("bsc.rans"):
+        offs = (torch.arange(len(blocks), device=dev) * NCTX)[:, None]
+        counts_np, states_np, flat = _encode_rans(
+            syms2, torch.stack([d[1] for d in devs]) + offs, ms, fqs, dev)
+        del devs, syms2
     lane_offs = np.concatenate([[0], np.cumsum(counts_np)])
     payloads = []
     for b, (orig, stage) in enumerate(stages):
-        m = int(ms[b])
-        used = max(1, -(-m // CHUNK))
+        used = max(1, -(-int(ms[b]) // CHUNK))
         lane0 = b * lcap
         cnts = counts_np[lane0: lane0 + used]
         nwords = int(cnts.sum())
         payload = _rans_payload(
-            fqs[b], used, cnts, nwords, bool(metas[b, 2]),
+            fqs[b], used, cnts, nwords, bool(oks[b]),
             max(1, -(-stage.shape[0] // ANCHOR_STRIDE)), aw, orig.shape[0],
-            (stage.shape[0], m, int(metas[b, 1]), flags_l[b]), fbs[b],
-            metas[b, 3: 3 + r_cap], metas[b, 3 + r_cap + NCTX * ALPHABET:],
+            heads[b], fbs[b], anchors[b],
+            metas[b, 3 + r_cap + NCTX * ALPHABET:],
             states_np[lane0: lane0 + used],
             flat[lane_offs[lane0]: lane_offs[lane0] + nwords])
         # tpulc stores with the `coder` argument here (`:1140`), which
@@ -467,17 +592,73 @@ def _compress_batched(blocks: list[np.ndarray], block_cap: int,
     return payloads
 
 
+def _finish_blocks_abc(syms2, ms, stages, heads, fbs, oks, anchors, aw,
+                       dev) -> list[bytes]:
+    """The adaptive coder over B blocks' RLE2 symbols int32[B, scap] ->
+    one payload a block (tpulc's batched branch, `:1023-1131`; with one
+    block it makes `_finish_block_abc`'s bytes, `:471-521`): the
+    statistics, one pull of them, each block's initial probabilities
+    on the host, one encode of every lane, one pull of the words."""
+    B = syms2.shape[0]
+    lcap = syms2.shape[1] // ACHUNK
+    with timing.stage("bsc.rans"):
+        ones, tot, lane_bits, lane_cls = abc_stats(syms2, ms)
+        stats = torch.cat([ones.reshape(-1), tot.reshape(-1), lane_bits,
+                           lane_cls]).cpu().numpy()
+        nm = B * NMODELS
+        inits = quantize_inits(stats[:nm].reshape(B, NMODELS),
+                               stats[nm: 2 * nm].reshape(B, NMODELS))
+        lane_bits = stats[2 * nm: 2 * nm + B * lcap].reshape(B, lcap)
+        lane_cls = stats[2 * nm + B * lcap:]
+        W = bucket_bits(max(int(lane_bits.max()), 1))
+        counts_np, states_np, flat = _pull_words(*abc_encode(
+            syms2, ms, torch.from_numpy(inits.astype(np.int32)).to(dev), W))
+    lane_offs = np.concatenate([[0], np.cumsum(counts_np)])
+    payloads = []
+    for b, (orig, stage) in enumerate(stages):
+        n = orig.shape[0]
+        m_lzp, m, idx0, flags = heads[b]
+        used = max(1, -(-m // ACHUNK))
+        lane0 = b * lcap
+        cnts = counts_np[lane0: lane0 + used]
+        nwords = int(cnts.sum())
+        r_used = max(1, -(-m_lzp // ANCHOR_STRIDE))
+        body_size = _HEAD.size + 2 * NMODELS + 8 + 6 * used \
+            + -(-used * FCTX_BITS // 8) + 2 * nwords \
+            + (-(-r_used * aw // 8) if oks[b] else 0)
+        if body_size >= n:
+            payloads.append(_stored(orig, CODER_ABC))
+            continue
+        flags |= FLAG_ANCHORS if oks[b] else 0
+        payload = _HEAD.pack(n, m_lzp, m, idx0, nwords, flags, CODER_ABC)
+        if flags & FLAG_FILTER:
+            payload += bytes([fbs[b]])
+        if oks[b]:
+            payload += pack_fields_np(anchors[b, :r_used], aw)
+        payload += inits[b].astype("<u2").tobytes()
+        payload += struct.pack("<II", int(lane_bits[b].max()), used)
+        payload += pack_fields_np(lane_cls[lane0: lane0 + used], FCTX_BITS)
+        payload += cnts.astype("<u2").tobytes()
+        payload += states_np[lane0: lane0 + used].astype("<u4").tobytes()
+        payload += flat[lane_offs[lane0]: lane_offs[lane0] + nwords] \
+            .tobytes()
+        payloads.append(payload)
+    return payloads
+
+
 def compress(data: bytes | np.ndarray, block_size: int = DEFAULT_BLOCK,
              use_lzp: bool = True, sorter: str = "bwt",
              filter_mode: str = "auto", coder: int = CODER_RANS,
              device: str | None = None) -> bytes:
     """bytes -> bsc container, tpulc's signature and defaults; each
-    block transformed and coded on `device` (default "cuda").  coder 1
-    (the default) or 2; tpulc sends any other value down its coder-1
-    path, the port raises ValueError."""
+    block transformed and coded on `device` (default "cuda").  sorter
+    "bwt", "st3".."st8" or "st8w"; coder 1 (the default) or 2; tpulc
+    sends any other coder down its coder-1 path, the port raises
+    ValueError."""
     _check_coder(sorter, coder)
     if coder not in (CODER_RANS, CODER_ABC):
         raise ValueError(f"bsc compress takes coder 1 or 2, not {coder}")
+    k_sort, wired = _sorter_k(sorter)
     dev = resolve(device)
     arr = np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray)) \
         else np.asarray(data, np.uint8)
@@ -485,16 +666,16 @@ def compress(data: bytes | np.ndarray, block_size: int = DEFAULT_BLOCK,
     blocks = [arr[s: s + block_size] for s in starts]
     segs = [detect_segments_gated(b) if filter_mode == "auto" else None
             for b in blocks]
-    if coder == CODER_RANS and not any(
-            sl is not None and len(sl) > 1 for sl in segs):
-        payloads = _compress_batched(blocks, block_size, use_lzp,
-                                     filter_mode, dev)
-    else:
-        # a segmented input, or the group-rank coder: block by block
+    if any(sl is not None and len(sl) > 1 for sl in segs) or wired \
+            or (coder == CODER_ABC and not k_sort):
+        # a segmented input, st8w or the group-rank coder: block by block
         payloads = [compress_block(b, block_size, use_lzp, sorter,
                                    filter_mode, coder, _segments=sl,
                                    device=dev)
                     for b, sl in zip(blocks, segs)]
+    else:
+        payloads = _compress_batched(blocks, block_size, use_lzp,
+                                     filter_mode, dev, sorter, coder)
     c = Container(
         codec_id=CODEC_BSC, flags=0, orig_len=arr.shape[0],
         block_size=block_size, comp_sizes=[len(p) for p in payloads],
@@ -505,12 +686,12 @@ def compress(data: bytes | np.ndarray, block_size: int = DEFAULT_BLOCK,
 
 # ---------------------------------------------------------- decompress
 
-def grc_block_args(payload: bytes, block_cap: int, dev: torch.device):
-    """Parse and validate one group-rank payload; put K6's inputs on
-    `dev`.  Returns ((filter byte, anchors or None, transform capacity
-    dcap), K6's arguments: `grc_decode_walk(*args)` gives the ranks as
-    int32[dcap // GCHUNK, GCHUNK])."""
-    _, m_lzp, m, idx0, nwords, flags, _ = _HEAD.unpack(payload[: _HEAD.size])
+def _parse_head(payload: bytes, block_cap: int):
+    """The fields every coded payload opens with -> (head tuple (n,
+    m_lzp, m, idx0, nwords, flags, coder), filter byte, anchors or None,
+    the offset past them, the container's capacity)."""
+    head = _HEAD.unpack(payload[: _HEAD.size])
+    m_lzp, flags = head[1], head[5]
     off = _HEAD.size
     filt = FILTER_NONE
     if flags & FLAG_FILTER:
@@ -524,6 +705,23 @@ def grc_block_args(payload: bytes, block_cap: int, dev: torch.device):
         nb = -(-r_used * aw // 8)
         anchors = unpack_fields_np(payload[off: off + nb], aw, r_used)
         off += nb
+    return head, filt, anchors, off, cap
+
+
+def _bad_rows(idx0: int, anchors, m_lzp: int) -> bool:
+    """idx0 or an anchor is not a row of the m_lzp-byte stage."""
+    rows = max(m_lzp, 1)
+    return idx0 >= rows or (anchors is not None
+                            and int(anchors.max()) >= rows)
+
+
+def grc_block_args(payload: bytes, block_cap: int, dev: torch.device):
+    """Parse and validate one group-rank payload; put K6's inputs on
+    `dev`.  Returns ((filter byte, anchors or None, transform capacity
+    dcap), K6's arguments: `grc_decode_walk(*args)` gives the ranks as
+    int32[dcap // GCHUNK, GCHUNK])."""
+    (_, m_lzp, m, idx0, nwords, _, _), filt, anchors, off, cap = \
+        _parse_head(payload, block_cap)
     dcap = _tcap_for(max(m, m_lzp), cap)
     inits, off = G.unpack_inits(payload, off)
     cinits = np.frombuffer(payload[off: off + 2 * G.NFAM], "<u2")
@@ -536,9 +734,8 @@ def grc_block_args(payload: bytes, block_cap: int, dev: torch.device):
     # the stage fits the transform, idx0 and the anchors are its rows.
     lcap_g = max(1, dcap // G.GCHUNK)
     bound = G.MAX_GROUP_BITS * G.GCHUNK
-    rows = max(m_lzp, 1)
-    if (nlanes > lcap_g or maxbits > bound or m_lzp > dcap or idx0 >= rows
-            or (anchors is not None and int(anchors.max()) >= rows)):
+    if (nlanes > lcap_g or maxbits > bound or m_lzp > dcap
+            or _bad_rows(idx0, anchors, m_lzp)):
         raise ValueError("bad grc payload geometry")
     counts = np.frombuffer(payload[off: off + 2 * nlanes], "<u2").astype(
         np.int32)
@@ -570,34 +767,16 @@ def rans_block_args(payload: bytes, block_cap: int) -> tuple:
     than the transform holds, a lane count over CHUNK + 2, nwords other
     than the counts' sum or past the payload, m or m_lzp over the
     capacity, idx0 or an anchor not a row of the stage."""
-    n, m_lzp, m, idx0, nwords, flags, _ = _HEAD.unpack(payload[: _HEAD.size])
-    if flags & SORTER_MASK:
-        raise NotImplementedError(
-            f"bsc ST-sorted payloads are not ported to tpulc_torch yet: {_ST}")
+    (n, m_lzp, m, idx0, nwords, flags, _), filt, anchors, off, cap = \
+        _parse_head(payload, block_cap)
     if not flags & FLAG_CTX:
         raise ValueError("bad coder-1 payload: no FLAG_CTX (pre-context "
                          "bsc streams are not supported)")
-    off = _HEAD.size
-    filt = FILTER_NONE
-    if flags & FLAG_FILTER:
-        filt = payload[off]
-        off += 1
-    cap = _cap_for(block_cap)
-    anchors = None
-    if flags & FLAG_ANCHORS:
-        r_used = max(1, -(-m_lzp // ANCHOR_STRIDE))
-        aw = max(1, int(cap - 1).bit_length())
-        nb = -(-r_used * aw // 8)
-        anchors = unpack_fields_np(payload[off: off + nb], aw, r_used)
-        off += nb
-    dcap = _tcap_for(max(m, m_lzp), cap)
+    dcap = _dcap_of(m, m_lzp, flags, cap)
     fq, off = _unpack_freq_tables(payload, off)
     (nlanes,) = struct.unpack("<I", payload[off: off + 4])
     off += 4
-    rows = max(m_lzp, 1)
-    if (nlanes > max(1, dcap // CHUNK) or max(m, m_lzp) > dcap
-            or idx0 >= rows
-            or (anchors is not None and int(anchors.max()) >= rows)):
+    if nlanes > max(1, dcap // CHUNK) or _bad_rows(idx0, anchors, m_lzp):
         raise ValueError("bad coder-1 payload geometry")
     fb = -(-nlanes * FCTX_BITS // 8)
     fctx = unpack_fields_np(payload[off: off + fb], FCTX_BITS, nlanes)
@@ -615,48 +794,152 @@ def rans_block_args(payload: bytes, block_cap: int) -> tuple:
             states, flat)
 
 
-def _decode_rans(blocks: list[tuple], cap: int, dev) -> list[np.ndarray]:
-    """tpulc's batched decode of coder-1 blocks (`:1251-1299`, `:1341-
-    1383`): one decode of every block's lanes at one capacity, from the
-    largest of the blocks' max(m_lzp, m); each lane past a block's own
-    lanes gets state 2^16 and the block's first context.  Then each
-    block's inverse -> its LZP-stage bytes (uint8[m_lzp])."""
+def abc_block_args(payload: bytes, block_cap: int) -> tuple:
+    """Parse and validate one adaptive-coder payload -> (n, m_lzp, m,
+    idx0, flags, filter byte, anchors or None, inits uint16[NMODELS],
+    lane_cls, counts, states, words uint16, maxbits).  Raises ValueError
+    where tpulc decodes through clamped gathers or reads past the
+    payload: m or m_lzp over the capacity, more lanes than the transform
+    holds, maxbits or a lane's word count over 16 bits a symbol, idx0 or
+    an anchor not a row of the stage, truncated inits or lane fields,
+    nwords other than the counts' sum or past the payload."""
+    (n, m_lzp, m, idx0, nwords, flags, _), filt, anchors, off, cap = \
+        _parse_head(payload, block_cap)
+    dcap = _dcap_of(m, m_lzp, flags, cap)
+    if off + 2 * NMODELS + 8 > len(payload):
+        raise ValueError("bad abc payload: truncated inits")
+    inits = np.frombuffer(payload[off: off + 2 * NMODELS], "<u2")
+    off += 2 * NMODELS
+    maxbits, nlanes = struct.unpack("<II", payload[off: off + 8])
+    off += 8
+    bound = MAX_SYM_BITS * ACHUNK
+    if nlanes > max(1, dcap // ACHUNK) or maxbits > bound \
+            or _bad_rows(idx0, anchors, m_lzp):
+        raise ValueError("bad abc payload geometry")
+    fb = -(-nlanes * FCTX_BITS // 8)
+    if off + fb + 6 * nlanes > len(payload):
+        raise ValueError("bad abc payload: truncated lanes")
+    lane_cls = unpack_fields_np(payload[off: off + fb], FCTX_BITS, nlanes)
+    off += fb
+    counts = np.frombuffer(payload[off: off + 2 * nlanes], "<u2").astype(
+        np.int64)
+    off += 2 * nlanes
+    states = np.frombuffer(payload[off: off + 4 * nlanes], "<u4")
+    off += 4 * nlanes
+    if (int(counts.max(initial=0)) > bound or int(counts.sum()) != nwords
+            or off + 2 * nwords > len(payload)):
+        raise ValueError("bad abc payload lanes")
+    flat = np.frombuffer(payload[off: off + 2 * nwords], "<u2")
+    return (n, m_lzp, m, idx0, flags, filt, anchors, inits, lane_cls,
+            counts, states, flat, maxbits)
+
+
+def _dcap_all(blocks: list[tuple], cap: int) -> int:
+    """One batch's decode capacity: the largest of its blocks'."""
+    return max(_dcap_of(b[2], b[1], b[4], cap) for b in blocks)
+
+
+def _lane_rows(blocks: list[tuple], lcap: int):
+    """The blocks' lane fields (counts, states and words, fields 9-11
+    of `*_block_args`) block-major over lcap lanes a block -> (counts
+    int64, states int64, the words back to back as int16); a lane past
+    a block's own lanes gets no words and the state 2^16."""
     B = len(blocks)
-    dcap = _tcap_for(max(max(b[1], b[2]) for b in blocks), cap)
-    lcap = max(1, dcap // CHUNK)
     counts = np.zeros(B * lcap, np.int64)
     states = np.full(B * lcap, 1 << 16, np.int64)
+    for j, b in enumerate(blocks):
+        nl = b[9].shape[0]
+        counts[j * lcap: j * lcap + nl] = b[9]
+        states[j * lcap: j * lcap + nl] = b[10]
+    flat = np.concatenate([b[11] for b in blocks]).view(np.int16)
+    return counts, states, flat
+
+
+def _syms_rans(blocks: list[tuple], dcap: int, dev) -> torch.Tensor:
+    """tpulc's batched decode of coder-1 blocks (`:1251-1299`): one
+    decode of every block's lanes at the batch's capacity; each lane
+    past a block's own lanes gets state 2^16 and the block's first
+    context -> syms int32[B, dcap]."""
+    B = len(blocks)
+    lcap = max(1, dcap // CHUNK)
+    counts, states, flat = _lane_rows(blocks, lcap)
     fctx = np.repeat(np.arange(B, dtype=np.int64) * NCTX, lcap)
     fq = np.zeros((B * NCTX, ALPHABET), np.int32)
     for j, b in enumerate(blocks):
-        nl = b[8].shape[0]
-        fctx[j * lcap: j * lcap + nl] += b[8]
-        counts[j * lcap: j * lcap + nl] = b[9]
-        states[j * lcap: j * lcap + nl] = b[10]
+        fctx[j * lcap: j * lcap + b[8].shape[0]] += b[8]
         fq[j * NCTX: (j + 1) * NCTX] = b[7]
-    flat = np.concatenate([b[11] for b in blocks]).view(np.int16)
     with timing.stage("bsc.rans.decode"):
         freq_d = torch.from_numpy(fq).to(dev)
         cum_d = torch.from_numpy(_cum_of(fq)).to(dev)
         counts_d = torch.from_numpy(counts).to(dev)
-        syms2 = rans_decode_ctx_batch(
+        return rans_decode_ctx_batch(
             expand_words(torch.from_numpy(flat).to(dev), counts_d),
             counts_d, torch.from_numpy(states).to(dev),
             torch.from_numpy(fctx).to(dev), [b[2] for b in blocks], freq_d,
             cum_d, slot_table(freq_d, cum_d), B)
-    out = []
+
+
+def _syms_abc(blocks: list[tuple], dcap: int, dev) -> torch.Tensor:
+    """tpulc's batched decode of adaptive-coder blocks (`:1300-1340`):
+    one decode walk over every block's lanes, at most the deepest
+    block's maxbits steps -> syms int32[B, dcap]."""
+    B = len(blocks)
+    lcap = max(1, dcap // ACHUNK)
+    counts, states, flat = _lane_rows(blocks, lcap)
+    cls = np.zeros(B * lcap, np.int32)
+    for j, b in enumerate(blocks):
+        cls[j * lcap: j * lcap + b[8].shape[0]] = b[8]
+    inits = np.stack([b[7] for b in blocks]).astype(np.int32)
+    with timing.stage("bsc.rans.decode"):
+        width = bucket_bits(int(counts.max(initial=0)) + 2, lo=64)
+        counts_d = torch.from_numpy(counts).to(dev)
+        words = expand_words(torch.from_numpy(flat).to(dev), counts_d,
+                             width - 2)
+        return abc_decode(words, torch.from_numpy(states).to(dev),
+                          torch.from_numpy(cls).to(dev),
+                          [b[2] for b in blocks],
+                          torch.from_numpy(inits).to(dev),
+                          max(b[12] for b in blocks), B)
+
+
+def _inverse(syms: torch.Tensor, blk: tuple, dev) -> np.ndarray:
+    """One block's decoded symbols int32[dcap] -> its LZP-stage bytes
+    uint8[m_lzp]: RLE2 decode and MTF decode (K4), then the sorter's
+    inverse (tpulc `:841-858`, `:1341-1383`)."""
+    _, m_lzp, m, idx0, flags, _, anchors = blk[:7]
+    dcap = syms.shape[0]
+    k_sort, wired = _sorter_k_of_flags(flags)
     with timing.stage("bsc.inverse"):
-        for j, (_, m_lzp, m, idx0, _, _, anchors, *_) in enumerate(blocks):
-            if anchors is not None:
+        if not k_sort:
+            if anchors is None:
+                stage = inverse_masked(syms, m, m_lzp, idx0)
+            else:
                 anch_p = np.full(-(-dcap // ANCHOR_STRIDE), idx0, np.int32)
                 anch_p[: anchors.shape[0]] = anchors
                 stage = inverse_masked_anchored(
-                    syms2[j], m, m_lzp, torch.from_numpy(anch_p).to(dev),
+                    syms, m, m_lzp, torch.from_numpy(anch_p).to(dev),
                     ANCHOR_STRIDE)
-            else:
-                stage = inverse_masked(syms2[j], m, m_lzp, idx0)
-            out.append(stage[:m_lzp].cpu().numpy())
-    return out
+            return stage[:m_lzp].cpu().numpy()
+        last = mtf_decode(rle2_decode(syms, m)[0])
+    with timing.stage("bsc.unsort"):
+        if not wired:
+            return st_decode(last[:m_lzp], idx0, k_sort)
+        # last || F: F[i] = combined[(i + m_lzp) mod dcap]
+        half = torch.arange(dcap // 2, device=dev)
+        stage = st_decode_device_masked(
+            last[: dcap // 2], last[(half + m_lzp) % dcap], idx0, m_lzp,
+            k_sort)
+        return stage[:m_lzp].cpu().numpy()
+
+
+def _decode_blocks(blocks: list[tuple], cap: int, dev,
+                   coder: int) -> list[np.ndarray]:
+    """Coder-1 or adaptive-coder blocks (their `*_block_args`) -> each
+    block's LZP-stage bytes: one batched decode, then each inverse."""
+    dcap = _dcap_all(blocks, cap)
+    syms2 = (_syms_rans if coder == CODER_RANS else _syms_abc)(
+        blocks, dcap, dev)
+    return [_inverse(syms2[j], b, dev) for j, b in enumerate(blocks)]
 
 
 def _unstage(stage: np.ndarray, n: int, flags: int, filt: int) -> np.ndarray:
@@ -667,6 +950,9 @@ def _unstage(stage: np.ndarray, n: int, flags: int, filt: int) -> np.ndarray:
     else:
         out = stage[:n]
     return invert_filter_np(out, filt)
+
+
+_BLOCK_ARGS = {CODER_RANS: rans_block_args, CODER_ABC: abc_block_args}
 
 
 def decompress_block(payload: bytes, block_cap: int,
@@ -696,17 +982,12 @@ def decompress_block(payload: bytes, block_cap: int,
                                           block_cap, dev, _depth + 1))
             off += int(sz)
         return np.concatenate(parts)
-    if flags & SORTER_MASK:
-        raise NotImplementedError(
-            f"bsc ST-sorted payloads are not ported to tpulc_torch yet: {_ST}")
-    if coder == CODER_RANS:
-        blk = rans_block_args(payload, block_cap)
-        (stage,) = _decode_rans([blk], _cap_for(block_cap), dev)
+    if coder in _BLOCK_ARGS:
+        blk = _BLOCK_ARGS[coder](payload, block_cap)
+        (stage,) = _decode_blocks([blk], _cap_for(block_cap), dev, coder)
         return _unstage(stage, n, flags, blk[5])
     if coder != CODER_GRC:
-        raise NotImplementedError(
-            f"bsc coder-{coder} payloads are not ported to tpulc_torch yet: "
-            f"{_ST}")
+        raise ValueError(f"bad bsc payload: unknown coder {coder}")
     with timing.stage("bsc.rans.decode"):
         (filt, anchors, dcap), args = grc_block_args(payload, block_cap, dev)
         ranks = grc_decode_walk(*args).reshape(dcap)
@@ -726,22 +1007,26 @@ def decompress_block(payload: bytes, block_cap: int,
 def decompress(buf: bytes, device: str | None = None) -> bytes:
     """bsc container -> bytes, every block decoded on `device` (default
     "cuda"; raises when CUDA is absent).  Coder-1 blocks share one
-    batched decode; stored, segmented and group-rank payloads go block
-    by block."""
+    batched decode and adaptive-coder blocks another (tpulc's "block"
+    and "ablock" batches); stored, segmented, group-rank and st8w
+    payloads go block by block."""
     dev = resolve(device)
     c = Container.from_bytes(buf)
     if c.codec_id != CODEC_BSC:
         raise ValueError(f"not a bsc container (codec {c.codec_id})")
-    batched = {}
+    batches = {CODER_RANS: {}, CODER_ABC: {}}
     for i, p in enumerate(c.payloads):
         flags, coder = _HEAD.unpack(p[: _HEAD.size])[5:]
-        if coder == CODER_RANS and not flags & FLAG_STORED:
-            batched[i] = rans_block_args(p, c.block_size)
+        if coder in batches and not flags & FLAG_STORED \
+                and not _sorter_k_of_flags(flags)[1]:
+            batches[coder][i] = _BLOCK_ARGS[coder](p, c.block_size)
     outs = {}
-    if batched:
-        stages = _decode_rans(list(batched.values()), _cap_for(c.block_size),
-                              dev)
-        for (i, blk), stage in zip(batched.items(), stages):
+    for coder, batch in batches.items():
+        if not batch:
+            continue
+        stages = _decode_blocks(list(batch.values()), _cap_for(c.block_size),
+                                dev, coder)
+        for (i, blk), stage in zip(batch.items(), stages):
             outs[i] = _unstage(stage, blk[0], blk[4], blk[5])
     parts = [outs[i] if i in outs else decompress_block(p, c.block_size, dev)
              for i, p in enumerate(c.payloads)]

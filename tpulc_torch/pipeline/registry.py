@@ -1,7 +1,7 @@
 """Codec registry: the codec ids of `tpulc/pipeline/registry.py:12-18`
 (the container's codec byte), resolving to the port's drivers.
 
-`store`, `huffman`, `bz` and `bsc` (both coders on the BWT sorter) are
+`store`, `huffman`, `bz` and `bsc` (every sorter, both coders) are
 ported so far; the other ids resolve to a `NotImplementedError` that
 names the ROADMAP item porting them, so a container written by tpulc
 with another codec is recognised, not misread.
