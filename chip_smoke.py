@@ -6,6 +6,7 @@
     python3 chip_smoke.py --mtf [--root DIR]
     python3 chip_smoke.py --e1
     python3 chip_smoke.py --st
+    python3 chip_smoke.py --lz
 
 The second and third forms run one turn of a parent/change comparison
 with the tpulc_torch package under DIR (default: this checkout), e.g. a
@@ -15,7 +16,7 @@ GB/s of every decoder at the huffman path's full width.  `--mtf`: K1
 and the start tables as that tree's `mtf_encode` calls them, device ms
 at the bz and soup shapes, and the bz and bsc -e2 compress MB/s.
 `--e1`: the card, the build and phase 9 alone; `--st`: the same for
-phase 10.
+phase 10; `--lz`: the same for phase 11.
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -104,8 +105,17 @@ Phases (any failure exits non-zero before the last line is printed):
    -e2 cell's run gave them, and K1, the start tables, K2 and K4 at
    st8w's 409,600 chunks; stage times (the host walk's seconds a
    block), peak device memory, MB/s (the hybrid soup cell decodes once,
-   under the profiler) and the soup cells' traces.  The script's total
-   seconds are printed before the last two lines.
+   under the profiler) and the soup cells' traces;
+11. bzip2 at level 9 and lzss at 1 MiB blocks on pg1661 x 6 through
+   get_codec, counted as in phase 4: bzip2 writes the bytes of Python's
+   `bz2.compress` (ratio 4.395), launches K1, the start tables and K2
+   once a block, round-trips through the port and `bz2.decompress`, and
+   those three kernels are held against their plain versions on the
+   last block's arguments; lzss writes tpulc's container (1,862,942 B,
+   ratio 1.916, sha256), round-trips, writes the CPU path's container on
+   150 KB, and counts its decode's host-synced steps; stage times, MB/s
+   from warm repeats, peak device memory and a trace of each direction.
+   The script's total seconds are printed before the last two lines.
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
@@ -188,6 +198,15 @@ ST_CELLS = (
      "7cf872d7b17bc9c378154f86bf50e0479bdcebacf0e4a337f1f8b37339c31195"),
 )
 ABC_SRC = "tpulc_torch/csrc/abc.cu"
+# bzip2 at level 9 (Python's bz2 module gives the expected bytes) and
+# lzss at 1 MiB blocks on pg1661 x 6: tpulc's lzss container (JAX
+# reference, CPU run)
+BZIP2_LEVEL = 9
+BZIP2_RATIO = 4.395
+LZSS_BLOCK = 1 << 20
+LZSS_BYTES = 1_862_942
+LZSS_RATIO = 1.916
+LZSS_SHA256 = "592a4aea47217fb6520d7a89dbbf08d4485750f76865ef5c472069d8127f8e47"
 # the forward MTF's kernels, each launched once a compress block
 MTF_FORWARD = ("mtf_recency", "mtf_start_tables", "mtf_encode_lockstep")
 # the start-table kernel's tiles, swept (csrc/mtf.cu picks one by shape)
@@ -626,6 +645,8 @@ def main() -> int:
                     help="phase 9 alone (bsc -e1 on both cells)")
     ap.add_argument("--st", action="store_true",
                     help="phase 10 alone (bsc's ST sorters, both coders)")
+    ap.add_argument("--lz", action="store_true",
+                    help="phase 11 alone (bzip2 and lzss)")
     ap.add_argument("--root", default=None,
                     help="with --walks or --mtf: the checkout whose "
                          "tpulc_torch runs")
@@ -663,9 +684,11 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas {src}: {line.strip()}")
 
-    if opts.e1 or opts.st:
+    if opts.e1 or opts.st or opts.lz:
         kernels = []
-        (bsc_e1_phase if opts.e1 else st_phase)(torch, here, kernels)
+        phase = (bsc_e1_phase if opts.e1 else st_phase if opts.st
+                 else lz_phase)
+        phase(torch, here, kernels)
         print(f"total: {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": kernels}))
         return 0
@@ -787,6 +810,7 @@ def main() -> int:
     bsc_phases(torch, here, dev, kernels)
     bsc_e1_phase(torch, here, kernels)
     st_phase(torch, here, kernels)
+    lz_phase(torch, here, kernels)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1715,6 +1739,144 @@ def st_phase(torch, here: str, kernels: list) -> None:
         print(json.dumps({label: res}), flush=True)
 
 
+def lz_phase(torch, here: str, kernels: list) -> None:
+    """Phase 11: bzip2 at level 9 and lzss at 1 MiB blocks on pg1661 x 6
+    through get_codec, each counted as in phase 4.  bzip2: the bytes of
+    Python's `bz2.compress` (ratio 4.395), K1, the start tables and K2
+    once a block, an exact round trip through the port and through
+    `bz2.decompress`, and K1, the start tables and K2 held against their
+    plain versions on the arguments the path gave them (appended to
+    `kernels`).  lzss: tpulc's container (size, ratio 1.916, sha256), an
+    exact round trip, the card's container equal to the CPU path's on
+    150 KB, and the decode's host-synced steps.  For both: stage times,
+    MB/s from warm repeats, peak device memory and a trace of each
+    direction (bzip2's decompress runs on the host: no device time)."""
+    import bz2
+
+    import numpy as np
+
+    from tpulc_torch.codecs.bwt.bz2stream import rle1_split_blocks
+    from tpulc_torch.codecs.lzss import decode as lzd
+    from tpulc_torch.pipeline.container import Container
+    from tpulc_torch.pipeline.registry import get_codec
+    from tpulc_torch.primitives import mtf as mtf_mod
+    from tpulc_torch.primitives import mtf_kernels as mk
+    from tpulc_torch.utils import timing
+
+    data = corpus(here)
+
+    # bzip2
+    bzip2 = get_codec("bzip2")
+    want, stdlib_s = synced(torch, lambda: bz2.compress(data, BZIP2_LEVEL))
+    want_sha = hashlib.sha256(want).hexdigest()
+    nblocks = len(rle1_split_blocks(np.frombuffer(data, np.uint8),
+                                    BZIP2_LEVEL))
+    compress = partial(bzip2.compress, data, level=BZIP2_LEVEL,
+                       device="cuda")
+
+    def decompress(c):
+        return bzip2.decompress(c, device="cuda")
+
+    def round_trip():
+        c = compress()
+        return c, decompress(c)
+
+    path = {k: getattr(mk, k) for k in MTF_FORWARD}
+    timer = timing.enable()
+    torch.cuda.reset_peak_memory_stats()
+    ((comp, back), dt, counts), calls = spying(
+        [(mtf_mod, "mtf_encode_lockstep")],
+        lambda: counted(torch, path, round_trip))
+    stages = timer.report(total_bytes=len(data))
+    timing.disable()
+    peak = torch.cuda.max_memory_allocated()
+    sha = hashlib.sha256(comp).hexdigest()
+    ratio = len(data) / len(comp)
+    print(f"bzip2_pg1661x6: {dt:.3f} s, {len(comp)} B, {nblocks} blocks, "
+          f"sha256 {sha}, launches {counts}", flush=True)
+    require(back == data, "bzip2: round trip is not exact")
+    require(bz2.decompress(comp) == data,
+            "bzip2: bz2.decompress disagrees")
+    require(sha == want_sha, "bzip2: not the bytes of bz2.compress")
+    require(round(ratio, 3) == BZIP2_RATIO,
+            f"bzip2: ratio {ratio} != {BZIP2_RATIO}")
+    require(all(counts[k] == nblocks for k in MTF_FORWARD),
+            f"bzip2: K1, the start tables, K2 not once per block: {counts}")
+    table0, d = calls.pop("mtf_encode_lockstep")
+    ranks = mk.mtf_encode_lockstep(table0, d)[0]
+    rec, part, tile = mk.mtf_recency(d, partials=True)
+    entries = check_kernels(torch, [
+        *mtf_pair_checks(mk, d, rec, part, tile, "@bzip2",
+                         k1_library(torch, d)),
+        dict(name="mtf_encode_lockstep@bzip2", src="tpulc_torch/csrc/mtf.cu",
+             replaces="tpulc/primitives/mtf_pallas.py:156",
+             kern=mk.mtf_encode_lockstep, plain=mk.mtf_encode_lockstep_plain,
+             args=(table0, d), shape="x".join(map(str, d.shape)),
+             ops=int((2 * ranks.long() + 2).sum())),
+    ])
+    del table0, d, ranks, rec, part
+    for e in entries:
+        e["launches"] = counts[e["name"].split("@")[0]]
+    kernels += entries
+    res = {"kernels_last_block": entries, "input_bytes": len(data),
+           "level": BZIP2_LEVEL, "blocks": nblocks, "bytes": len(comp),
+           "ratio": ratio, "sha256": sha, "sha256_equals_bz2": True,
+           "bz2_compress_s": stdlib_s, "launches": counts,
+           "first_roundtrip_s": dt, "stages_first_run": stages,
+           "peak_mem_bytes": peak,
+           **warm_runs(torch, compress, decompress, data, 3),
+           "trace": {"compress": traced(torch, compress),
+                     "decompress": traced(torch, lambda: decompress(comp),
+                                          on_device=False)}}
+    print(json.dumps({"bzip2_pg1661x6": res}), flush=True)
+
+    # lzss
+    lzss = get_codec("lzss")
+    small = data[:150_000]
+    on_card = lzss.compress(small, block_size=1 << 16, device="cuda")
+    require(on_card == lzss.compress(small, block_size=1 << 16,
+                                     device="cpu"),
+            "lzss card and CPU containers differ")
+    require(lzss.decompress(on_card, device="cpu") == small,
+            "the CPU fails to decode the card's lzss container")
+    compress = partial(lzss.compress, data, block_size=LZSS_BLOCK,
+                       device="cuda")
+
+    def decompress(c):
+        return lzss.decompress(c, device="cuda")
+
+    timer = timing.enable()
+    torch.cuda.reset_peak_memory_stats()
+    comp, tc = synced(torch, compress)
+    lzd.lzss_decode_device.synced_steps = 0
+    back, td = synced(torch, lambda: decompress(comp))
+    steps = lzd.lzss_decode_device.synced_steps
+    stages = timer.report(total_bytes=len(data))
+    timing.disable()
+    peak = torch.cuda.max_memory_allocated()
+    sha = hashlib.sha256(comp).hexdigest()
+    ratio = len(data) / len(comp)
+    nblocks = len(Container.from_bytes(comp).payloads)
+    print(f"lzss_pg1661x6: compress {tc:.3f} s, decompress {td:.3f} s, "
+          f"{len(comp)} B, {nblocks} blocks, sha256 {sha}, synced decode "
+          f"steps {steps}", flush=True)
+    require(back == data, "lzss: round trip is not exact")
+    require(len(comp) == LZSS_BYTES, f"lzss: {len(comp)} B != {LZSS_BYTES}")
+    require(round(ratio, 3) == LZSS_RATIO,
+            f"lzss: ratio {ratio} != {LZSS_RATIO}")
+    require(sha == LZSS_SHA256, "lzss: container differs from tpulc's")
+    res = {"input_bytes": len(data), "block_size": LZSS_BLOCK,
+           "blocks": nblocks, "container_bytes": len(comp), "ratio": ratio,
+           "sha256": sha, "sha256_equals_tpulc": True,
+           "decode_synced_steps": steps, "first_compress_s": tc,
+           "first_decompress_s": td, "stages_first_run": stages,
+           "peak_mem_bytes": peak,
+           **warm_runs(torch, compress, decompress, data, 3),
+           "trace": {"compress": traced(torch, compress),
+                     "decompress": traced(torch, lambda: decompress(comp))}}
+    print(json.dumps({"lzss_pg1661x6": res}), flush=True)
+
+
 def mtf_soup_entries(torch, ranks, suffix: str = "@soup",
                      builds: bool = True) -> list:
     """K1, the start tables, K2 and K4 at a bsc soup shape: a 25 MiB
@@ -1804,11 +1966,13 @@ def resident_blocks(nl: int) -> int:
     return 233_472 // (2 * 1221 * (nl + 1) + 1024)
 
 
-def traced(torch, fn, keep: list | None = None) -> dict:
+def traced(torch, fn, keep: list | None = None,
+           on_device: bool = True) -> dict:
     """One run of fn under torch.profiler: host wall, device-busy time
     (the union of the device events' intervals: kernels and copies) and
     share, and the ten largest device times by name; fn's output is
-    appended to `keep` when one is given."""
+    appended to `keep` when one is given.  A run `on_device` must show
+    device time; one that runs on the host alone must show none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1830,7 +1994,9 @@ def traced(torch, fn, keep: list | None = None) -> dict:
     for t0, t1 in sorted(spans):
         busy_us += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
-    require(busy_us > 0, "the profiler saw no device time")
+    require((busy_us > 0) == on_device,
+            "the profiler saw no device time" if on_device else
+            "a host-only run put work on the device")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "busy_share": busy_us / 1e6 / wall,

@@ -93,15 +93,16 @@ def test_store_matches_tpulc():
 
 
 def test_registry_serves_bz_and_store_only():
-    """bz, store and (since the huffman and bsc slices) huffman and bsc
-    resolve; the codecs not ported yet name their ROADMAP item."""
+    """bz, store and (since later slices) huffman, bsc, bzip2 and lzss
+    resolve; culzss, not ported yet, names its ROADMAP item."""
     assert get_codec("bz") is driver
     assert get_codec(0) is store
     assert get_codec("huffman").__name__ == "tpulc_torch.codecs.huffman.driver"
     assert get_codec("bsc").__name__ == "tpulc_torch.codecs.bsclike.driver"
-    for name in ("lzss", "culzss", "bzip2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_codec(name)
+    assert get_codec("bzip2").__name__ == "tpulc_torch.codecs.bwt.bzip2_codec"
+    assert get_codec("lzss").__name__ == "tpulc_torch.codecs.lzss.driver"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_codec("culzss")
 
 
 def test_cli_roundtrip_and_info(tmp_path, capsys):
@@ -124,5 +125,5 @@ def test_cli_roundtrip_and_info(tmp_path, capsys):
         assert cli_main(["decompress", "-i", str(comp), "-o", str(back),
                          "--device", "cpu"]) == 0
         assert back.read_bytes() == src.read_bytes()
-    assert cli_main(["compress", "-c", "lzss", "-i", str(src),
+    assert cli_main(["compress", "-c", "culzss", "-i", str(src),
                      "-o", str(comp), "--device", "cpu"]) == 2

@@ -801,3 +801,45 @@ def test_bsc_st_on_card_matches_cpu(cuda, sorter, coder):
     assert on_card == on_cpu
     assert bsc.decompress(on_card, device="cuda") == data
     assert bsc.decompress(on_card, device="cpu") == data
+
+
+@pytest.mark.parametrize("name,level", [("periodic", 9), ("text", 9),
+                                        ("three_blocks", 1)])
+def test_bzip2_on_card_equals_stdlib(cuda, name, level):
+    """The card writes `bz2.compress`'s bytes (K1, the start tables and
+    K2 once a block), and the host decoder reads them back."""
+    import bz2
+
+    from tpulc_torch.codecs.bwt import bzip2_codec
+
+    with open("tests/data/pg1661.txt", "rb") as f:
+        pg = f.read()
+    data = {"periodic": b"abab" * 1000, "text": pg[:200000],
+            "three_blocks": (pg[:100000] + b"\x00" * 5000) * 2
+            + pg[:50000]}[name]
+    n = mk.mtf_recency.launches
+    comp = bzip2_codec.compress(data, level=level, device="cuda")
+    torch.cuda.synchronize()
+    assert comp == bz2.compress(data, level)
+    assert mk.mtf_recency.launches == n + (3 if level == 1 else 1)
+    assert bzip2_codec.decompress(comp, device="cuda") == data
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["chains", "exact"])
+def test_lzss_on_card_matches_cpu(cuda, exact):
+    """The card writes the CPU path's lzss container over two blocks and
+    a tail bucket, and each decodes the other's."""
+    from tpulc_torch.codecs.lzss import driver as lzss
+
+    with open("tests/data/pg1661.txt", "rb") as f:
+        data = f.read()[:150000]
+    on_card = lzss.compress(data, block_size=1 << 16, exact=exact,
+                            device="cuda")
+    on_cpu = lzss.compress(data, block_size=1 << 16, exact=exact,
+                           device="cpu")
+    assert on_card == on_cpu
+    assert lzss.decompress(on_card, device="cuda") == data
+    assert lzss.decompress(on_card, device="cpu") == data
+    raw = lzss.compress_raw(data[:20000], exact=exact, device="cuda")
+    assert raw == lzss.compress_raw(data[:20000], exact=exact, device="cpu")
+    assert lzss.decompress_raw(raw, 20064, device="cuda") == data[:20000]

@@ -1,8 +1,11 @@
 """The port stands alone: importing every tpulc_torch module (the bsc
 slices' `gold/lzp.py`, `gold/st_inverse.py`, `codecs/bsclike/*`,
-`codecs/bwt/masked.py` and `codecs/bwt/stk.py` among them) pulls in neither jax nor triton nor tpulc (the card's
-machine has no jax) and builds nothing, and asking for CUDA without a
-card raises instead of running on the CPU."""
+`codecs/bwt/masked.py` and `codecs/bwt/stk.py`, the bzip2 and lzss
+slice's `codecs/bwt/{bz2stream,bzip2_codec}.py`, `gold/bzip2.py`,
+`codecs/lzss/*` and `primitives/parallel.py` among them) pulls in
+neither jax nor triton nor tpulc (the card's machine has no jax) and
+builds nothing, and asking for CUDA without a card raises instead of
+running on the CPU."""
 
 import os
 import subprocess
@@ -31,7 +34,9 @@ print("BAD", bad)
 print("BUILT", tpulc_torch.cuda_lib._lib is not None)
 import tpulc_torch.gold.lzp as lzp
 import tpulc_torch.gold.st_inverse as st_inverse
-print("LZP_BUILT", lzp._lib is not None or st_inverse._lib is not None)
+import tpulc_torch.gold.bzip2 as gold_bzip2
+print("LZP_BUILT", lzp._lib is not None or st_inverse._lib is not None
+      or gold_bzip2._lib is not None)
 print("MODULES", sorted(m.name for m in pkgutil.walk_packages(
     tpulc_torch.__path__, "tpulc_torch.")))
 """
@@ -44,7 +49,12 @@ BSC_SLICE = ["tpulc_torch.gold.lzp", "tpulc_torch.codecs.bsclike.driver",
              "tpulc_torch.codecs.bsclike.rans_adaptive",
              "tpulc_torch.codecs.bsclike.abc_kernels",
              "tpulc_torch.gold.st_inverse", "tpulc_torch.gold.build",
-             "tpulc_torch.codecs.bwt.masked", "tpulc_torch.codecs.bwt.stk"]
+             "tpulc_torch.codecs.bwt.masked", "tpulc_torch.codecs.bwt.stk",
+             "tpulc_torch.codecs.bwt.bz2stream",
+             "tpulc_torch.codecs.bwt.bzip2_codec", "tpulc_torch.gold.bzip2",
+             "tpulc_torch.codecs.lzss", "tpulc_torch.codecs.lzss.encode",
+             "tpulc_torch.codecs.lzss.decode", "tpulc_torch.codecs.lzss.driver",
+             "tpulc_torch.primitives.parallel"]
 
 
 def test_import_pulls_in_no_jax_triton_or_tpulc():
@@ -71,4 +81,14 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
     with pytest.raises(RuntimeError):
         bsc.compress(b"abc", coder=2)
+    from tpulc_torch.codecs.bwt import bzip2_codec
+    from tpulc_torch.codecs.lzss import driver as lzss
+
+    for call in (lambda: bzip2_codec.compress(b"abc"),
+                 lambda: bzip2_codec.decompress(
+                     bzip2_codec.compress(b"abc", device="cpu")),
+                 lambda: lzss.compress(b"abc"),
+                 lambda: lzss.decompress(lzss.compress(b"abc", device="cpu"))):
+        with pytest.raises(RuntimeError):
+            call()
     assert device_mod.resolve("cpu").type == "cpu"

@@ -5,16 +5,18 @@ Usage:
                                          [--device cuda|cpu] [--timings]
                                          [bsc: -m bwt|st3..st8|st8w -e 1|2
                                           --no-lzp --filter F]
+                                         [lzss: --exact] [bzip2: --level N]
     python -m tpulc_torch.cli decompress -i IN -o OUT [--device cuda|cpu]
     python -m tpulc_torch.cli info       -i IN
 
 The container is tpulc's and so are the defaults (huffman, 1 MiB
 blocks), so either CLI decodes what the other wrote, and the same
-codec arguments write the same bytes.  Ported: huffman, bz, store and
-bsc on every sorter (`-m bwt`, the default, `st3`..`st8`, `st8w`) with
-either coder (`-e 1`, the default, or `-e 2`); asking for another codec
-(lzss, culzss, bzip2) exits with status 2 and names the ROADMAP item
-that ports it.
+codec arguments write the same bytes.  `bzip2` writes a bare .bz2
+stream, which `info` and `decompress` recognise by its `BZh` magic, as
+tpulc's do.  Ported: huffman, bz, store, bsc on every sorter (`-m bwt`,
+the default, `st3`..`st8`, `st8w`) with either coder (`-e 1`, the
+default, or `-e 2`), bzip2 and lzss; asking for culzss exits with
+status 2 and names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -59,6 +61,11 @@ def _parse(argv):
                         "rANS (the default), 2 the best-ratio coder (the "
                         "group-rank coder on bwt, the adaptive binary "
                         "coder on an ST sorter)")
+    c.add_argument("--exact", action="store_true",
+                   help="lzss: reference-parity longest-match search")
+    c.add_argument("--level", type=int, default=None, choices=range(1, 10),
+                   metavar="1..9",
+                   help="bzip2: block level 1-9 (default from block size)")
     d = sub.add_parser("decompress")
     d.add_argument("-i", "--input", required=True)
     d.add_argument("-o", "--output", required=True)
@@ -74,7 +81,12 @@ def _parse(argv):
 
 def _info(data: bytes) -> int:
     """Container introspection: codec, block geometry, per-block
-    compressed sizes and checksums — no decode."""
+    compressed sizes and checksums — no decode; a .bz2 stream reports
+    its level and stream count (tpulc's `BZh` count)."""
+    if data[:3] == b"BZh":
+        print(json.dumps({"format": ".bz2", "level": int(chr(data[3])),
+                          "streams": data.count(b"BZh")}))
+        return 0
     c = Container.from_bytes(data)
     blocks = [
         {"index": b.index, "offset": b.offset, "comp_size": b.comp_size,
@@ -96,10 +108,14 @@ def _info(data: bytes) -> int:
     return 0
 
 
-def _bsc_kwargs(args) -> dict:
-    """tpulc's CLI passes a bsc option only when it differs from the
-    CLI default (`tpulc/cli/main.py:114-121`), so the same argv writes
+def _codec_kwargs(args) -> dict:
+    """tpulc's CLI passes a codec option only when it differs from the
+    CLI default (`tpulc/cli/main.py:108-121`), so the same argv writes
     the same bytes."""
+    if args.codec == "lzss" and args.exact:
+        return {"exact": True}
+    if args.codec == "bzip2" and args.level is not None:
+        return {"level": args.level}
     if args.codec != "bsc":
         return {}
     kw = {}
@@ -134,14 +150,15 @@ def main(argv=None) -> int:
         if args.cmd == "compress":
             codec = get_codec(args.codec)
             out = codec.compress(data, block_size=args.block_size,
-                                 device=args.device, **_bsc_kwargs(args))
+                                 device=args.device, **_codec_kwargs(args))
             dt = time.perf_counter() - t0
             ratio = len(data) / max(len(out), 1)
             print(f"compressed {len(data)} -> {len(out)} bytes "
                   f"(ratio {ratio:.3f}) in {dt:.3f}s on {args.device} "
                   f"({len(data) / dt / 1e6:.2f} MB/s)")
         else:
-            codec = get_codec(Container.from_bytes(data).codec_id)
+            codec = get_codec("bzip2" if data[:3] == b"BZh"
+                              else Container.from_bytes(data).codec_id)
             out = codec.decompress(data, device=args.device)
             dt = time.perf_counter() - t0
             print(f"decompressed {len(data)} -> {len(out)} bytes in "

@@ -50,14 +50,18 @@ def _zero_run_mask_masked(data, idx, n: int):
     return real & ((idx > last_nz) | (idx < first_nz))
 
 
-def _refine_ranks_masked(data: torch.Tensor, idx: torch.Tensor, n: int):
+def _refine_ranks_masked(data: torch.Tensor, idx: torch.Tensor, n: int,
+                         benign_ties: bool = True):
     """Rotation ranks of the n-length string at capacity cap ->
-    (rank int64[cap], done bool), as tpulc's `_refine_ranks_masked`
-    with benign ties: fan-8 prefix doubling from the 8-byte cyclic
-    prefix, one host sync a round."""
+    (rank int64[cap], done bool), as tpulc's `_refine_ranks_masked`:
+    fan-8 prefix doubling from the 8-byte cyclic prefix, one host sync
+    a round.  With benign ties, ties inside the boundary zero run end
+    the refinement (they break by position); without, ties refine until
+    they resolve or k >= n (equal rotations of a periodic block)."""
     cap = data.shape[0]
     real = idx < n
-    run = _zero_run_mask_masked(data, idx, n)
+    run = (_zero_run_mask_masked(data, idx, n) if benign_ties
+           else torch.zeros_like(real))
 
     # initial ranks from the 8-byte cyclic prefix as one signed int64
     # (order-preserving for the two big-endian u32 halves); padding rows
@@ -89,6 +93,27 @@ def _refine_ranks_masked(data: torch.Tensor, idx: torch.Tensor, n: int):
         done = not bool((_tied_rows(diff) & ~run[order]).any())
         k *= _FAN
     return rank, done
+
+
+def bwt_encode_masked(data: torch.Tensor, n: int):
+    """BWT of the first n bytes of uint8[cap] in libbzip2's order ->
+    (last uint8[cap] (0 past n), idx0 int), as tpulc's
+    `bwt_encode_masked(..., tie_desc=True)`: ties refine without the
+    benign zero-run shortcut, and rotations still equal at k >= n (a
+    periodic block) sort by descending position, so `origPtr` matches
+    libbzip2's on periodic blocks."""
+    cap = data.shape[0]
+    idx = torch.arange(cap, device=data.device)
+    rank, _ = _refine_ranks_masked(data, idx, n, benign_ties=False)
+    # stable sort of the reversed rows: equal ranks by descending index
+    # (padding rows' ranks are unique, so their tie key never decides)
+    flip = torch.flip(idx, (0,))
+    order = flip[torch.sort(rank[flip], stable=True).indices]
+    real = idx < n
+    prev = data[torch.where(real, (idx - 1) % max(n, 1), idx)]
+    last = torch.where(real, prev[order], 0).to(torch.uint8)
+    idx0 = int(torch.argmax(((order == 0) & real).to(torch.int8)))
+    return last, idx0
 
 
 def bwt_encode_masked_anchored(data: torch.Tensor, n: int,

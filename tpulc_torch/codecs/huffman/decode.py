@@ -69,15 +69,16 @@ def _decode_maps(words, total_bits: int, lut_len, max_len: int,
 
 
 def _compose_scan(next_map, count_map):
-    """Inclusive scan of (entry->exit, entry->count) maps along axis 0:
+    """Inclusive scan of (entry->exit, entry->count) maps along axis 0,
+    entries on the last axis (axes between are independent streams):
     combine(a, b) = (b.next[a.next], a.count + b.count[a.next])."""
     nxt, cnt = next_map, count_map
     d = 1
     while d < nxt.shape[0]:
         an, ac = nxt[:-d], cnt[:-d]
         bn, bc = nxt[d:], cnt[d:]
-        nxt = torch.cat([nxt[:d], torch.gather(bn, 1, an)])
-        cnt = torch.cat([cnt[:d], ac + torch.gather(bc, 1, an)])
+        nxt = torch.cat([nxt[:d], torch.gather(bn, -1, an)])
+        cnt = torch.cat([cnt[:d], ac + torch.gather(bc, -1, an)])
         d *= 2
     return nxt, cnt
 

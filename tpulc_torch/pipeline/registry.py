@@ -1,10 +1,10 @@
 """Codec registry: the codec ids of `tpulc/pipeline/registry.py:12-18`
 (the container's codec byte), resolving to the port's drivers.
 
-`store`, `huffman`, `bz` and `bsc` (every sorter, both coders) are
-ported so far; the other ids resolve to a `NotImplementedError` that
-names the ROADMAP item porting them, so a container written by tpulc
-with another codec is recognised, not misread.
+`store`, `huffman`, `bz`, `bsc` (every sorter, both coders), `bzip2`
+and `lzss` are ported so far; `culzss` resolves to a
+`NotImplementedError` that names the ROADMAP item porting it, so a
+container written by tpulc with that codec is recognised, not misread.
 """
 
 from __future__ import annotations
@@ -29,9 +29,7 @@ _NAMES = {
 
 # codec id -> ROADMAP queue-1 item that ports it
 _NOT_PORTED = {
-    CODEC_LZSS: "queue 1 item 11 (LZ codecs)",
     CODEC_LZSS_CULZSS: "queue 1 item 11 (LZ codecs)",
-    CODEC_BZIP2: "queue 1 item 12 (bzip2 codec)",
 }
 
 
@@ -60,6 +58,12 @@ def get_codec(name_or_id: str | int):
         return driver
     if cid == CODEC_BSC:
         from tpulc_torch.codecs.bsclike import driver
+        return driver
+    if cid == CODEC_BZIP2:
+        from tpulc_torch.codecs.bwt import bzip2_codec
+        return bzip2_codec
+    if cid == CODEC_LZSS:
+        from tpulc_torch.codecs.lzss import driver
         return driver
     if cid in _NOT_PORTED:
         raise NotImplementedError(

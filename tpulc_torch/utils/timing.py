@@ -4,8 +4,9 @@ Replaces the reference's ad-hoc printf timer pairs (gettimeofday in
 CULZSS `main.c:247-274`, clock_gettime phase timers in bzip2
 `compress.c:882-1006`, CUHD's TIMER macros `demo.cc:59-168`, bsc's
 BSC_CLOCK) with one structured report object.  Stages time the host
-clock: CUDA launches return before the device finishes, so a stage
-shows device time only where its code waits for a result.
+clock; while the timer is on, a stage synchronises the card at its
+start and its end (when CUDA is in use), so that it holds the device
+work it enqueued and none of its predecessor's.
 
 Copied from `tpulc/utils/timing.py` (the port may not import tpulc,
 whose package import pulls in jax).
@@ -17,6 +18,8 @@ import json
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+
+import torch
 
 
 @dataclass
@@ -87,5 +90,12 @@ def stage(name: str):
     if _GLOBAL is None:
         yield
         return
+    _sync()
     with _GLOBAL.stage(name):
         yield
+        _sync()
+
+
+def _sync() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
