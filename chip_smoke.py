@@ -7,6 +7,7 @@
     python3 chip_smoke.py --e1
     python3 chip_smoke.py --st
     python3 chip_smoke.py --lz
+    python3 chip_smoke.py --dist
 
 The second and third forms run one turn of a parent/change comparison
 with the tpulc_torch package under DIR (default: this checkout), e.g. a
@@ -16,7 +17,8 @@ GB/s of every decoder at the huffman path's full width.  `--mtf`: K1
 and the start tables as that tree's `mtf_encode` calls them, device ms
 at the bz and soup shapes, and the bz and bsc -e2 compress MB/s.
 `--e1`: the card, the build and phase 9 alone; `--st`: the same for
-phase 10; `--lz`: the same for phase 11.
+phase 10; `--lz`: the same for phases 11 and 12; `--dist`: the same for
+phase 13.
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -114,7 +116,29 @@ Phases (any failure exits non-zero before the last line is printed):
    last block's arguments; lzss writes tpulc's container (1,862,942 B,
    ratio 1.916, sha256), round-trips, writes the CPU path's container on
    150 KB, and counts its decode's host-synced steps; stage times, MB/s
-   from warm repeats, peak device memory and a trace of each direction.
+   from warm repeats, peak device memory and a trace of each direction;
+   then lzss on bench.py's make_soup(3,569,598) at 1 MiB: tpulc's
+   container (629,458 B, ratio 5.671, sha256) and an exact round trip;
+12. culzss at 1 MiB blocks through get_codec, counted as in phase 4 (no
+   hand kernel may launch: every stage is plain torch): on pg1661 x 6
+   and on make_soup(3,569,598), tpulc's containers (size, ratio,
+   sha256) and exact round trips, with stage times (grid, candidates,
+   doubling, parse, pack, pull, container; payloads, records, doubling
+   rounds, out, verify), MB/s from warm repeats, peak device memory and
+   a trace of
+   each direction; the card's container equal to the CPU path's on 150
+   KB; 100,000,000 B of the soup (24,415 packets) round-tripped
+   exactly, its peak device memory printed beside the packet groups;
+13. the distribution layer on the card: the port's dry run (tpulc's
+   seven sharded checks) as a user calls it, on one spawned NCCL rank,
+   then in an NCCL group of world size 1: the dry run; each sharded
+   step at tpulc's dry-run shapes with tpulc's outputs (their sha256)
+   and equal to the same functions run without a group on the same
+   card, with the same hand-kernel launches, which are printed;
+   compress_multihost of pg1661 x 6 writes tpulc's
+   single-process compress_multihost bytes for bz (900,000 B blocks)
+   and phase 12's container for culzss.  One card: multi-GPU scaling is
+   not measured.
    The script's total seconds are printed before the last two lines.
 
 Every kernel entry carries its bound: the larger of the bytes it must
@@ -207,6 +231,54 @@ LZSS_BLOCK = 1 << 20
 LZSS_BYTES = 1_862_942
 LZSS_RATIO = 1.916
 LZSS_SHA256 = "592a4aea47217fb6520d7a89dbbf08d4485750f76865ef5c472069d8127f8e47"
+# lzss and culzss at 1 MiB blocks on bench.py's make_soup(3,569,598), and
+# culzss on pg1661 x 6: tpulc's containers (JAX reference, CPU run) ->
+# (label, input, bytes, ratio, sha256)
+LZSS_SOUP = ("soup", "soup", 629_458, 5.671,
+             "d05c264c16a6fac03c7d3e695f51fea4d2aeb173e729d666445cbf555f0af561")
+CULZSS_BLOCK = 1 << 20
+CULZSS_CELLS = (
+    ("pg1661x6", "pg", 3_348_444, 1.066,
+     "31fa4d205583e976632d184bafdd503d5ae1fc8f858078f9a95b4c56b3565f1b"),
+    ("soup", "soup", 1_914_803, 1.864,
+     "eb94050ca61816e17edf196e39c40c57c6517f7360257994f64d1c0a24347b9b"),
+)
+CULZSS_BIG = 100_000_000
+# the sharded steps of phase 13 at tpulc's dry-run shapes (its
+# `dryrun_multichip`: 512-byte blocks, culzss a packet a block, 2 blocks
+# a rank) -> (step, block size, the hand kernels its functions launch,
+# `outputs_sha256` of tpulc's step on make_args(2, 0): JAX reference,
+# CPU run, pinned by tests/test_torch_dist.py)
+DIST_STEPS = (
+    ("huffman_roundtrip_step", 512, (),
+     "b83fc8e651df52b57b1c855deb1a321ac3a130b685cd6ffdcef7cb473d9d0a22"),
+    ("bz_forward", 512,
+     ("mtf_recency", "mtf_start_tables", "mtf_encode_lockstep"),
+     "a43c62c8f542b8acaac5451dfa3ae6b3fb6a856bf6ffc59b39cebe3854ce5d8f"),
+    ("bz_roundtrip", 512,
+     ("mtf_recency", "mtf_start_tables", "mtf_encode_lockstep",
+      "mtf_lockstep"),
+     "d7c1a483ddfd306f5d49e8088545af0a3079e07ece807c3d497b65b5ad4694fc"),
+    ("bsc_rans_forward", 512,
+     ("mtf_recency", "mtf_start_tables", "mtf_encode_lockstep",
+      "rans_encode_walk"),
+     "d5d19a97f0bfaa9f2b9e2be49726d1c28802eadafca18be00eaea6c0224bfb54"),
+    ("abc_roundtrip", 512, ("abc_encode_walk", "abc_decode_walk"),
+     "a79f8d03ccca6424cab7c9a5698d358633b3c1ad3a010adddcfadac803cefad1"),
+    ("grc_roundtrip", 512,
+     ("grc_walk_probs", "grc_reverse_rans", "grc_decode_walk"),
+     "a5efec28d836329873b1479ad5a63fad9820ba46bd7aab86f56014cb60b3ee1e"),
+    ("culzss_roundtrip", 4096, (),
+     "e670ea69fef2976b032d4566e2c0480c279450fcc336969488506e236b052867"),
+)
+# tpulc's single-process compress_multihost of pg1661 x 6 as bz at
+# 900,000 B blocks (JAX reference, CPU run): bz's own container, whose
+# flags are 0 and whose blocks are coded independently
+DIST_BZ_SHA256 = TPULC_SHA256
+# the CUDA runtime and driver calls that launch a kernel, as the
+# profiler names them on the host
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
 # the forward MTF's kernels, each launched once a compress block
 MTF_FORWARD = ("mtf_recency", "mtf_start_tables", "mtf_encode_lockstep")
 # the start-table kernel's tiles, swept (csrc/mtf.cu picks one by shape)
@@ -249,6 +321,19 @@ RANS_SRC = "tpulc_torch/csrc/rans_ctx.cu"
 # and the symbol's rebuild (~10)
 ABC_ENC_OPS = 45
 ABC_DEC_OPS = 60
+
+
+def outputs_sha256(outs) -> str:
+    """sha256 of a tuple of arrays, each as its shape and its values in
+    int64, C order: one digest for tpulc's and the port's outputs."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for x in outs:
+        a = np.ascontiguousarray(np.asarray(x).astype(np.int64))
+        h.update(repr(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
 
 
 def require(cond: bool, msg: str) -> None:
@@ -646,7 +731,10 @@ def main() -> int:
     ap.add_argument("--st", action="store_true",
                     help="phase 10 alone (bsc's ST sorters, both coders)")
     ap.add_argument("--lz", action="store_true",
-                    help="phase 11 alone (bzip2 and lzss)")
+                    help="phases 11 and 12 alone (bzip2, lzss, culzss)")
+    ap.add_argument("--dist", action="store_true",
+                    help="phase 13 alone (the distribution layer, NCCL "
+                         "world size 1)")
     ap.add_argument("--root", default=None,
                     help="with --walks or --mtf: the checkout whose "
                          "tpulc_torch runs")
@@ -684,11 +772,12 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas {src}: {line.strip()}")
 
-    if opts.e1 or opts.st or opts.lz:
+    if opts.e1 or opts.st or opts.lz or opts.dist:
         kernels = []
-        phase = (bsc_e1_phase if opts.e1 else st_phase if opts.st
-                 else lz_phase)
-        phase(torch, here, kernels)
+        phases = ([bsc_e1_phase] if opts.e1 else [st_phase] if opts.st
+                  else [lz_phase, culzss_phase] if opts.lz else [dist_phase])
+        for phase in phases:
+            phase(torch, here, kernels)
         print(f"total: {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": kernels}))
         return 0
@@ -811,6 +900,8 @@ def main() -> int:
     bsc_e1_phase(torch, here, kernels)
     st_phase(torch, here, kernels)
     lz_phase(torch, here, kernels)
+    culzss_phase(torch, here, kernels)
+    dist_phase(torch, here, kernels)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1876,6 +1967,222 @@ def lz_phase(torch, here: str, kernels: list) -> None:
                      "decompress": traced(torch, lambda: decompress(comp))}}
     print(json.dumps({"lzss_pg1661x6": res}), flush=True)
 
+    # lzss on the soup
+    _, _, size, want_ratio, want_sha = LZSS_SOUP
+    data = soup(CORPUS_SIZE)
+    comp, tc = synced(torch, partial(lzss.compress, data,
+                                     block_size=LZSS_BLOCK, device="cuda"))
+    back, td = synced(torch, lambda: decompress(comp))
+    sha = hashlib.sha256(comp).hexdigest()
+    ratio = len(data) / len(comp)
+    print(f"lzss_soup: compress {tc:.3f} s, decompress {td:.3f} s, "
+          f"{len(comp)} B, sha256 {sha}", flush=True)
+    require(back == data, "lzss soup: round trip is not exact")
+    require(len(comp) == size and round(ratio, 3) == want_ratio
+            and sha == want_sha, "lzss soup: container differs from tpulc's")
+    print(json.dumps({"lzss_soup": {
+        "input_bytes": len(data), "block_size": LZSS_BLOCK,
+        "container_bytes": len(comp), "ratio": ratio, "sha256": sha,
+        "sha256_equals_tpulc": True, "first_compress_s": tc,
+        "first_decompress_s": td,
+        "compress_MBps": len(data) / 1e6 / tc,
+        "decompress_MBps": len(data) / 1e6 / td}}), flush=True)
+
+
+def hand_kernels() -> dict:
+    """Every hand kernel's wrapper (each counts its launches), by name."""
+    from tpulc_torch.codecs.bsclike import abc_kernels as ak
+    from tpulc_torch.codecs.bsclike import grc_kernels as gk
+    from tpulc_torch.codecs.bsclike import rans
+    from tpulc_torch.codecs.huffman import decode_kernels as dk
+    from tpulc_torch.primitives import mtf_kernels as mk
+
+    fns = (mk.mtf_recency, mk.mtf_start_tables, mk.mtf_encode_lockstep,
+           mk.mtf_lockstep, dk.huffman_walk, dk.huffman_walk_v1,
+           dk.huffman_walk_flat, gk.grc_walk_probs, gk.grc_reverse_rans,
+           gk.grc_decode_walk, rans.rans_encode_walk, rans.rans_decode_walk,
+           ak.abc_encode_walk, ak.abc_decode_walk)
+    return {f.__name__: f for f in fns}
+
+
+def culzss_phase(torch, here: str, kernels: list) -> None:
+    """Phase 12: culzss at 1 MiB blocks through get_codec, counted as in
+    phase 4 (no hand kernel may launch: culzss is plain torch).  Each
+    cell of CULZSS_CELLS: tpulc's container (size, ratio, sha256), an
+    exact round trip, stage times, the decode's doubling rounds, peak
+    device memory, MB/s from warm repeats and a trace of each
+    direction; the card's container equal to the CPU path's on 150 KB;
+    then 100,000,000 B of the soup, round-tripped exactly, with its
+    peak device memory beside the packet groups.  `kernels` gains no
+    entry: culzss has no hand kernel."""
+    from tpulc_torch.codecs.lzss import culzss as core
+    from tpulc_torch.pipeline.registry import get_codec
+    from tpulc_torch.utils import timing
+
+    culzss = get_codec("culzss")
+    pg = corpus(here)
+    small = pg[:150_000]
+    on_card = culzss.compress(small, block_size=1 << 16, device="cuda")
+    require(on_card == culzss.compress(small, block_size=1 << 16,
+                                       device="cpu"),
+            "culzss card and CPU containers differ")
+    require(culzss.decompress(on_card, device="cpu") == small,
+            "the CPU fails to decode the card's culzss container")
+    wrappers = hand_kernels()
+
+    def decompress(c):
+        return culzss.decompress(c, device="cuda")
+
+    for label, src, size, want_ratio, want_sha in CULZSS_CELLS:
+        data = pg if src == "pg" else soup(CORPUS_SIZE)
+        compress = partial(culzss.compress, data, block_size=CULZSS_BLOCK,
+                           device="cuda")
+        timer = timing.enable()
+        torch.cuda.reset_peak_memory_stats()
+        comp, tc, n_c = counted(torch, wrappers, compress)
+        core.culzss_decode_block.rounds = 0
+        back, td, n_d = counted(torch, wrappers, lambda: decompress(comp))
+        rounds = core.culzss_decode_block.rounds
+        stages = timer.report(total_bytes=len(data))
+        timing.disable()
+        peak = torch.cuda.max_memory_allocated()
+        sha = hashlib.sha256(comp).hexdigest()
+        ratio = len(data) / len(comp)
+        print(f"culzss_{label}: compress {tc:.3f} s, decompress {td:.3f} s, "
+              f"{len(comp)} B, sha256 {sha}, doubling rounds {rounds}",
+              flush=True)
+        require(back == data, f"culzss {label}: round trip is not exact")
+        require(len(comp) == size, f"culzss {label}: {len(comp)} B != {size}")
+        require(round(ratio, 3) == want_ratio,
+                f"culzss {label}: ratio {ratio} != {want_ratio}")
+        require(sha == want_sha, f"culzss {label}: container differs from "
+                                 "tpulc's")
+        launched = {k: n_c[k] + n_d[k] for k in wrappers if n_c[k] + n_d[k]}
+        require(not launched, f"culzss launched hand kernels: {launched}")
+        res = {"input_bytes": len(data), "block_size": CULZSS_BLOCK,
+               "packets": -(-len(data) // core.PCKT),
+               "container_bytes": len(comp), "ratio": ratio, "sha256": sha,
+               "sha256_equals_tpulc": True, "hand_kernel_launches": 0,
+               "decode_doubling_rounds": rounds, "first_compress_s": tc,
+               "first_decompress_s": td, "stages_first_run": stages,
+               "peak_mem_bytes": peak, "encode_group": core.ENCODE_GROUP,
+               "decode_group": core.DECODE_GROUP,
+               **warm_runs(torch, compress, decompress, data, 3),
+               "trace": {"compress": traced(torch, compress),
+                         "decompress": traced(torch,
+                                              lambda: decompress(comp))}}
+        print(json.dumps({f"culzss_{label}": res}), flush=True)
+
+    big = soup(CULZSS_BIG)
+    timer = timing.enable()
+    torch.cuda.reset_peak_memory_stats()
+    comp, tc = synced(torch, partial(culzss.compress, big,
+                                     block_size=CULZSS_BLOCK, device="cuda"))
+    peak_c = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    core.culzss_decode_block.rounds = 0
+    back, td = synced(torch, lambda: decompress(comp))
+    peak_d = torch.cuda.max_memory_allocated()
+    stages = timer.report(total_bytes=len(big))
+    timing.disable()
+    require(back == big, "culzss 100 MB soup: round trip is not exact")
+    packets = sum(-(-min(len(big) - s, CULZSS_BLOCK) // core.PCKT)
+                  for s in range(0, len(big), CULZSS_BLOCK))
+    print(json.dumps({"culzss_soup100MB": {
+        "input_bytes": len(big), "block_size": CULZSS_BLOCK,
+        "packets": packets, "container_bytes": len(comp),
+        "ratio": len(big) / len(comp), "roundtrip_exact": True,
+        "compress_s": tc, "decompress_s": td,
+        "compress_MBps": len(big) / 1e6 / tc,
+        "decompress_MBps": len(big) / 1e6 / td,
+        "encode_group_packets": core.ENCODE_GROUP,
+        "decode_group_packets": core.DECODE_GROUP,
+        "peak_mem_bytes_compress": peak_c, "peak_mem_bytes_decompress": peak_d,
+        "decode_doubling_rounds": core.culzss_decode_block.rounds,
+        "stages": stages, "timing": "first run, host clock, synchronized"}}),
+        flush=True)
+
+
+def dist_phase(torch, here: str, kernels: list) -> None:
+    """Phase 13: the distribution layer on the card: the port's dry run
+    as a user calls it (no group: it spawns one NCCL rank a card), then
+    in an NCCL group of world size 1: the dry run; each sharded step of
+    DIST_STEPS on make_args(2, 0) with tpulc's outputs (their pinned
+    sha256) and equal to its body run without a group on the same card
+    (`step.body`), with the same hand-kernel launches, which must be the
+    kernels its functions launch and are printed; compress_multihost of
+    pg1661 x 6 as bz (900,000 B blocks) writes tpulc's single-process
+    compress_multihost bytes and as culzss (1 MiB) phase 12's container.
+    `kernels` gains no entry: the steps launch earlier phases' kernels."""
+    import torch.distributed as dist
+
+    from tpulc_torch.codecs.bwt import driver
+    from tpulc_torch.dist import sharded
+    from tpulc_torch.dist.dryrun import dryrun_multichip, free_port
+    from tpulc_torch.dist.mesh import make_mesh, mesh_device
+    from tpulc_torch.dist.multihost import compress_multihost
+
+    require(not dist.is_initialized(), "dist: a group exists before phase 13")
+    _, spawned_s = synced(torch, lambda: dryrun_multichip(1))
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+        rank=0)
+    try:
+        init_s = time.perf_counter() - t0
+        wrappers = hand_kernels()
+        _, dry_s, dry_n = counted(torch, wrappers, lambda: dryrun_multichip(1))
+        mesh = make_mesh(1)
+        dev = mesh_device(mesh)
+        steps = {}
+        for name, size, expect, digest in DIST_STEPS:
+            step, make_args = getattr(sharded, "sharded_" + name)(mesh, size)
+            args = make_args(2, 0)
+            got, t_step, n_step = counted(torch, wrappers, lambda: step(*args))
+            want, t_body, n_body = counted(torch, wrappers, lambda: step.body(
+                *[sharded._tensor(a).to(dev) for a in args]))
+            require(outputs_sha256([g.cpu().numpy() for g in got]) == digest,
+                    f"dist: {name} differs from tpulc's step")
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"dist: {name} differs from its functions without a "
+                    "group")
+            launched = {k: v for k, v in n_step.items() if v}
+            require(n_step == n_body, f"dist: {name} launches {launched}, "
+                    f"its functions {n_body}")
+            require(set(launched) == set(expect),
+                    f"dist: {name} launched {launched}, not {expect}")
+            steps[name] = {"launches": launched, "step_s": t_step,
+                           "without_group_s": t_body}
+        data = corpus(here)
+        c_bz, bz_s = synced(torch, lambda: compress_multihost(
+            data, BLOCK, "bz", device="cuda"))
+        require(hashlib.sha256(c_bz).hexdigest() == DIST_BZ_SHA256,
+                "dist: bz compress_multihost differs from tpulc's")
+        require(c_bz == driver.compress(data, block_size=BLOCK,
+                                        device="cuda"),
+                "dist: bz compress_multihost differs from compress")
+        require(driver.decompress(c_bz, device="cuda") == data,
+                "dist: bz compress_multihost does not round-trip")
+        c_cz, cz_s = synced(torch, lambda: compress_multihost(
+            data, CULZSS_BLOCK, "culzss", device="cuda"))
+        require(hashlib.sha256(c_cz).hexdigest() == CULZSS_CELLS[0][4],
+                "dist: culzss compress_multihost is not phase 12's "
+                "container")
+        print(json.dumps({"dist_world1_nccl": {
+            "backend": dist.get_backend(), "world_size":
+            dist.get_world_size(), "init_s": init_s,
+            "dryrun_multichip_spawned_s": spawned_s,
+            "dryrun_multichip_s": dry_s,
+            "dryrun_launches": {k: v for k, v in dry_n.items() if v},
+            "steps": steps, "multihost": {
+                "bz": {"bytes": len(c_bz), "sha256_equals_tpulc": True,
+                       "s": bz_s},
+                "culzss": {"bytes": len(c_cz),
+                           "sha256_equals_phase12": True, "s": cz_s}},
+            "scaling": "not measured: one card"}}), flush=True)
+    finally:
+        dist.destroy_process_group()
+
 
 def mtf_soup_entries(torch, ranks, suffix: str = "@soup",
                      builds: bool = True) -> list:
@@ -1970,7 +2277,10 @@ def traced(torch, fn, keep: list | None = None,
            on_device: bool = True) -> dict:
     """One run of fn under torch.profiler: host wall, device-busy time
     (the union of the device events' intervals: kernels and copies) and
-    share, and the ten largest device times by name; fn's output is
+    share, the kernels the trace recorded beside the kernel launches the
+    host made (fewer kernels than launches: the trace lost device
+    records, and its busy share is low), and the ten largest device
+    times by name; fn's output is
     appended to `keep` when one is given.  A run `on_device` must show
     device time; one that runs on the host alone must show none."""
     from torch.autograd import DeviceType
@@ -1982,10 +2292,12 @@ def traced(torch, fn, keep: list | None = None,
         out, wall = synced(torch, fn)
     if keep is not None:
         keep.append(out)
-    spans, by_name = [], {}
+    spans, by_name, kernel_events, launch_calls = [], {}, 0, 0
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
+            launch_calls += ev.name in LAUNCH_CALLS
             continue
+        kernel_events += not ev.name.startswith(("Memcpy", "Memset"))
         t0, t1 = ev.time_range.start, ev.time_range.end
         spans.append((t0, t1))
         us, n = by_name.get(ev.name, (0.0, 0))
@@ -2000,6 +2312,7 @@ def traced(torch, fn, keep: list | None = None,
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "busy_share": busy_us / 1e6 / wall,
+            "kernel_events": kernel_events, "launch_calls": launch_calls,
             "top": [{"name": k[:80], "ms": us / 1e3, "calls": n}
                     for k, (us, n) in top]}
 

@@ -93,16 +93,16 @@ def test_store_matches_tpulc():
 
 
 def test_registry_serves_bz_and_store_only():
-    """bz, store and (since later slices) huffman, bsc, bzip2 and lzss
-    resolve; culzss, not ported yet, names its ROADMAP item."""
+    """bz, store and (since later slices) huffman, bsc, bzip2, lzss and
+    culzss resolve: every codec of tpulc's registry."""
     assert get_codec("bz") is driver
     assert get_codec(0) is store
     assert get_codec("huffman").__name__ == "tpulc_torch.codecs.huffman.driver"
     assert get_codec("bsc").__name__ == "tpulc_torch.codecs.bsclike.driver"
     assert get_codec("bzip2").__name__ == "tpulc_torch.codecs.bwt.bzip2_codec"
     assert get_codec("lzss").__name__ == "tpulc_torch.codecs.lzss.driver"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_codec("culzss")
+    assert get_codec("culzss").__name__ == \
+        "tpulc_torch.codecs.lzss.culzss_driver"
 
 
 def test_cli_roundtrip_and_info(tmp_path, capsys):
@@ -117,13 +117,12 @@ def test_cli_roundtrip_and_info(tmp_path, capsys):
                      "--device", "cpu"]) == 0
     assert back.read_bytes() == src.read_bytes()
     assert jdrv.decompress(comp.read_bytes()) == src.read_bytes()
-    # bsc with its default -e 1 and on the ST-8 sorter round-trips; a
-    # codec not ported yet exits 2
-    for extra in ([], ["-m", "st8"]):
-        assert cli_main(["compress", "-c", "bsc", *extra, "-i", str(src),
+    # bsc with its default -e 1, on the ST-8 sorter, and culzss (the
+    # last codec ported) round-trip
+    for extra in (["-c", "bsc"], ["-c", "bsc", "-m", "st8"],
+                  ["-c", "culzss"]):
+        assert cli_main(["compress", *extra, "-i", str(src),
                          "-o", str(comp), "--device", "cpu"]) == 0
         assert cli_main(["decompress", "-i", str(comp), "-o", str(back),
                          "--device", "cpu"]) == 0
         assert back.read_bytes() == src.read_bytes()
-    assert cli_main(["compress", "-c", "culzss", "-i", str(src),
-                     "-o", str(comp), "--device", "cpu"]) == 2

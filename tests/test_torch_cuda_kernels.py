@@ -843,3 +843,60 @@ def test_lzss_on_card_matches_cpu(cuda, exact):
     raw = lzss.compress_raw(data[:20000], exact=exact, device="cuda")
     assert raw == lzss.compress_raw(data[:20000], exact=exact, device="cpu")
     assert lzss.decompress_raw(raw, 20064, device="cuda") == data[:20000]
+
+
+@pytest.mark.parametrize("name", ["pg150k", "mixed_raw", "short_tail"])
+def test_culzss_on_card_matches_cpu(cuda, monkeypatch, name):
+    """The card writes the CPU path's culzss container (compressed and
+    raw packets, a short tail block), in groups of 8 and 5 packets, and
+    each decodes the other's."""
+    from tpulc_torch.codecs.lzss import culzss as core
+    from tpulc_torch.codecs.lzss import culzss_driver as culzss
+
+    monkeypatch.setattr(core, "ENCODE_GROUP", 8)
+    monkeypatch.setattr(core, "DECODE_GROUP", 5)
+
+    with open("tests/data/pg1661.txt", "rb") as f:
+        text = f.read()[:150000]
+    rng = np.random.default_rng(4)
+    data = {"pg150k": text,
+            "mixed_raw": text[:30000] + rng.integers(
+                0, 256, size=20000).astype(np.uint8).tobytes(),
+            "short_tail": text[:4096 * 3 + 17]}[name]
+    on_card = culzss.compress(data, block_size=1 << 16, device="cuda")
+    assert on_card == culzss.compress(data, block_size=1 << 16,
+                                      device="cpu")
+    assert culzss.decompress(on_card, device="cuda") == data
+    assert culzss.decompress(on_card, device="cpu") == data
+
+
+def test_dryrun_multichip_spawns_one_nccl_rank_a_card(cuda):
+    """With no group and no device= the dry run spawns one NCCL rank a
+    card; more ranks than cards raise before anything is spawned."""
+    from tpulc_torch.dist.dryrun import dryrun_multichip
+
+    dryrun_multichip(1)
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match=f"needs {n} cards"):
+        dryrun_multichip(n)
+
+
+def test_dryrun_and_multihost_on_an_nccl_group_of_one(cuda):
+    """tpulc's dry run on the port in an NCCL group of world size 1, and
+    compress_multihost there writing the single-device container."""
+    import torch.distributed as dist
+
+    from tpulc_torch.dist.dryrun import dryrun_multichip, free_port
+    from tpulc_torch.dist.multihost import compress_multihost
+
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+        rank=0)
+    try:
+        dryrun_multichip(1)
+        with open("tests/data/pg1661.txt", "rb") as f:
+            data = f.read()[:40000]
+        assert compress_multihost(data, 16384, "bz", device="cuda") == \
+            driver.compress(data, block_size=16384, device="cuda")
+    finally:
+        dist.destroy_process_group()

@@ -2,10 +2,12 @@
 slices' `gold/lzp.py`, `gold/st_inverse.py`, `codecs/bsclike/*`,
 `codecs/bwt/masked.py` and `codecs/bwt/stk.py`, the bzip2 and lzss
 slice's `codecs/bwt/{bz2stream,bzip2_codec}.py`, `gold/bzip2.py`,
-`codecs/lzss/*` and `primitives/parallel.py` among them) pulls in
-neither jax nor triton nor tpulc (the card's machine has no jax) and
-builds nothing, and asking for CUDA without a card raises instead of
-running on the CPU."""
+`codecs/lzss/*` and `primitives/parallel.py`, and the culzss and
+distribution slice's `codecs/lzss/culzss*.py`, `dist/*` and
+`primitives/hist.py` among them)
+pulls in neither jax nor triton nor tpulc (the card's machine has no
+jax), builds nothing and initialises no process group, and asking for
+CUDA without a card raises instead of running on the CPU."""
 
 import os
 import subprocess
@@ -37,6 +39,8 @@ import tpulc_torch.gold.st_inverse as st_inverse
 import tpulc_torch.gold.bzip2 as gold_bzip2
 print("LZP_BUILT", lzp._lib is not None or st_inverse._lib is not None
       or gold_bzip2._lib is not None)
+import torch.distributed as dist
+print("GROUP", dist.is_available() and dist.is_initialized())
 print("MODULES", sorted(m.name for m in pkgutil.walk_packages(
     tpulc_torch.__path__, "tpulc_torch.")))
 """
@@ -54,7 +58,11 @@ BSC_SLICE = ["tpulc_torch.gold.lzp", "tpulc_torch.codecs.bsclike.driver",
              "tpulc_torch.codecs.bwt.bzip2_codec", "tpulc_torch.gold.bzip2",
              "tpulc_torch.codecs.lzss", "tpulc_torch.codecs.lzss.encode",
              "tpulc_torch.codecs.lzss.decode", "tpulc_torch.codecs.lzss.driver",
-             "tpulc_torch.primitives.parallel"]
+             "tpulc_torch.primitives.parallel", "tpulc_torch.primitives.hist",
+             "tpulc_torch.codecs.lzss.culzss",
+             "tpulc_torch.codecs.lzss.culzss_driver", "tpulc_torch.dist",
+             "tpulc_torch.dist.mesh", "tpulc_torch.dist.sharded",
+             "tpulc_torch.dist.multihost", "tpulc_torch.dist.dryrun"]
 
 
 def test_import_pulls_in_no_jax_triton_or_tpulc():
@@ -65,6 +73,7 @@ def test_import_pulls_in_no_jax_triton_or_tpulc():
     assert "BAD []" in r.stdout, r.stdout
     assert "BUILT False" in r.stdout  # nothing compiles at import
     assert "LZP_BUILT False" in r.stdout
+    assert "GROUP False" in r.stdout    # importing tpulc_torch.dist
     for name in BSC_SLICE:
         assert repr(name) in r.stdout, name
 
@@ -82,13 +91,17 @@ def test_cuda_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         bsc.compress(b"abc", coder=2)
     from tpulc_torch.codecs.bwt import bzip2_codec
+    from tpulc_torch.codecs.lzss import culzss_driver as culzss
     from tpulc_torch.codecs.lzss import driver as lzss
 
     for call in (lambda: bzip2_codec.compress(b"abc"),
                  lambda: bzip2_codec.decompress(
                      bzip2_codec.compress(b"abc", device="cpu")),
                  lambda: lzss.compress(b"abc"),
-                 lambda: lzss.decompress(lzss.compress(b"abc", device="cpu"))):
+                 lambda: lzss.decompress(lzss.compress(b"abc", device="cpu")),
+                 lambda: culzss.compress(b"abc"),
+                 lambda: culzss.decompress(
+                     culzss.compress(b"abc", device="cpu"))):
         with pytest.raises(RuntimeError):
             call()
     assert device_mod.resolve("cpu").type == "cpu"

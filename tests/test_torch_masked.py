@@ -1,7 +1,8 @@
 """The port's dynamic-length BWT (`tpulc_torch.codecs.bwt.masked`)
 against tpulc's on the same padded numpy blocks: ranks, idx0, anchors
 and ok equal (tolerance 0), and both inverses equal tpulc's over the
-whole capacity and give the block back."""
+whole capacity and give the block back; the unanchored RLE2 forward's
+symbols and histogram equal tpulc's."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -67,6 +68,23 @@ def test_forward_ranks_anchored_equals_tpulc(name):
     assert np.array_equal(dbl.numpy()[:n], data)
     if pok:
         assert np.array_equal(anch.numpy()[:n], data)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_forward_masked_equals_tpulc(name):
+    """bsc's unanchored forward (syms, m, idx0 and the histogram of
+    syms[:m], a `prefix_hist`) equals tpulc's `forward_masked`."""
+    data, cap = _case(name)
+    n = data.shape[0]
+    padded = np.zeros(cap, np.uint8)
+    padded[:n] = data
+    syms, m, idx0, hist = tm.forward_masked(jnp.asarray(padded),
+                                            jnp.int32(n))
+    ps, pm_, pidx0, phist = pm.forward_masked(torch.from_numpy(padded), n)
+    assert np.array_equal(ps.numpy(), np.asarray(syms))
+    assert int(pm_) == int(m) and pidx0 == int(idx0)
+    assert np.array_equal(phist.numpy(), np.asarray(hist))
+    assert int(phist.sum()) == int(m)
 
 
 def test_bwt_encode_masked_last_column_equals_tpulc():

@@ -13,10 +13,9 @@ The container is tpulc's and so are the defaults (huffman, 1 MiB
 blocks), so either CLI decodes what the other wrote, and the same
 codec arguments write the same bytes.  `bzip2` writes a bare .bz2
 stream, which `info` and `decompress` recognise by its `BZh` magic, as
-tpulc's do.  Ported: huffman, bz, store, bsc on every sorter (`-m bwt`,
-the default, `st3`..`st8`, `st8w`) with either coder (`-e 1`, the
-default, or `-e 2`), bzip2 and lzss; asking for culzss exits with
-status 2 and names the ROADMAP item that ports it.
+tpulc's do.  Every tpulc codec is ported: huffman, bz, store, bsc on
+every sorter (`-m bwt`, the default, `st3`..`st8`, `st8w`) with either
+coder (`-e 1`, the default, or `-e 2`), bzip2, lzss and culzss.
 """
 
 from __future__ import annotations
@@ -164,9 +163,6 @@ def main(argv=None) -> int:
             print(f"decompressed {len(data)} -> {len(out)} bytes in "
                   f"{dt:.3f}s on {args.device} "
                   f"({len(out) / dt / 1e6:.2f} MB/s)")
-    except NotImplementedError as e:
-        print(f"tpulc_torch: {e}", file=sys.stderr)
-        return 2
     finally:
         if timer is not None:
             timing.disable()

@@ -365,7 +365,7 @@ def _fwd_packed(padded: torch.Tensor, n: int):
     """Masked BWT + anchors, MTF, RLE2 and statistics of one block ->
     (syms, ctx, meta); syms and ctx stay on the device for the batched
     coder."""
-    syms, m, idx0, _, anchors, a_ok = forward_masked_anchored(
+    syms, m, idx0, anchors, a_ok = forward_masked_anchored(
         padded, n, ANCHOR_STRIDE)
     hists, ctx = _ctx_stats(syms, m)
     return syms, ctx, _meta(m, idx0, int(a_ok), anchors, hists, ctx)

@@ -126,6 +126,16 @@ def _unpack_nibbles(nib: np.ndarray) -> np.ndarray:
 
 # ------------------------------------------------------------ compress
 
+def _forward(block: torch.Tensor):
+    """The bz transform of a uint8[cap] block (tpulc's `_forward`
+    without its histogram): anchored BWT -> MTF (K1, the start tables,
+    K2) -> RLE2 -> (syms int32[cap], m int64 0-dim, idx0 int, anchors
+    int32[R], ok bool)."""
+    last, idx0, anchors, ok = bwt_encode_anchored(block, ANCHOR_STRIDE)
+    syms, m = rle2_encode(mtf_encode(last))
+    return syms, m, idx0, anchors, ok
+
+
 def _compress_block(block: torch.Tensor, n: int) -> bytes:
     """One zero-padded uint8[cap] block on its device -> payload bytes."""
     cap = block.shape[0]
@@ -136,8 +146,7 @@ def _compress_block(block: torch.Tensor, n: int) -> bytes:
     out_words = -(-cap * MAX_LEN // 32)
 
     with timing.stage("bz.transform"):
-        last, idx0, anchors, ok = bwt_encode_anchored(block, ANCHOR_STRIDE)
-        syms, m_t = rle2_encode(mtf_encode(last))
+        syms, m_t, idx0, anchors, ok = _forward(block)
         m = int(m_t)
     with timing.stage("bz.tables"):
         sel, clhist = refine_tables(syms, m, CHUNK_SYMS, K)

@@ -28,6 +28,7 @@ from tpulc_torch.codecs.bwt.rotsort import (
     _tied_rows,
 )
 from tpulc_torch.codecs.bwt.rle import ALPHABET, rle2_decode, rle2_encode
+from tpulc_torch.primitives.hist import prefix_hist
 from tpulc_torch.primitives.mtf import mtf_decode, mtf_encode
 
 ANCHOR_STRIDE = 512
@@ -214,21 +215,24 @@ def forward_ranks_anchored(block: torch.Tensor, n: int,
 def forward_masked_anchored(block: torch.Tensor, n: int,
                             anchor_stride: int = ANCHOR_STRIDE):
     """BWT + MTF + RLE2 for coder 1 -> (syms int32[cap], m int64 0-dim
-    (the RLE2 symbols of the first n bytes), idx0, hist int64[ALPHABET]
-    of syms[:m], anchors, ok).  Pads are MTF rank 255, each one literal
-    symbol, so m = m_all - (cap - n).  MTF runs K1, the start tables and
-    K2.  tpulc's histogram is a sort and a searchsorted; a bincount
-    gives the same integers."""
+    (the RLE2 symbols of the first n bytes), idx0, anchors, ok).  Pads
+    are MTF rank 255, each one literal symbol, so m = m_all - (cap - n).
+    MTF runs K1, the start tables and K2."""
     cap = block.shape[0]
     last, idx0, anchors, ok = bwt_encode_masked_anchored(
         block, n, anchor_stride)
     idx = torch.arange(cap, device=block.device)
     ranks = torch.where(idx < n, mtf_encode(last), 255).to(torch.uint8)
     syms, m_all = rle2_encode(ranks)
-    m = m_all - (cap - n)
-    hist = torch.bincount(torch.where(idx < m, syms, ALPHABET),
-                          minlength=ALPHABET + 1)[:ALPHABET]
-    return syms, m, idx0, hist, anchors, ok
+    return syms, m_all - (cap - n), idx0, anchors, ok
+
+
+def forward_masked(block: torch.Tensor, n: int):
+    """tpulc's unanchored `forward_masked` -> (syms, m, idx0, hist
+    int64[ALPHABET] of syms[:m]): tpulc's unanchored BWT refines and
+    orders the rows as the anchored one does."""
+    syms, m, idx0, _, _ = forward_masked_anchored(block, n)
+    return syms, m, idx0, prefix_hist(syms, m, ALPHABET)
 
 
 def inverse_masked(syms: torch.Tensor, m: int, n: int, idx0: int):

@@ -1,9 +1,10 @@
-"""The Dipperstein LZSS codec (port of `tpulc/codecs/lzss`'s `lzss`
-half; `culzss` is not ported yet).
+"""The LZ codecs (port of `tpulc/codecs/lzss`): the Dipperstein LZSS
+codec (`lzss`) and the CULZSS packet codec (`culzss`, `culzss.py` and
+`culzss_driver.py`).
 
-Wire format: the lzss-0.6.2 bitstream (12-bit ring offset, 4-bit
-length, `cuda-lzss-unknown/lzss-0.6.2/lzlocal.h:70-82`), interoperable
-both ways with the reference CPU codec.
+`lzss`'s wire format: the lzss-0.6.2 bitstream (12-bit ring offset,
+4-bit length, `cuda-lzss-unknown/lzss-0.6.2/lzlocal.h:70-82`),
+interoperable both ways with the reference CPU codec.
 
 Design (against the reference's serial loops): encode by sort-based
 3-gram candidates, packed-word match extension and a path-doubling

@@ -1,10 +1,8 @@
 """Codec registry: the codec ids of `tpulc/pipeline/registry.py:12-18`
 (the container's codec byte), resolving to the port's drivers.
 
-`store`, `huffman`, `bz`, `bsc` (every sorter, both coders), `bzip2`
-and `lzss` are ported so far; `culzss` resolves to a
-`NotImplementedError` that names the ROADMAP item porting it, so a
-container written by tpulc with that codec is recognised, not misread.
+All seven of tpulc's codecs are ported: `store`, `huffman`, `lzss`,
+`culzss`, `bz`, `bsc` (every sorter, both coders) and `bzip2`.
 """
 
 from __future__ import annotations
@@ -26,12 +24,6 @@ _NAMES = {
     "bsc": CODEC_BSC,
     "bzip2": CODEC_BZIP2,
 }
-
-# codec id -> ROADMAP queue-1 item that ports it
-_NOT_PORTED = {
-    CODEC_LZSS_CULZSS: "queue 1 item 11 (LZ codecs)",
-}
-
 
 def available_codecs() -> dict[str, int]:
     return dict(_NAMES)
@@ -65,9 +57,7 @@ def get_codec(name_or_id: str | int):
     if cid == CODEC_LZSS:
         from tpulc_torch.codecs.lzss import driver
         return driver
-    if cid in _NOT_PORTED:
-        raise NotImplementedError(
-            f"codec {codec_name_of(cid)!r} is not ported to tpulc_torch "
-            f"yet: ROADMAP {_NOT_PORTED[cid]}"
-        )
+    if cid == CODEC_LZSS_CULZSS:
+        from tpulc_torch.codecs.lzss import culzss_driver
+        return culzss_driver
     raise KeyError(f"unknown codec {name_or_id!r}")
