@@ -8,6 +8,7 @@
     python3 chip_smoke.py --st
     python3 chip_smoke.py --lz
     python3 chip_smoke.py --dist
+    python3 chip_smoke.py --prim
 
 The second and third forms run one turn of a parent/change comparison
 with the tpulc_torch package under DIR (default: this checkout), e.g. a
@@ -18,7 +19,7 @@ and the start tables as that tree's `mtf_encode` calls them, device ms
 at the bz and soup shapes, and the bz and bsc -e2 compress MB/s.
 `--e1`: the card, the build and phase 9 alone; `--st`: the same for
 phase 10; `--lz`: the same for phases 11 and 12; `--dist`: the same for
-phase 13.
+phase 13; `--prim`: the same for phase 14.
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -138,7 +139,25 @@ Phases (any failure exits non-zero before the last line is printed):
    compress_multihost of pg1661 x 6 writes tpulc's
    single-process compress_multihost bytes for bz (900,000 B blocks)
    and phase 12's container for culzss.  One card: multi-GPU scaling is
-   not measured.
+   not measured;
+14. the primitive layer (plain torch, no hand kernel may launch) at the
+   sizes users run, each timed as the median of 3 warm runs between
+   synchronisations, with GB/s of input and peak device memory: the
+   doubling and device-DC3 suffix arrays of pg1661 x 6 and of one 25
+   MiB soup block, equal to each other and, on the first 900,000 B, to
+   the host DC3 (doubling rounds printed); SA + sa_to_bwt beside
+   rotsort.bwt_encode_anchored on that 900,000 B block; sort_strings_full
+   of pg1661 x 6's lines against Python's sorted (ties by the device
+   DC3's ranks); scans (cummax beside the log-step form),
+   segmented_scan, compact, multisplit, sort_pairs, merge_sorted and
+   reduce on 2^26 int32 against numpy; listrank of 2^24 nodes; md5_rand
+   of 2^26 words against hashlib on 4,096 blocks; spmv of 2^20 x 32
+   against float64 numpy; tridiagonal_solve of 4,096 systems x 1,024
+   by float64 residual; a cuckoo table of 2^22 keys (every value right,
+   2^22 absent keys not found); byte histograms of 100 MB and 96 x 1
+   MiB; the lzss gold and the card decoding each other's streams of
+   phase 11's blocks, and every culzss packet of phase 12 decoded by
+   the serial gold.
    The script's total seconds are printed before the last two lines.
 
 Every kernel entry carries its bound: the larger of the bytes it must
@@ -321,6 +340,20 @@ RANS_SRC = "tpulc_torch/csrc/rans_ctx.cu"
 # and the symbol's rebuild (~10)
 ABC_ENC_OPS = 45
 ABC_DEC_OPS = 60
+# phase 14, the primitive layer at the sizes its users run (PERF.md §4):
+# one libbsc default block of bench.py's soup for the suffix arrays; 2^26
+# int32 for the scans and sorts; 2^24 list nodes; 2^26 random words; a
+# CSR of 2^20 rows x 32 entries; 4,096 tridiagonal systems of 1,024; a
+# cuckoo table of 2^22 keys at tpulc's space 1.6; histograms of the
+# huffman cell's 100 MB and of 96 rows of 1 MiB
+PRIM_SOUP = ST_SOUP_SIZE
+PRIM_N = 1 << 26
+PRIM_NODES = 1 << 24
+PRIM_SEED = 0x5EED
+SPMV_ROWS, SPMV_ROW_NNZ = 1 << 20, 32
+TRI_SYSTEMS, TRI_N = 4096, 1024
+CUCKOO_KEYS = 1 << 22
+HIST_ROWS = 96
 
 
 def outputs_sha256(outs) -> str:
@@ -735,6 +768,9 @@ def main() -> int:
     ap.add_argument("--dist", action="store_true",
                     help="phase 13 alone (the distribution layer, NCCL "
                          "world size 1)")
+    ap.add_argument("--prim", action="store_true",
+                    help="phase 14 alone (the primitive layer and the "
+                         "golds)")
     ap.add_argument("--root", default=None,
                     help="with --walks or --mtf: the checkout whose "
                          "tpulc_torch runs")
@@ -772,10 +808,11 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas {src}: {line.strip()}")
 
-    if opts.e1 or opts.st or opts.lz or opts.dist:
+    if opts.e1 or opts.st or opts.lz or opts.dist or opts.prim:
         kernels = []
         phases = ([bsc_e1_phase] if opts.e1 else [st_phase] if opts.st
-                  else [lz_phase, culzss_phase] if opts.lz else [dist_phase])
+                  else [lz_phase, culzss_phase] if opts.lz
+                  else [dist_phase] if opts.dist else [prim_phase])
         for phase in phases:
             phase(torch, here, kernels)
         print(f"total: {time.perf_counter() - t_start:.1f} s")
@@ -902,6 +939,7 @@ def main() -> int:
     lz_phase(torch, here, kernels)
     culzss_phase(torch, here, kernels)
     dist_phase(torch, here, kernels)
+    prim_phase(torch, here, kernels)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2182,6 +2220,384 @@ def dist_phase(torch, here: str, kernels: list) -> None:
             "scaling": "not measured: one card"}}), flush=True)
     finally:
         dist.destroy_process_group()
+
+
+def warm3(torch, fn):
+    """-> (fn()'s first result, the median ms of 3 more runs, each
+    between two torch.cuda.synchronize() calls, and the peak device
+    memory over the four calls, the first result alive)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    ts = [synced(torch, fn)[1] for _ in range(3)]
+    return out, statistics.median(ts) * 1e3, torch.cuda.max_memory_allocated()
+
+
+def prim_line(name: str, in_bytes: int, ms: float, peak: int, **extra):
+    print(json.dumps({f"prim_{name}": {
+        "input_bytes": in_bytes, "ms": ms, "GBps": in_bytes / ms / 1e6,
+        "peak_mem_bytes": peak,
+        "timing": "median of 3 warm runs, host clock, synchronized",
+        **extra}}), flush=True)
+
+
+def prim_suffix(torch, here: str) -> None:
+    """Phase 14's suffix arrays, the SA-based BWT beside the rotation
+    sort, and sort_strings_full."""
+    import numpy as np
+
+    from tpulc_torch.codecs.bwt import rotsort
+    from tpulc_torch.primitives import parallel as par
+    from tpulc_torch.primitives.dc3 import dc3_suffix_array
+    from tpulc_torch.primitives.dc3_device import (
+        _suffix_ranks,
+        suffix_array_dc3,
+    )
+    from tpulc_torch.primitives.suffix import sa_to_bwt, suffix_array
+
+    dev = torch.device("cuda")
+    pg = corpus(here)
+
+    def on_card(b: bytes):
+        return torch.frombuffer(bytearray(b), dtype=torch.uint8).to(dev)
+
+    for label, data in (("pg1661x6", pg), ("soup25MiB", soup(PRIM_SOUP))):
+        d = on_card(data)
+        sa, ms, peak = warm3(torch, lambda: suffix_array(d))
+        rounds = suffix_array.rounds
+        sa3, ms3, peak3 = warm3(torch, lambda: suffix_array_dc3(d))
+        require(torch.equal(sa, sa3), f"suffix arrays differ on {label}")
+        prim_line(f"suffix_array_{label}", len(data), ms, peak,
+                  doubling_rounds=rounds)
+        prim_line(f"suffix_array_dc3_{label}", len(data), ms3, peak3,
+                  sample_doubling_rounds=_suffix_ranks.rounds,
+                  equals_doubling=True)
+        del d, sa, sa3
+
+    # bz's block: SA + sa_to_bwt beside the production rotation sort
+    head = np.frombuffer(pg[:BLOCK], np.uint8)
+    want, host_s = synced(torch, lambda: dc3_suffix_array(head))
+    blk = on_card(pg[:BLOCK])
+
+    def sa_bwt():
+        sa = suffix_array(blk)
+        return sa, *sa_to_bwt(blk, sa)
+
+    (sa, bwt, idx0), ms, peak = warm3(torch, sa_bwt)
+    require(np.array_equal(sa.cpu().numpy(), want),
+            "suffix_array differs from the host DC3 on 900,000 B")
+    require(np.array_equal(suffix_array_dc3(blk).cpu().numpy(), want),
+            "suffix_array_dc3 differs from the host DC3 on 900,000 B")
+    require(np.array_equal(bwt.cpu().numpy(), head[(want - 1) % BLOCK])
+            and int(idx0) == int(np.flatnonzero(want == 0)[0]),
+            "sa_to_bwt differs from the host DC3's BWT")
+    _, ms_rot, peak_rot = warm3(
+        torch, lambda: rotsort.bwt_encode_anchored(blk, 512))
+    prim_line("sa_bwt_900000", BLOCK, ms, peak,
+              doubling_rounds=suffix_array.rounds, host_dc3_s=host_s,
+              equals_host_dc3=True, rotsort_bwt_encode_anchored_ms=ms_rot,
+              rotsort_peak_mem_bytes=peak_rot)
+    del sa, bwt, blk
+
+    # sort_strings_full of pg1661 x 6's lines
+    lines = pg.split(b"\n")
+    packed = np.frombuffer(pg.replace(b"\n", b"\0") + b"\0", np.uint8)
+    starts = np.concatenate([[0], np.flatnonzero(packed[:-1] == 0) + 1])
+    chars = torch.from_numpy(packed.copy()).to(dev)
+    st = torch.from_numpy(starts).to(dev)
+    order, ms, peak = warm3(torch, lambda: par.sort_strings_full(chars, st))
+    got = order.cpu().numpy()
+    require([lines[i] for i in got] == sorted(lines),
+            "sort_strings_full differs from Python's sorted")
+    rank = torch.empty_like(chars, dtype=torch.int64)
+    rank[suffix_array_dc3(chars)] = torch.arange(chars.shape[0], device=dev)
+    ties = torch.sort(rank[st], stable=True).indices.cpu().numpy()
+    require(np.array_equal(got, ties),
+            "sort_strings_full breaks ties unlike the device DC3's ranks")
+    prim_line("sort_strings_full_pg1661x6", len(packed), ms, peak,
+              strings=len(lines), doubling_rounds=suffix_array.rounds)
+
+
+def prim_parallel(torch) -> None:
+    """Phase 14's scans, segmented scan, compaction, sorts, reduction
+    and listrank against numpy."""
+    import numpy as np
+
+    from tpulc_torch.primitives import parallel as par
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(PRIM_SEED)
+    xn = rng.integers(-(1 << 30), 1 << 30, PRIM_N, dtype=np.int32)
+    x = torch.from_numpy(xn).to(dev)
+    nb = xn.nbytes
+
+    def check(name, fn, want, **extra):
+        got, ms, peak = warm3(torch, fn)
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        for g, w in zip(got, want):
+            require(np.array_equal(g.cpu().numpy(), w), f"{name} differs "
+                                                        "from numpy")
+        prim_line(name, nb, ms, peak, **extra)
+        return ms
+
+    def excl(incl, ident):
+        return np.concatenate([[ident], incl[:-1]]).astype(incl.dtype)
+
+    cs = np.cumsum(xn, dtype=np.int32)
+    check("scan_add", lambda: par.scan(x), cs)
+    check("scan_add_exclusive", lambda: par.scan(x, exclusive=True),
+          excl(cs, 0))
+    rev = np.cumsum(xn[::-1], dtype=np.int32)[::-1]
+    check("scan_add_reverse", lambda: par.scan(x, reverse=True), rev)
+    mx = np.maximum.accumulate(xn)
+    cm = check("scan_max_cummax", lambda: par.scan(x, op=torch.maximum), mx)
+    ls = check("scan_max_log_step",
+               lambda: par.scan(x, op=lambda a, b: torch.maximum(a, b)), mx)
+    check("scan_min_reverse_exclusive",
+          lambda: par.scan(x, op=torch.minimum, exclusive=True,
+                           reverse=True),
+          excl(np.minimum.accumulate(xn[::-1]),
+               np.iinfo(np.int32).max)[::-1])
+    check("scan_or_log_step", lambda: par.scan(x, op=torch.bitwise_or),
+          np.bitwise_or.accumulate(xn))
+    check("multi_scan_add_4096_rows", lambda: par.multi_scan(x.view(4096, -1)),
+          np.cumsum(xn.reshape(4096, -1), axis=1, dtype=np.int32))
+    print(json.dumps({"prim_cummax_vs_log_step": {
+        "n": PRIM_N, "cummax_ms": cm, "log_step_ms": ls}}), flush=True)
+
+    # segmented scans: segments of ~1,000
+    fl = rng.random(PRIM_N) < 1e-3
+    f = torch.from_numpy(fl).to(dev)
+    head = fl.copy()
+    head[0] = True
+    seg = np.cumsum(head) - 1
+    c64 = np.cumsum(xn, dtype=np.int64)
+    base = (c64 - xn)[np.flatnonzero(head)]
+    check("segmented_scan_add", lambda: par.segmented_scan(x, f),
+          (c64 - base[seg]).astype(np.int32))
+    off = seg.astype(np.int64) << 33
+    check("segmented_scan_max_log_step",
+          lambda: par.segmented_scan(x, f, op=torch.maximum),
+          (np.maximum.accumulate(off + xn) - off).astype(np.int32))
+    del fl, f, head, seg, c64, base, off
+
+    mk = rng.random(PRIM_N) < 0.3
+    m = torch.from_numpy(mk).to(dev)
+    want = np.full(PRIM_N, -1, np.int32)
+    want[: int(mk.sum())] = xn[mk]
+    got, ms, peak = warm3(torch, lambda: par.compact(x, m, fill=-1))
+    require(np.array_equal(got[0].cpu().numpy(), want)
+            and int(got[1]) == int(mk.sum()), "compact differs from numpy")
+    prim_line("compact", nb, ms, peak, kept=int(mk.sum()))
+    del mk, m, want, got
+
+    bk = rng.integers(0, 256, PRIM_N).astype(np.uint8)
+    order = np.argsort(bk, kind="stable")
+    counts = np.bincount(bk, minlength=256)
+    b = torch.from_numpy(bk.astype(np.int32)).to(dev)
+    check("multisplit_256", lambda: par.multisplit(x, b, 256),
+          (xn[order], np.cumsum(counts) - counts))
+    kk = rng.integers(0, 1 << 16, PRIM_N).astype(np.uint16)
+    order = np.argsort(kk, kind="stable")
+    k = torch.from_numpy(kk.astype(np.int32)).to(dev)
+    check("sort_pairs", lambda: par.sort_pairs(k, x),
+          (kk[order].astype(np.int32), xn[order]))
+    h = PRIM_N // 2
+    a_s = torch.sort(k[:h]).values
+    b_s = torch.sort(k[h:]).values
+    check("merge_sorted", lambda: par.merge_sorted(a_s, b_s),
+          np.sort(kk, kind="stable").astype(np.int32))
+    del bk, order, counts, b, kk, k, a_s, b_s
+    s64 = int(xn.sum(dtype=np.int64))
+    for name, op, want in (
+            ("add", torch.add, (s64 + (1 << 31)) % (1 << 32) - (1 << 31)),
+            ("max", torch.maximum, int(xn.max())),
+            ("min", torch.minimum, int(xn.min()))):
+        got, ms, peak = warm3(torch, lambda: par.reduce(x, op=op))
+        require(int(got) == want, f"reduce {name} differs from numpy")
+        prim_line(f"reduce_{name}", nb, ms, peak)
+    del x
+
+    order = rng.permutation(PRIM_NODES)
+    nxt = np.empty(PRIM_NODES, np.int32)
+    nxt[order] = np.roll(order, -1)
+    rank = np.empty(PRIM_NODES, np.int64)
+    rank[order] = np.arange(PRIM_NODES)
+    t = torch.from_numpy(nxt).to(dev)
+    got, ms, peak = warm3(torch, lambda: par.listrank(t, int(order[0])))
+    require(np.array_equal(got.cpu().numpy(), rank),
+            "listrank differs from the known ranks")
+    prim_line("listrank", nxt.nbytes, ms, peak, nodes=PRIM_NODES)
+
+
+def prim_aux(torch, here: str) -> None:
+    """Phase 14's MD5 rand, spmv, tridiagonal solver, cuckoo table and
+    histograms."""
+    import struct
+
+    import numpy as np
+
+    from tpulc_torch.primitives import cudpp_aux, histogram
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(PRIM_SEED + 1)
+
+    words, ms, peak = warm3(
+        torch, lambda: cudpp_aux.md5_rand(PRIM_N, PRIM_SEED, device="cuda"))
+    require(torch.equal(words, cudpp_aux.md5_rand(PRIM_N, PRIM_SEED,
+                                                  device="cuda")),
+            "md5_rand is not deterministic")
+    blocks = rng.choice(PRIM_N // 4, 4096, replace=False)
+    w = words.view(-1, 4)[torch.from_numpy(blocks).to(dev)].cpu().numpy()
+    for j, blk in enumerate(blocks):
+        want = np.frombuffer(hashlib.md5(struct.pack(
+            "<II", PRIM_SEED, int(blk))).digest(), "<u4")
+        require(np.array_equal(w[j], want), f"md5_rand block {blk} differs "
+                                            "from hashlib.md5")
+    prim_line("md5_rand", PRIM_N * 4, ms, peak, words=PRIM_N,
+              blocks_checked=4096, bytes_are="output (uint32 words)")
+    del words
+
+    nnz = SPMV_ROWS * SPMV_ROW_NNZ
+    cols = rng.integers(0, SPMV_ROWS, nnz).astype(np.int32)
+    vals = rng.standard_normal(nnz, dtype=np.float32)
+    xv = rng.standard_normal(SPMV_ROWS, dtype=np.float32)
+    row_ptr = np.arange(0, nnz + 1, SPMV_ROW_NNZ, dtype=np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (vals, cols, row_ptr, xv)]
+    y, ms, peak = warm3(torch, lambda: cudpp_aux.spmv(*args))
+    prod = (vals.astype(np.float64) * xv.astype(np.float64)[cols]).reshape(
+        SPMV_ROWS, SPMV_ROW_NNZ)
+    err = np.abs(y.cpu().numpy() - prod.sum(1)) / np.abs(prod).sum(1)
+    require(float(err.max()) <= 1e-5, f"spmv off by {float(err.max())}")
+    prim_line("spmv", sum(a.nbytes for a in (vals, cols, row_ptr, xv)), ms,
+              peak, rows=SPMV_ROWS, nnz=nnz, max_rel_err=float(err.max()))
+    del args, prod, y
+
+    shape = (TRI_SYSTEMS, TRI_N)
+    a = (rng.standard_normal(shape) * 0.3).astype(np.float32)
+    c = (rng.standard_normal(shape) * 0.3).astype(np.float32)
+    b = (2.0 + np.abs(rng.standard_normal(shape))).astype(np.float32)
+    d = rng.standard_normal(shape).astype(np.float32)
+    args = [torch.from_numpy(z).to(dev) for z in (a, b, c, d)]
+    xs, ms, peak = warm3(torch, lambda: cudpp_aux.tridiagonal_solve(*args))
+    x64 = xs.cpu().numpy().astype(np.float64)
+    r = b * x64 - d
+    r[:, 1:] += a[:, 1:] * x64[:, :-1]
+    r[:, :-1] += c[:, :-1] * x64[:, 1:]
+    rel = np.linalg.norm(r, axis=1) / np.linalg.norm(d.astype(np.float64),
+                                                     axis=1)
+    require(float(rel.max()) <= 1e-4,
+            f"tridiagonal residual {float(rel.max())}")
+    prim_line("tridiagonal_solve", 4 * a.nbytes, ms, peak,
+              systems=TRI_SYSTEMS, n=TRI_N, max_rel_residual=float(rel.max()))
+    del args, xs
+
+    cand = np.unique(rng.integers(0, 0xFFFFFFFF, int(2.2 * CUCKOO_KEYS),
+                                  dtype=np.uint64)).astype(np.uint32)
+    rng.shuffle(cand)
+    keys, absent = cand[:CUCKOO_KEYS], cand[CUCKOO_KEYS: 2 * CUCKOO_KEYS]
+    vals = rng.integers(0, 1 << 32, CUCKOO_KEYS, dtype=np.uint64).astype(
+        np.uint32)
+    table, ms, peak = warm3(
+        torch, lambda: cudpp_aux.CuckooTable(keys, vals, device="cuda"))
+    q = torch.from_numpy(np.concatenate([keys, absent]).astype(
+        np.int64)).to(dev)
+    (v, f), ms_l, peak_l = warm3(torch, lambda: table.lookup(q))
+    v, f = v.cpu().numpy(), f.cpu().numpy()
+    require(bool(f[:CUCKOO_KEYS].all())
+            and np.array_equal(v[:CUCKOO_KEYS], vals.astype(np.int64)),
+            "cuckoo: a key's value is wrong")
+    require(not f[CUCKOO_KEYS:].any(), "cuckoo: an absent key was found")
+    prim_line("cuckoo_build", keys.nbytes + vals.nbytes, ms, peak,
+              keys=CUCKOO_KEYS, slots=table.size, build_rounds=table.rounds,
+              stash=int(table.stash_k.shape[0]) - 1)
+    prim_line("cuckoo_lookup", 4 * 2 * CUCKOO_KEYS, ms_l, peak_l,
+              present=CUCKOO_KEYS, absent=CUCKOO_KEYS)
+    del table, q
+
+    data = np.frombuffer(corpus(here, HUFF_SIZE), np.uint8)
+    t = torch.from_numpy(data.copy()).to(dev)
+    got, ms, peak = warm3(torch, lambda: histogram.byte_histogram(t))
+    require(np.array_equal(got.cpu().numpy(),
+                           np.bincount(data, minlength=256)),
+            "byte_histogram differs from np.bincount")
+    prim_line("byte_histogram", data.nbytes, ms, peak)
+    rows = np.frombuffer(corpus(here, HIST_ROWS << 20), np.uint8).reshape(
+        HIST_ROWS, -1)
+    t = torch.from_numpy(rows.copy()).to(dev)
+    got, ms, peak = warm3(torch, lambda: histogram.batched_byte_histogram(t))
+    require(np.array_equal(got.cpu().numpy(), np.stack(
+        [np.bincount(r, minlength=256) for r in rows])),
+            "batched_byte_histogram differs from np.bincount")
+    prim_line("batched_byte_histogram", rows.nbytes, ms, peak,
+              rows=HIST_ROWS)
+
+
+def prim_golds(torch, here: str) -> None:
+    """Phase 14's golds on the card's streams: the lzss gold and the card
+    decode each other's streams of phase 11's blocks; every culzss packet
+    of phase 12's container decodes by the serial gold."""
+    from tpulc_torch.codecs.lzss import driver as lzss
+    from tpulc_torch.codecs.lzss.culzss_driver import _parse
+    from tpulc_torch.gold import culzss_gold, lzss_gold
+    from tpulc_torch.pipeline.container import Container
+    from tpulc_torch.pipeline.registry import get_codec
+
+    pg = corpus(here)
+    c = Container.from_bytes(lzss.compress(pg, block_size=LZSS_BLOCK,
+                                           device="cuda"))
+    dec_s = enc_s = card_s = 0.0
+    for j, (p, info) in enumerate(zip(c.payloads, c.block_infos())):
+        blk = pg[j * LZSS_BLOCK: j * LZSS_BLOCK + info.raw_size]
+        back, dt = synced(torch, lambda: lzss_gold.lzss_decode(p, len(blk)))
+        require(back == blk, f"lzss gold fails on the card's block {j}")
+        enc, et = synced(torch, lambda: lzss_gold.lzss_encode(blk))
+        back, ct = synced(torch, lambda: lzss.decompress_raw(
+            enc, len(blk), device="cuda"))
+        require(back == blk, f"the card fails on the gold's block {j}")
+        dec_s, enc_s, card_s = dec_s + dt, enc_s + et, card_s + ct
+    print(json.dumps({"prim_lzss_golds": {
+        "blocks": len(c.payloads), "gold_decodes_card": True,
+        "card_decodes_gold": True, "gold_decode_s": dec_s,
+        "gold_encode_s": enc_s, "card_decode_s": card_s}}), flush=True)
+
+    c = Container.from_bytes(get_codec("culzss").compress(
+        pg, block_size=CULZSS_BLOCK, device="cuda"))
+    packets = raw_packets = 0
+    t0 = time.perf_counter()
+    for j, (p, info) in enumerate(zip(c.payloads, c.block_infos())):
+        sizes, raw, coded, _ = _parse(p, info.raw_size)
+        blk = pg[j * CULZSS_BLOCK: j * CULZSS_BLOCK + info.raw_size]
+        ends = sizes.cumsum()
+        for k in range(sizes.shape[0]):
+            want = blk[k * 4096: (k + 1) * 4096]
+            if raw[k]:
+                raw_packets += 1
+                continue
+            got = culzss_gold.decode_packet(
+                coded[ends[k] - sizes[k]: ends[k]].tobytes())
+            require(got[: len(want)] == want
+                    and got[len(want):] == bytes(len(got) - len(want))
+                    and len(got) in (4096, len(want)),
+                    f"culzss gold fails on packet {k} of block {j}")
+            packets += 1
+    print(json.dumps({"prim_culzss_gold": {
+        "packets_decoded": packets, "raw_packets": raw_packets,
+        "gold_decode_s": time.perf_counter() - t0}}), flush=True)
+
+
+def prim_phase(torch, here: str, kernels: list) -> None:
+    """Phase 14: the primitive layer and the golds at the sizes users
+    run (see the module docstring).  No hand kernel may launch: the
+    layer is plain torch, and `kernels` gains no entry."""
+    _, dt, launches = counted(torch, hand_kernels(), lambda: (
+        prim_suffix(torch, here), prim_parallel(torch),
+        prim_aux(torch, here), prim_golds(torch, here)))
+    launched = {k: v for k, v in launches.items() if v}
+    require(not launched, f"the primitive layer launched hand kernels: "
+                          f"{launched}")
+    print(f"phase 14: {dt:.1f} s", flush=True)
 
 
 def mtf_soup_entries(torch, ranks, suffix: str = "@soup",

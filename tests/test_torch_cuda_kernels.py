@@ -900,3 +900,94 @@ def test_dryrun_and_multihost_on_an_nccl_group_of_one(cuda):
             driver.compress(data, block_size=16384, device="cuda")
     finally:
         dist.destroy_process_group()
+
+
+def _prim_cases():
+    """name -> fn(device) over the same 50,000-element seeded inputs:
+    the primitive layer's integer functions."""
+    from tpulc_torch.primitives import cudpp_aux, histogram
+    from tpulc_torch.primitives import parallel as par
+    from tpulc_torch.primitives.dc3_device import suffix_array_dc3
+    from tpulc_torch.primitives.suffix import sa_to_bwt, suffix_array
+
+    n = 50_000
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32))
+    flags = torch.from_numpy(rng.random(n) < 0.01)
+    mask = torch.from_numpy(rng.random(n) < 0.3)
+    buckets = torch.from_numpy(rng.integers(-3, 40, n).astype(np.int32))
+    keys = torch.from_numpy(rng.integers(0, 500, n).astype(np.int32))
+    order = rng.permutation(n)
+    nxt = np.empty(n, np.int32)
+    nxt[order] = np.roll(order, -1)
+    nxt = torch.from_numpy(nxt)
+    with open("tests/data/pg1661.txt", "rb") as f:
+        text = torch.from_numpy(np.frombuffer(f.read()[:n], np.uint8).copy())
+    lines = text.clone()
+    lines[lines == 10] = 0
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64),
+                        torch.nonzero(lines[:-1] == 0)[:, 0] + 1])
+    ops = (torch.add, torch.maximum, torch.minimum, torch.bitwise_or)
+    return {
+        "scans": lambda d: [par.scan(x.to(d), op=op, exclusive=e, reverse=r)
+                            for op in ops for e in (False, True)
+                            for r in (False, True)
+                            if not (e and op is torch.bitwise_or)],
+        "multi_scan": lambda d: [par.multi_scan(x.view(50, -1).to(d), op=op,
+                                                reverse=True) for op in ops],
+        "segmented_scan": lambda d: [par.segmented_scan(x.to(d), flags.to(d),
+                                                        op=op) for op in ops],
+        "compact_reduce": lambda d: [*par.compact(x.to(d), mask.to(d)),
+                                     *(par.reduce(x.to(d), op=op)
+                                       for op in ops[:3])],
+        "sorts": lambda d: [*par.sort_pairs(keys.to(d), x.to(d)),
+                            par.merge_sorted(torch.sort(keys).values.to(d),
+                                             torch.sort(x).values.to(d)),
+                            *par.multisplit(x.to(d), buckets.to(d), 37)],
+        "listrank": lambda d: [par.listrank(nxt.to(d), int(order[0]))],
+        "suffix_arrays": lambda d: [suffix_array(text.to(d)),
+                                    suffix_array_dc3(text.to(d)),
+                                    *sa_to_bwt(text.to(d),
+                                               suffix_array(text.to(d))),
+                                    par.sort_strings_full(lines.to(d),
+                                                          starts.to(d))],
+        "histograms": lambda d: [
+            histogram.byte_histogram(text.to(d)),
+            histogram.batched_byte_histogram(text.view(10, -1).to(d), 200)],
+        "md5_rand": lambda d: [cudpp_aux.md5_rand(n, 12345, device=d)],
+    }
+
+
+@pytest.mark.parametrize("name", ["scans", "multi_scan", "segmented_scan",
+                                  "compact_reduce", "sorts", "listrank",
+                                  "suffix_arrays", "histograms", "md5_rand"])
+def test_integer_primitives_on_card_equal_cpu(cuda, name):
+    """Every integer primitive gives the CPU's result on the card at
+    50,000 elements."""
+    fn = _prim_cases()[name]
+    for got, want in zip(fn(cuda), fn(torch.device("cpu"))):
+        torch.cuda.synchronize()
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), want), name
+
+
+def test_cuckoo_table_on_card(cuda):
+    """A table of 2^16 keys built on the card: one winner a slot writes
+    both the key and the value (the table equals the CPU's), and every
+    lookup is right; absent keys are not found."""
+    from tpulc_torch.primitives.cudpp_aux import CuckooTable
+
+    rng = np.random.default_rng(17)
+    n = 1 << 16
+    keys = rng.choice(1 << 31, size=n, replace=False).astype(np.uint32)
+    vals = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    on_card = CuckooTable(keys, vals, device=cuda)
+    on_cpu = CuckooTable(keys, vals, device="cpu")
+    for name in ("tk", "tv", "stash_k", "stash_v"):
+        assert torch.equal(getattr(on_card, name).cpu(),
+                           getattr(on_cpu, name)), name
+    got, found = on_card.lookup(keys)
+    assert bool(found.all())
+    assert np.array_equal(got.cpu().numpy(), vals.astype(np.int64))
+    absent = (keys.astype(np.uint64) + (1 << 31)).astype(np.uint32)
+    assert not bool(on_card.lookup(absent)[1].any())

@@ -2,9 +2,11 @@
 slices' `gold/lzp.py`, `gold/st_inverse.py`, `codecs/bsclike/*`,
 `codecs/bwt/masked.py` and `codecs/bwt/stk.py`, the bzip2 and lzss
 slice's `codecs/bwt/{bz2stream,bzip2_codec}.py`, `gold/bzip2.py`,
-`codecs/lzss/*` and `primitives/parallel.py`, and the culzss and
-distribution slice's `codecs/lzss/culzss*.py`, `dist/*` and
-`primitives/hist.py` among them)
+`codecs/lzss/*` and `primitives/parallel.py`, the culzss and
+distribution slice's `codecs/lzss/culzss*.py` and `dist/*`, and the
+primitive layer's `primitives/{parallel,suffix,dc3,dc3_device,
+histogram,cudpp_aux}.py` and `gold/{lzss_gold,culzss_gold}.py` among
+them)
 pulls in neither jax nor triton nor tpulc (the card's machine has no
 jax), builds nothing and initialises no process group, and asking for
 CUDA without a card raises instead of running on the CPU."""
@@ -37,8 +39,9 @@ print("BUILT", tpulc_torch.cuda_lib._lib is not None)
 import tpulc_torch.gold.lzp as lzp
 import tpulc_torch.gold.st_inverse as st_inverse
 import tpulc_torch.gold.bzip2 as gold_bzip2
+import tpulc_torch.gold.lzss_gold as lzss_gold
 print("LZP_BUILT", lzp._lib is not None or st_inverse._lib is not None
-      or gold_bzip2._lib is not None)
+      or gold_bzip2._lib is not None or lzss_gold._lib is not None)
 import torch.distributed as dist
 print("GROUP", dist.is_available() and dist.is_initialized())
 print("MODULES", sorted(m.name for m in pkgutil.walk_packages(
@@ -58,7 +61,12 @@ BSC_SLICE = ["tpulc_torch.gold.lzp", "tpulc_torch.codecs.bsclike.driver",
              "tpulc_torch.codecs.bwt.bzip2_codec", "tpulc_torch.gold.bzip2",
              "tpulc_torch.codecs.lzss", "tpulc_torch.codecs.lzss.encode",
              "tpulc_torch.codecs.lzss.decode", "tpulc_torch.codecs.lzss.driver",
-             "tpulc_torch.primitives.parallel", "tpulc_torch.primitives.hist",
+             "tpulc_torch.primitives.parallel",
+             "tpulc_torch.primitives.histogram",
+             "tpulc_torch.primitives.suffix", "tpulc_torch.primitives.dc3",
+             "tpulc_torch.primitives.dc3_device",
+             "tpulc_torch.primitives.cudpp_aux",
+             "tpulc_torch.gold.lzss_gold", "tpulc_torch.gold.culzss_gold",
              "tpulc_torch.codecs.lzss.culzss",
              "tpulc_torch.codecs.lzss.culzss_driver", "tpulc_torch.dist",
              "tpulc_torch.dist.mesh", "tpulc_torch.dist.sharded",
@@ -102,6 +110,12 @@ def test_cuda_without_a_card_raises(monkeypatch):
                  lambda: culzss.compress(b"abc"),
                  lambda: culzss.decompress(
                      culzss.compress(b"abc", device="cpu"))):
+        with pytest.raises(RuntimeError):
+            call()
+    from tpulc_torch.primitives import cudpp_aux
+
+    for call in (lambda: cudpp_aux.md5_rand(4, 1),
+                 lambda: cudpp_aux.CuckooTable([1, 2], [3, 4])):
         with pytest.raises(RuntimeError):
             call()
     assert device_mod.resolve("cpu").type == "cpu"

@@ -28,7 +28,7 @@ from tpulc_torch.codecs.bwt.rotsort import (
     _tied_rows,
 )
 from tpulc_torch.codecs.bwt.rle import ALPHABET, rle2_decode, rle2_encode
-from tpulc_torch.primitives.hist import prefix_hist
+from tpulc_torch.primitives.histogram import prefix_hist
 from tpulc_torch.primitives.mtf import mtf_decode, mtf_encode
 
 ANCHOR_STRIDE = 512
@@ -84,11 +84,7 @@ def _refine_ranks_masked(data: torch.Tensor, idx: torch.Tensor, n: int,
     while k < n and not done:
         keys = [rank] + [_wrapped(rank, idx, (j * k) % n, n)
                          for j in range(1, _FAN)]
-        order = _stable_multikey_order(keys, cap)
-        diff = torch.zeros(cap - 1, dtype=torch.bool, device=data.device)
-        for key in keys:
-            s = key[order]
-            diff |= s[1:] != s[:-1]
+        order, diff = _stable_multikey_order(keys, [cap - 1] * _FAN)
         rank = _scatter_perm(order, torch.cumsum(
             torch.cat([zero, diff.to(torch.int64)]), 0))
         done = not bool((_tied_rows(diff) & ~run[order]).any())

@@ -23,24 +23,36 @@ import torch
 _FAN = 8  # ranks composed per refinement round (depth 8 -> 64 -> 512)
 
 
-def _stable_multikey_order(keys: list[torch.Tensor], n: int) -> torch.Tensor:
-    """Permutation sorting rows by `keys` lexicographically (first key
-    most significant), ties by position.  Keys are ints in [0, n)."""
-    bits = max(1, (n - 1).bit_length())
-    per = max(1, 63 // bits)
+def _stable_multikey_order(keys: list[torch.Tensor], highs: list[int]):
+    """Stable lexicographic order of rows by `keys` (first key most
+    significant, ties by position; key j in [0, highs[j]]) -> (order,
+    diff), where diff[j] is True when sorted row j+1's keys differ from
+    row j's.  As many keys as fit go into each int64 word; words past
+    the first are sorted least-significant first, each stably."""
+    groups, used = [[]], 0
+    for key, hi in zip(keys, highs):
+        bits = max(1, int(hi).bit_length())
+        if used + bits > 63:
+            groups.append([])
+            used = 0
+        groups[-1].append((key, bits))
+        used += bits
     words = []
-    for g in range(0, len(keys), per):
-        w = torch.zeros_like(keys[0], dtype=torch.int64)
-        for key in keys[g: g + per]:
+    for group in groups:
+        w = torch.zeros_like(group[0][0], dtype=torch.int64)
+        for key, bits in group:
             w = (w << bits) | key.to(torch.int64)
         words.append(w)
-    perm = None
+    order = None
     for w in reversed(words):
-        if perm is None:
-            perm = torch.sort(w, stable=True).indices
-        else:
-            perm = perm[torch.sort(w[perm], stable=True).indices]
-    return perm
+        o = torch.sort(w if order is None else w[order], stable=True).indices
+        order = o if order is None else order[o]
+    diff = None
+    for w in words:
+        s = w[order]
+        d = s[1:] != s[:-1]
+        diff = d if diff is None else diff | d
+    return order, diff
 
 
 def _zero_run_mask(data: torch.Tensor, idx: torch.Tensor, n: int):
@@ -113,11 +125,7 @@ def _refine_ranks(data: torch.Tensor, idx: torch.Tensor, n: int):
     while k < n and not done:
         keys = [rank] + [torch.roll(rank, -((k * j) % n))
                          for j in range(1, _FAN)]
-        order = _stable_multikey_order(keys, n)
-        diff = torch.zeros(n - 1, dtype=torch.bool, device=dev)
-        for key in keys:
-            s = key[order]
-            diff |= s[1:] != s[:-1]
+        order, diff = _stable_multikey_order(keys, [n - 1] * _FAN)
         newgrp = torch.cat([zero, diff.to(torch.int64)])
         tied = _tied_rows(diff) & ~run[order]
         # row-space pair shape: a group of exactly 2 rows

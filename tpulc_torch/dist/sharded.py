@@ -27,7 +27,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from tpulc_torch.dist.mesh import mesh_device
 from tpulc_torch.primitives.bits import pack_bits
-from tpulc_torch.primitives.hist import prefix_hist
+from tpulc_torch.primitives.histogram import prefix_hist
 
 
 def _tensor(x) -> torch.Tensor:
