@@ -4,19 +4,27 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --walks [--root DIR]
     python3 chip_smoke.py --mtf [--root DIR]
+    python3 chip_smoke.py --abc [--root DIR]
     python3 chip_smoke.py --e1
     python3 chip_smoke.py --st
     python3 chip_smoke.py --lz
     python3 chip_smoke.py --dist
     python3 chip_smoke.py --prim
 
-The second and third forms run one turn of a parent/change comparison
+The second to fourth forms run one turn of a parent/change comparison
 with the tpulc_torch package under DIR (default: this checkout), e.g. a
 `git archive` of the parent commit; run them in turns, parent, change,
 change, parent.  `--walks`: K3, K7 and K8 device ms and the decode-only
 GB/s of every decoder at the huffman path's full width.  `--mtf`: K1
 and the start tables as that tree's `mtf_encode` calls them, device ms
 at the bz and soup shapes, and the bz and bsc -e2 compress MB/s.
+`--abc`: the adaptive coder's two walks on the arguments that tree's
+`-e2` path gives them at the three ST shapes (`ABC_SHAPES`): ms, device
+ms, the sha256 of their outputs, ns a step of the deepest lane,
+registers and waves, the parent's zero-fill of the encode words alone,
+the chain bound, and, where the tree's abc.cu has them, every build of
+its comparison library (`-DTPLC_ABC_SWEEP`: lanes a block, the decode's
+16-byte word chunks).
 `--e1`: the card, the build and phase 9 alone; `--st`: the same for
 phase 10; `--lz`: the same for phases 11 and 12; `--dist`: the same for
 phase 13; `--prim`: the same for phase 14.
@@ -105,8 +113,9 @@ Phases (any failure exits non-zero before the last line is printed):
    block, each coder walk once a call, the host inverse-ST walk once a
    hybrid block; the adaptive coder's encode and decode walks
    (csrc/abc.cu) against their plain versions on the arguments each
-   -e2 cell's run gave them, and K1, the start tables, K2 and K4 at
-   st8w's 409,600 chunks; stage times (the host walk's seconds a
+   -e2 cell's run gave them, each at 32, 64 and 128 lanes a block (equal
+   outputs; device ms, ns a step, registers, waves), and K1, the start
+   tables, K2 and K4 at st8w's 409,600 chunks; stage times (the host walk's seconds a
    block), peak device memory, MB/s (the hybrid soup cell decodes once,
    under the profiler) and the soup cells' traces;
 11. bzip2 at level 9 and lzss at 1 MiB blocks on pg1661 x 6 through
@@ -164,7 +173,13 @@ Every kernel entry carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its integer operations over 67 T op/s (the H100 SXM figures of
 NVIDIA's data sheet), and, where one PyTorch call computes the same
-function (K1's rows: `scatter_reduce_` "amax"), that call's time.  K1's
+function (K1's rows: `scatter_reduce_` "amax"), that call's time.  The
+serial coder walks' (coder 1's and the adaptive coder's) lines before
+the JSON also print `chain`: the fewest dependent integer operations
+the function needs on its longest lane (`*_CHAIN` a step, counted from
+the function; `abc_encode_chain` for the adaptive encode) times 4
+cycles over the card's maximum SM clock (nvidia-smi), a computed term
+kept out of the `kernels` line.  K1's
 bytes include its tile maxima; the start tables' are the function's
 (K1's rows in, the tables out), whichever route feeds them.  The start
 tables' plain version is the chain of PyTorch calls the path ran
@@ -340,6 +355,26 @@ RANS_SRC = "tpulc_torch/csrc/rans_ctx.cu"
 # and the symbol's rebuild (~10)
 ABC_ENC_OPS = 45
 ABC_DEC_OPS = 60
+# the fewest dependent integer operations of a serial coder walk,
+# counted from the function (each one ~4 cycles): an adaptive-coder
+# rANS step (the renormalisation compare and select, an exact quotient
+# as a multiply-high, the remainder, its compare and select) and an
+# adaptation (subtract, shift, add, two clips), which waits only on the
+# last adaptation of the same model (`abc_encode_chain`); a decode
+# step's slot, bit compare, the state's select and multiply-add, the
+# renormalisation compare and select; coder 1's encode step as the
+# adaptive one's rANS step, its decode step's slot, state multiply-add
+# and subtract, renormalisation compare and select (beside two dependent
+# table reads)
+ABC_RANS_CHAIN = 6
+ABC_ADAPT_CHAIN = 5
+ABC_DEC_CHAIN = 6
+RANS_ENC_CHAIN = 6
+RANS_DEC_CHAIN = 5
+CHAIN_CYCLES = 4
+# the adaptive coder's three shapes, ST_CELLS labels: 1,024 lanes
+# (pg1661 x 6), 25,600 and 51,200 (one 25 MiB soup block)
+ABC_SHAPES = ("st8_e2", "soup25_st8_e2", "soup25_st8w_e2")
 # phase 14, the primitive layer at the sizes its users run (PERF.md §4):
 # one libbsc default block of bench.py's soup for the suffix arrays; 2^26
 # int32 for the scans and sorts; 2^24 list nodes; 2^26 random words; a
@@ -412,6 +447,57 @@ def bound(nbytes: int, ops: int) -> dict:
             "bound_by": "bytes" if tb >= to else "operations"}
 
 
+_SM_HZ: list = []
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm) in Hz."""
+    if not _SM_HZ:
+        mhz = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout.split()[0]
+        _SM_HZ.append(float(mhz) * 1e6)
+    return _SM_HZ[0]
+
+
+def chain_ms(ops: int) -> float:
+    """The least time of `ops` dependent integer operations of
+    CHAIN_CYCLES each at the maximum SM clock."""
+    return ops * CHAIN_CYCLES / sm_clock_hz() * 1e3
+
+
+def abc_encode_chain(torch, grid, nbits, lanes: int = 4096) -> int:
+    """The adaptive encode's longest chain of dependent operations over
+    its lanes: event t's probability waits on the k_t earlier events of
+    its model (ABC_ADAPT_CHAIN each), and the reverse pass, which runs
+    t = nbits[l] - 1 down to 0, takes ABC_RANS_CHAIN a step from step t
+    on, so lane l needs max over its events t of ABC_ADAPT_CHAIN k_t +
+    ABC_RANS_CHAIN (t + 1) operations.  Counted on the card, `lanes`
+    lanes at a time."""
+    W, L = grid.shape
+    t = torch.arange(W, device=grid.device)
+    best = 0
+    for a in range(0, L, lanes):
+        g = grid[:, a:a + lanes].T.to(torch.int64)          # [c, W]
+        n = nbits[a:a + lanes].to(torch.int64)[:, None]
+        c = g.shape[0]
+        valid = (t[None, :] < n) & (g > 0)
+        model = ((g >> 1) - 1).clamp(0, 116)
+        lane = torch.arange(c, device=grid.device)[:, None]
+        key = ((lane * 128 + model) * W + t)[valid]
+        key, _ = torch.sort(key)
+        grp = key // W
+        first = torch.ones_like(grp, dtype=torch.bool)
+        first[1:] = grp[1:] != grp[:-1]
+        idx = torch.arange(key.numel(), device=grid.device)
+        k = idx - torch.cummax(torch.where(first, idx, 0), 0)[0]
+        ops = ABC_ADAPT_CHAIN * k + ABC_RANS_CHAIN * (key % W + 1)
+        if ops.numel():
+            best = max(best, int(ops.max()))
+    return best
+
+
 def nbytes(x) -> int:
     if isinstance(x, (tuple, list)):
         return sum(nbytes(y) for y in x)
@@ -464,7 +550,9 @@ def check_kernels(torch, checks: list[dict]) -> list[dict]:
     CUDA events, `device_ms` the kernel alone (see `device_ms`).
     `bytes` defaults to every tensor argument read once plus the
     output written once; `library` is one PyTorch
-    call computing the same function, timed beside the kernel.
+    call computing the same function, timed beside the kernel; `chain`,
+    the dependent operations of the longest lane, prints `chain_ms`
+    beside the bound (not in the entry: it is computed, not measured).
     Launches are filled in from the main path's run later."""
     kernels = []
     for c in checks:
@@ -485,11 +573,14 @@ def check_kernels(torch, checks: list[dict]) -> list[dict]:
         if c.get("library") is not None:
             library_ms = time_ms(torch, c["library"])
         b = bound(moved, c["ops"])
+        chain = (f" chain {chain_ms(c['chain'])} ms ({c['chain']} dependent "
+                 f"ops)" if "chain" in c else "")
         print(f"kernel {c['name']}: shape {c['shape']} max_abs_err {err} "
               f"kernel {ms:.4f} ms (on the device {dev_ms:.4f}) plain "
               f"{plain_ms:.4f} ms library "
               f"{library_ms} ms bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']}: {moved} B, {c['ops']} ops)", flush=True)
+              f"({b['bound_by']}: {moved} B, {c['ops']} ops){chain}",
+              flush=True)
         require(err == 0, f"{c['name']} disagrees with its plain version")
         kernels.append({"name": c["name"], "route": "cuda",
                         "source": c["src"], "replaces": c["replaces"],
@@ -759,6 +850,8 @@ def main() -> int:
                     help="one turn of the huffman walks' comparison")
     ap.add_argument("--mtf", action="store_true",
                     help="one turn of K1's and the start tables' comparison")
+    ap.add_argument("--abc", action="store_true",
+                    help="one turn of the adaptive coder's walks' comparison")
     ap.add_argument("--e1", action="store_true",
                     help="phase 9 alone (bsc -e1 on both cells)")
     ap.add_argument("--st", action="store_true",
@@ -772,7 +865,7 @@ def main() -> int:
                     help="phase 14 alone (the primitive layer and the "
                          "golds)")
     ap.add_argument("--root", default=None,
-                    help="with --walks or --mtf: the checkout whose "
+                    help="with --walks, --mtf or --abc: the checkout whose "
                          "tpulc_torch runs")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -781,8 +874,9 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
-    if opts.walks or opts.mtf:
-        turn = walks_turn if opts.walks else mtf_turn
+    if opts.walks or opts.mtf or opts.abc:
+        turn = (walks_turn if opts.walks else mtf_turn if opts.mtf
+                else abc_turn)
         return turn(torch, here, os.path.abspath(opts.root or here))
     sys.path.insert(0, here)
     from tpulc_torch import cuda_lib
@@ -798,8 +892,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind}", flush=True)
 
-    # 2. build
+    # 2. build (with abc.cu's comparison builds where phase 10 runs)
     t0 = time.perf_counter()
+    if not (opts.e1 or opts.lz or opts.dist or opts.prim):
+        abc_sweep_start(here, cuda_lib)
     cuda_lib.library()
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
           f"{' '.join(cuda_lib.NVCC_FLAGS)})", flush=True)
@@ -999,15 +1095,25 @@ def card() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def load_tree(root: str) -> tuple[str, float]:
+def load_tree(root: str, fresh: str = "",
+              before_build=None) -> tuple[str, float]:
     """Put the tpulc_torch package under `root` first on the path and
-    build its kernels -> (the card's line, build seconds)."""
+    build its kernels, the library of csrc/{fresh}.cu anew (so that
+    ptxas reports its registers), after before_build(cuda_lib) ->
+    (the card's line, build seconds)."""
     sys.path.insert(0, root)
     from tpulc_torch import cuda_lib
 
     require(os.path.abspath(cuda_lib.__file__).startswith(root + os.sep),
             f"tpulc_torch was not imported from {root}")
+    build = os.path.join(root, "tpulc_torch", "_build")
+    if fresh and os.path.isdir(build):
+        for f in os.listdir(build):
+            if f.startswith(f"lib{fresh}_"):
+                os.unlink(os.path.join(build, f))
     t0 = time.perf_counter()
+    if before_build is not None:
+        before_build(cuda_lib)
     cuda_lib.library()
     return card(), time.perf_counter() - t0
 
@@ -1076,6 +1182,292 @@ def mtf_turn(torch, here: str, root: str) -> int:
         out["compress_MBps"][label] = len(data) / 1e6 / secs
     print(smi)
     print(json.dumps({"mtf": out}), flush=True)
+    return 0
+
+
+class _Stop(Exception):
+    pass
+
+
+def first_args(module, name: str, fn) -> tuple:
+    """The positional arguments of the first call of module.name while
+    fn() runs; fn stops there."""
+    orig, calls = getattr(module, name), []
+
+    def spy(*args):
+        calls.append(args)
+        raise _Stop
+
+    setattr(module, name, spy)
+    try:
+        fn()
+    except _Stop:
+        pass
+    finally:
+        setattr(module, name, orig)
+    return calls[0]
+
+
+def abc_resident(lanes: int, smem: int, regs: int) -> int:
+    """Blocks of `lanes` threads, `smem` bytes of shared memory and
+    `regs` registers a thread that one H100 SM holds: 228 KB of shared
+    memory (1 KB reserved a block), 65,536 registers (256 a warp at a
+    time), 64 warps, 32 blocks."""
+    warps = -(-lanes // 32)
+    by_regs = resident_warps(regs) // warps if regs else 64 // warps
+    return max(1, min(32, 233_472 // (smem + 1024), by_regs, 64 // warps))
+
+
+# checkout root -> [nvcc process, temporary .so, .so] of its comparison
+# library, then (ctypes library, {kernel: registers}) once built, or None
+_ABC_SWEEP: dict = {}
+
+
+def abc_sweep_start(root: str, cuda_lib, fresh: bool = False) -> None:
+    """Start nvcc on the checkout's csrc/abc.cu with -DTPLC_ABC_SWEEP,
+    its comparison builds, into its _build/ (anew when `fresh`, so that
+    ptxas reports the registers), where the source has them; `abc_sweep`
+    waits for it and `abc_sweep_stop` ends it."""
+    if root in _ABC_SWEEP:
+        return
+    src = os.path.join(root, "tpulc_torch", "csrc", "abc.cu")
+    with open(src, "rb") as f:
+        text = f.read()
+    if b"TPLC_ABC_SWEEP" not in text:
+        _ABC_SWEEP[root] = None
+        return
+    flags = [*cuda_lib.NVCC_FLAGS, "-DTPLC_ABC_SWEEP"]
+    build = os.path.join(root, "tpulc_torch", "_build")
+    so = os.path.join(build, "libabcsweep_" + hashlib.sha256(
+        " ".join(flags).encode() + text).hexdigest()[:16] + ".so")
+    if fresh and os.path.exists(so):
+        os.unlink(so)
+    os.makedirs(build, exist_ok=True)
+    tmp = so + f".{os.getpid()}.tmp"
+    proc = None if os.path.exists(so) else subprocess.Popen(
+        [cuda_lib._nvcc(), *flags, "-o", tmp, src], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    _ABC_SWEEP[root] = [proc, tmp, so]
+
+
+def abc_sweep(root: str):
+    """(the comparison library, {kernel: registers}) of the checkout,
+    or None where its abc.cu has no comparison builds."""
+    import ctypes
+
+    entry = _ABC_SWEEP.get(root)
+    if entry is None or len(entry) == 2:
+        return entry
+    proc, tmp, so = entry
+    log = ""
+    if proc is not None:
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"nvcc -DTPLC_ABC_SWEEP failed:\n{log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.tplc_abc_encode_sweep.argtypes = [P] * 8 + [I] * 4 + [P]
+    lib.tplc_abc_decode_sweep.argtypes = [P] * 7 + [I] * 7 + [P]
+    _ABC_SWEEP[root] = (lib, ptxas_registers(log))
+    return _ABC_SWEEP[root]
+
+
+def abc_sweep_stop() -> None:
+    """End any comparison build still running."""
+    for entry in _ABC_SWEEP.values():
+        if entry is not None and len(entry) == 3 and entry[0] is not None:
+            if entry[0].poll() is None:
+                entry[0].kill()
+            entry[0].wait()
+            if os.path.exists(entry[1]):
+                os.unlink(entry[1])
+
+
+def abc_builds(torch, ak, cuda_lib, enc: tuple, dec: tuple,
+               sweep) -> dict:
+    """The adaptive coder's walks at every build: with `sweep` (the
+    comparison library, `abc_sweep`), encode at 32, 64 and 128 lanes a
+    block, decode at 32, 64 and 128 with the two-word queue and at 32
+    with 16-byte word chunks; without (a tree that has none), the
+    wrappers.  Each output equals the wrapper's.  Per build: device ms, ns a step of the
+    deepest lane, registers (ptxas), shared memory and waves; `wrapper`
+    names the builds the wrappers take."""
+    dev = enc[0].device
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    (grid, nbits, inits, lcap) = enc
+    (words, states, lane_cls, nsym, dinits, dlcap, nsteps, chunk) = dec
+    (W, L), (Ld, Wc) = grid.shape, words.shape
+    steps = {"encode": int(nbits.max()), "decode": nsteps}
+    out = {"sms": sms, "steps": steps, "wrapper": {
+        "encode": cuda_lib.library().tplc_abc_encode_lanes(L) if sweep
+        else 32,
+        "decode": 32}, "builds": []}
+    ref = {"encode": ak.abc_encode_walk(*enc),
+           "decode": (ak.abc_decode_walk(*dec),)}
+    if sweep is None:   # one build a walk, 32 lanes, static shared memory
+        builds = [("encode", 32, "", partial(ak.abc_encode_walk, *enc),
+                   117 * 32 * 4, ()),
+                  ("decode", 32, "", lambda: (ak.abc_decode_walk(*dec),),
+                   117 * 32 * 4, ())]
+        regs = ptxas_registers(cuda_lib.build_log.get("abc.cu", ""))
+    else:
+        lib, regs = sweep
+        rcp, fsm = ak._table("rcp", dev), ak._table("fsm", dev)
+
+        def encode(lanes):
+            probs = torch.empty((W + 64, L), dtype=torch.int16, device=dev)
+            w = torch.empty((L, W + 2), dtype=torch.int16, device=dev)
+            c = torch.empty(L, dtype=torch.int64, device=dev)
+            x = torch.empty(L, dtype=torch.int64, device=dev)
+            cuda_lib.check(lib.tplc_abc_encode_sweep(
+                grid.data_ptr(), nbits.data_ptr(), inits.data_ptr(),
+                rcp.data_ptr(), probs.data_ptr(), w.data_ptr(),
+                c.data_ptr(), x.data_ptr(), W, L, lcap, lanes,
+                cuda_lib.stream_of(grid)), "tplc_abc_encode_sweep")
+            return w, c, x
+
+        def decode(lanes, chunks):
+            o = torch.zeros((Ld, chunk), dtype=torch.int32, device=dev)
+            cuda_lib.check(lib.tplc_abc_decode_sweep(
+                words.data_ptr(), states.data_ptr(), lane_cls.data_ptr(),
+                nsym.data_ptr(), dinits.data_ptr(), fsm.data_ptr(),
+                o.data_ptr(), Wc, Ld, dlcap, chunk, (nsteps + 3) // 4 * 4,
+                lanes, chunks, cuda_lib.stream_of(words)),
+                "tplc_abc_decode_sweep")
+            return (o,)
+
+        builds = [("encode", n, "", partial(encode, n),
+                   max(118 * n + 256, 4097) * 4 + 4 * n, (f"ILi{n}E",))
+                  for n in (32, 64, 128)]
+        builds += [("decode", n, f"word {kind}",
+                    partial(decode, n, int(kind == "chunks")),
+                    117 * n * 4 + 1024 * 16,
+                    (f"ILi{n}E", "WordChunks" if kind == "chunks"
+                     else "WordQueue"))
+                   for n, kind in ((32, "queue"), (64, "queue"),
+                                   (128, "queue"), (32, "chunks"))]
+    for tag, lanes, variant, fn, smem, names in builds:
+        got = fn()
+        require(all(torch.equal(g, w) for g, w in zip(got, ref[tag])),
+                f"abc {tag} at {lanes} lanes ({variant}) differs")
+        del got
+        ms = device_ms(torch, fn)
+        r = next((v for k, v in regs.items() if f"abc_{tag}_kernel" in k
+                  and all(x in k for x in names)), 0)
+        blocks = -(-(L if tag == "encode" else Ld) // lanes)
+        out["builds"].append({
+            "walk": tag, "lanes": lanes, "variant": variant,
+            "device_ms": ms, "ns_per_step": ms * 1e6 / max(steps[tag], 1),
+            "registers": r, "smem": smem, "waves": -(-blocks // (
+                sms * abc_resident(lanes, smem, r)))})
+    return out
+
+
+def sass_loops(path: str, kernel: str) -> list:
+    """The loops of each function of the shared library at `path` whose
+    mangled name holds `kernel`, from `cuobjdump -sass`: for each
+    backward branch with 50 or more instructions between its target and
+    itself, [function, instructions, stall cycles], the stall cycles
+    summed from each instruction's control bits (the fewest cycles the
+    scheduler waits after it; a wait on a load comes on top)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    loops, fn, body = [], None, []
+    ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);\s*/\* (0x[0-9a-f]+)")
+    ctl = re.compile(r"^\s*/\* (0x[0-9a-f]+) \*/")
+    lines = text.splitlines() + ["Function : end"]
+    for i, line in enumerate(lines):
+        if "Function : " in line:
+            for a, t, _ in body if fn and kernel in fn else ():
+                m = re.search(r"BRA (?:.*?)0x([0-9a-f]+)", t)
+                if m and int(m.group(1), 16) < a:
+                    run = [st for b, _, st in body
+                           if int(m.group(1), 16) <= b <= a]
+                    if len(run) >= 50:
+                        name = re.search(r"(\w+?)_kernel(?:ILi(\d+)E)?", fn)
+                        loops.append([f"{name.group(1).split('_')[-1]}"
+                                      f"<{name.group(2) or 32}>", len(run),
+                                      sum(max(st, 1) for st in run)])
+            fn, body = line.split("Function : ")[1].strip(), []
+            continue
+        m = ins.search(line)
+        nxt = ctl.match(lines[i + 1]) if m else None
+        if nxt:
+            hi = int(nxt.group(1), 16)
+            body.append((int(m.group(1), 16), m.group(2), (hi >> 41) & 15))
+    return loops
+
+
+def abc_turn(torch, here: str, root: str) -> int:
+    """One turn of the adaptive coder's walks' parent/change comparison,
+    with the tpulc_torch package under `root`: at each of ABC_SHAPES, the
+    arguments that tree's `-e2` compress gives its encode walk and its
+    decompress its decode walk (stopped there: the hybrid's host walk
+    takes a minute), then each walk's `ms`, `device_ms`, output sha256,
+    deepest-lane steps, chain bound (`abc_encode_chain`, ABC_DEC_CHAIN)
+    and every build (`abc_builds`), and the device ms of the encode
+    allocations of the parent's wrapper alone (`probs` and a zero-filled
+    `words`); then the compiled loops of the walks (`sass_loops`)."""
+    smi, build_s = load_tree(root, fresh="abc", before_build=partial(
+        abc_sweep_start, root, fresh=True))
+    from tpulc_torch import cuda_lib
+    from tpulc_torch.codecs.bsclike import abc_kernels as ak
+    from tpulc_torch.codecs.bsclike import rans_adaptive as ra
+    from tpulc_torch.pipeline.registry import get_codec
+
+    bsc = get_codec("bsc")
+    dev = torch.device("cuda")
+    inputs = {"pg": corpus(here), "soup": soup(ST_SOUP_SIZE)}
+    cells = {c[0]: c for c in ST_CELLS}
+    out = {"root": root, "card": smi, "build_s": build_s,
+           "sm_clock_hz": sm_clock_hz(), "shapes": {}}
+    for label in ABC_SHAPES:
+        _, src, block, sorter, coder, size, _, want_sha = cells[label]
+        comp = []
+        enc = captured(ra, "abc_encode_walk", lambda: comp.append(
+            bsc.compress(inputs[src], block_size=block, sorter=sorter,
+                         coder=coder, device="cuda")))
+        require(hashlib.sha256(comp[0]).hexdigest() == want_sha,
+                f"{label}: container differs from tpulc's")
+        dec = first_args(ra, "abc_decode_walk",
+                         lambda: bsc.decompress(comp[0], device="cuda"))
+        W, L = enc[0].shape
+        ops = abc_encode_chain(torch, enc[0], enc[1])
+        row = {"encode_shape": f"{W}x{L}",
+               "decode_shape": "x".join(map(str, dec[0].shape)),
+               "encode_chain_ops": ops, "encode_chain_ms": chain_ms(ops),
+               "decode_chain_ops": dec[6] * ABC_DEC_CHAIN,
+               "decode_chain_ms": chain_ms(dec[6] * ABC_DEC_CHAIN)}
+        for tag, fn in (("encode", partial(ak.abc_encode_walk, *enc)),
+                        ("decode", partial(ak.abc_decode_walk, *dec))):
+            got = fn()
+            got = got if isinstance(got, tuple) else (got,)
+            row[f"{tag}_sha256"] = outputs_sha256(g.cpu() for g in got)
+            del got
+            row[f"{tag}_ms"] = time_ms(torch, fn)
+            row[f"{tag}_device_ms"] = device_ms(torch, fn)
+        row["parent_allocations_device_ms"] = device_ms(torch, lambda: (
+            torch.empty((W, L), dtype=torch.int16, device=dev),
+            torch.zeros((L, W + 2), dtype=torch.int16, device=dev)))
+        row["builds"] = abc_builds(torch, ak, cuda_lib, enc, dec,
+                                   abc_sweep(root))
+        del enc, dec, comp
+        out["shapes"][label] = row
+        print(json.dumps({label: row}), flush=True)
+    # the compiled loops of the wrappers' library: a decode turn is 8
+    # steps (1 in a tree without the comparison library), an encode loop
+    # 2 batches of kBatch steps
+    build = os.path.join(root, "tpulc_torch", "_build")
+    out["sass_loops"] = [loop for f in sorted(os.listdir(build))
+                         if f.startswith("libabc_")
+                         for loop in sass_loops(os.path.join(build, f),
+                                                "abc_")]
+    print(smi)
+    print(json.dumps({"abc": out}), flush=True)
     return 0
 
 
@@ -1582,7 +1974,8 @@ def rans_checks(rans, enc: tuple, dec: tuple, suffix: str) -> list:
              kern=rans.rans_encode_walk, plain=rans.rans_encode_walk_plain,
              args=enc, shape=f"{C}x{L}",
              bytes=4 * steps + 4 * L + 4 * fc.numel() + 2 * nwords + 16 * L,
-             ops=RANS_OPS * steps, plain_reps=1),
+             ops=RANS_OPS * steps, plain_reps=1,
+             chain=int(nsym.max()) * RANS_ENC_CHAIN),
         dict(name=f"rans_decode_walk{suffix}", src=RANS_SRC,
              replaces="tpulc/codecs/bsclike/rans.py:458-480 (XLA fori_loop, "
                       "no pallas_call)",
@@ -1590,7 +1983,8 @@ def rans_checks(rans, enc: tuple, dec: tuple, suffix: str) -> list:
              args=dec, shape=f"{Ld}x{dec[7]}",
              bytes=2 * nwords + 20 * Ld + 2 * lut.numel() + 4 * fc.numel()
              + 4 * Ld * dec[7],
-             ops=RANS_OPS * int(dec[3].sum()), plain_reps=1),
+             ops=RANS_OPS * int(dec[3].sum()), plain_reps=1,
+             chain=int(dec[3].max()) * RANS_DEC_CHAIN),
     ]
 
 
@@ -1698,13 +2092,14 @@ def spying(targets: list, fn):
     return out, calls
 
 
-def abc_checks(ak, enc: tuple, dec: tuple, suffix: str) -> list:
+def abc_checks(torch, ak, enc: tuple, dec: tuple, suffix: str) -> list:
     """`check_kernels` entries of the adaptive coder's walks on the
     arguments the path gave them.  Bytes: the events read (one byte
     each, the grid's filled entries), the lane vectors and inits, the
     words written and the counts and states (encode); the words read,
     the lane vectors, the symbols written (decode).  Operations
-    ABC_ENC_OPS / ABC_DEC_OPS an event."""
+    ABC_ENC_OPS / ABC_DEC_OPS an event; the chain, `abc_encode_chain`
+    (encode) or the deepest lane's steps of ABC_DEC_CHAIN (decode)."""
     grid, nbits, inits, lcap = enc
     W, L = grid.shape
     events = int(nbits.sum())
@@ -1718,14 +2113,16 @@ def abc_checks(ak, enc: tuple, dec: tuple, suffix: str) -> list:
              kern=ak.abc_encode_walk, plain=ak.abc_encode_walk_plain,
              args=enc, shape=f"{W}x{L}",
              bytes=events + 4 * L + 4 * inits.numel() + 2 * nwords + 16 * L,
-             ops=ABC_ENC_OPS * events, plain_reps=1),
+             ops=ABC_ENC_OPS * events, plain_reps=1,
+             chain=abc_encode_chain(torch, grid, nbits)),
         dict(name=f"abc_decode_walk{suffix}", src=ABC_SRC,
              replaces="tpulc/codecs/bsclike/rans_adaptive.py:314-445 (XLA "
                       "fori_loop, no pallas_call)",
              kern=ak.abc_decode_walk, plain=ak.abc_decode_walk_plain,
              args=dec, shape=f"{Ld}x{words.shape[1]}",
              bytes=2 * nwords + 16 * Ld + 4 * inits.numel()
-             + 4 * Ld * chunk, ops=ABC_DEC_OPS * events, plain_reps=1),
+             + 4 * Ld * chunk, ops=ABC_DEC_OPS * events, plain_reps=1,
+             chain=dec[6] * ABC_DEC_CHAIN),
     ]
 
 
@@ -1736,11 +2133,14 @@ def st_phase(torch, here: str, kernels: list) -> None:
     start tables and K2 once a compress block, K4 twice a decompress
     block, each coder walk once a call, the host walk once a hybrid
     block.  The adaptive coder's walks are held against their plain
-    versions on the arguments each `-e2` cell's run gave them, and K1,
-    the start tables, K2 and K4 at st8w's soup shape (409,600 chunks).
+    versions on the arguments each `-e2` cell's run gave them, and at
+    every build of the comparison library (`abc_builds`), and K1, the
+    start tables,
+    K2 and K4 at st8w's soup shape (409,600 chunks).
     The hybrid soup cell decodes once, under the profiler (its host
     walk takes a minute); the others run warm repeats.  Appends every
     entry to `kernels`."""
+    from tpulc_torch import cuda_lib
     from tpulc_torch.codecs.bsclike import abc_kernels as ak
     from tpulc_torch.codecs.bsclike import rans
     from tpulc_torch.codecs.bsclike import rans_adaptive as ra
@@ -1832,8 +2232,13 @@ def st_phase(torch, here: str, kernels: list) -> None:
         entries = []
         if coder == 2:
             entries = check_kernels(torch, abc_checks(
-                ak, calls["abc_encode_walk"], calls["abc_decode_walk"],
+                torch, ak, calls["abc_encode_walk"], calls["abc_decode_walk"],
                 "@" + label))
+            res["abc_builds"] = abc_builds(
+                torch, ak, cuda_lib, calls["abc_encode_walk"],
+                calls["abc_decode_walk"], abc_sweep(here))
+            print(json.dumps({f"{label}_abc_builds": res["abc_builds"]}),
+                  flush=True)
         if label == "soup25_st8w_e2":
             table0, d = calls["mtf_encode_lockstep"]
             ranks = mk.mtf_encode_lockstep(table0, d)[0].reshape(-1)
@@ -2749,4 +3154,8 @@ def path_profile(torch, compress, decompress, total_bytes: int) -> dict:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        abc_sweep_stop()
+    sys.exit(code)

@@ -2,10 +2,13 @@
 the card (marked `cuda`; they skip on a machine without one).  On the
 card: `python -m pytest tests/test_torch_cuda_kernels.py -m cuda`."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 from test_torch_walk_cases import (
+    ABC_CARD_CASES,
     K1_CASES,
     K1_SHAPES,
     K2_CASES,
@@ -13,6 +16,8 @@ from test_torch_walk_cases import (
     K4_CASES,
     K8_CASES,
     START_CASES,
+    abc_case,
+    abc_states,
     k1_case,
     k2_case,
     k3_case,
@@ -722,65 +727,83 @@ def test_rans_walks_equal_plain(cuda, name):
         torch.where(valid, (idx % 257).T, 0))
 
 
-def _abc_case(name):
-    """Adaptive-coder walk arguments as `abc_encode` builds them: the
-    event grid and lane bit counts of B blocks' symbols, and each
-    block's initial probabilities -> (grid, nbits, inits, lcap, syms,
-    ms, lane_cls)."""
-    from tpulc_torch.codecs.bsclike import rans_adaptive as ra
-
-    rng = np.random.default_rng({"one": 1, "three": 3, "empty_lane": 5,
-                                 "lanes40": 40}[name])
-    B, lcap, ms = {"one": (1, 4, [3333]),
-                   "three": (3, 2, [2048, 701, 1537]),
-                   "empty_lane": (2, 3, [2048, 0]),
-                   "lanes40": (4, 10, [10240, 9000, 77, 5000])}[name]
-    syms = np.minimum(rng.geometric(0.3, size=(B, lcap * ra.ACHUNK)) - 1,
-                      256).astype(np.int32)
-    syms[0, :40] = 256  # the longest binarization, 16 events
-    syms = torch.from_numpy(syms)
-    ones, tot, lane_bits, lane_cls = ra.abc_stats(syms, ms)
-    inits = torch.from_numpy(ra.quantize_inits(ones.numpy(), tot.numpy())
-                             .astype(np.int32))
-    W = ra.bucket_bits(max(int(lane_bits.max()), 1))
-    grid, nbits = ra.event_grid(syms, ms, W)
-    return grid, nbits, inits, lcap, syms, ms, lane_cls.to(torch.int32)
-
-
-@pytest.mark.parametrize("name", ["one", "three", "empty_lane", "lanes40"])
-def test_abc_walks_equal_plain(cuda, name):
-    """The adaptive coder's encode and decode kernels against their
-    plain versions: 4 to 40 lanes, an empty lane and an empty block,
-    the decode from true and random states and at nsteps 0."""
+@functools.lru_cache(maxsize=None)
+def _abc_plain(name):
+    """An ABC_CARD_CASES case as `abc_encode` builds its walk arguments,
+    with the plain walks' outputs -> (encode arguments, plain encode,
+    decode runs [(arguments, plain decode)], syms, nsym)."""
     from tpulc_torch.codecs.bsclike import abc_kernels as ak
     from tpulc_torch.codecs.bsclike import rans_adaptive as ra
 
-    grid, nbits, inits, lcap, syms, ms, lane_cls = _abc_case(name)
-    want = ak.abc_encode_walk_plain(grid, nbits, inits, lcap)
+    syms, ms, inits, kind, wc = abc_case(name)
+    B, cap = syms.shape
+    lcap = cap // ra.ACHUNK
+    st = torch.from_numpy(syms)
+    ones, tot, lane_bits, lane_cls = ra.abc_stats(st, ms)
+    if inits is None:
+        inits = ra.quantize_inits(ones.numpy(), tot.numpy())
+    inits = torch.from_numpy(inits.astype(np.int32))
+    W = ra.bucket_bits(max(int(lane_bits.max()), 1))
+    grid, nbits = ra.event_grid(st, ms, W)
+    enc = (grid, nbits, inits, lcap)
+    want = ak.abc_encode_walk_plain(*enc)
+    words, counts, states = want
+    nsym = ra._lane_counts(ms, B, lcap, ra.ACHUNK, torch.device("cpu"))
+    nsteps = int(nbits.max())
+    lane_cls = lane_cls.to(torch.int32)
+    runs = []
+    for st_, steps in ((abc_states(kind, states), nsteps),
+                       (abc_states("random", states), nsteps), (states, 0)):
+        args = (words[:, :wc].contiguous() if wc else words, st_, lane_cls,
+                nsym, inits, lcap, steps, ra.ACHUNK)
+        runs.append((args, ak.abc_decode_walk_plain(*args)))
+    return enc, want, runs, st, nsym
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["32lanes", "64lanes"])
+@pytest.mark.parametrize("name", ABC_CARD_CASES)
+def test_abc_walks_equal_plain(cuda, name, wide):
+    """The adaptive coder's encode and decode kernels against their
+    plain versions at each encode build: on the case's own 4 to 40
+    lanes (32 lanes a block) and on its blocks repeated past one wave
+    of blocks of 32 (64 lanes a block; every lane equals its
+    original's): an empty lane and an empty block, the edge cases of
+    `abc_case`, the decode from the case's, random and true states and
+    at nsteps 0."""
+    from tpulc_torch import cuda_lib
+    from tpulc_torch.codecs.bsclike import abc_kernels as ak
+    from tpulc_torch.codecs.bsclike import rans_adaptive as ra
+
+    enc, want, runs, syms, nsym = _abc_plain(name)
+    grid, nbits, inits, lcap = enc
+    L = grid.shape[1]
+    lanes = cuda_lib.library().tplc_abc_encode_lanes
+    reps = 1
+    if wide:   # the fewest 32-lane blocks that take two waves
+        blocks = next(b for b in range(1, 1 << 20) if lanes(32 * b) == 64)
+        reps = 32 * blocks // L + 1
+    assert L == inits.shape[0] * lcap
+    assert lanes(L * reps) == (64 if wide else 32)
     n = ak.abc_encode_walk.launches
-    got = ak.abc_encode_walk(grid.to(cuda), nbits.to(cuda), inits.to(cuda),
-                             lcap)
+    got = ak.abc_encode_walk(grid.repeat(1, reps).to(cuda),
+                             nbits.repeat(reps).to(cuda),
+                             inits.repeat(reps, 1).to(cuda), lcap)
     torch.cuda.synchronize()
     assert ak.abc_encode_walk.launches == n + 1
     for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
-    words, counts, states = want
-    nsym = ra._lane_counts(ms, len(ms), lcap, ra.ACHUNK, torch.device("cpu"))
-    hostile = torch.from_numpy(np.random.default_rng(7).integers(
-        0, 1 << 32, states.shape[0], dtype=np.uint64).astype(np.int64))
-    nsteps = int(nbits.max())
-    for st, steps in ((states, nsteps), (hostile, nsteps), (states, 0)):
-        args = (words, st, lane_cls, nsym, inits, lcap, steps, ra.ACHUNK)
-        plain = ak.abc_decode_walk_plain(*args)
+        assert torch.equal(g.cpu(), w.repeat((reps,) + (1,) * (w.dim() - 1)))
+    for args, plain in runs:
         n = ak.abc_decode_walk.launches
-        dec = ak.abc_decode_walk(*(a.to(cuda) if torch.is_tensor(a) else a
-                                   for a in args))
+        dec = ak.abc_decode_walk(*(
+            a.repeat((reps,) + (1,) * (a.dim() - 1)).to(cuda)
+            if torch.is_tensor(a) else a for a in args))
         torch.cuda.synchronize()
         assert ak.abc_decode_walk.launches == n + 1
-        assert torch.equal(dec.cpu(), plain)
+        assert torch.equal(dec.cpu(), plain.repeat(reps, 1))
+    words, counts, states = want
     valid = torch.arange(ra.ACHUNK)[None, :] < nsym[:, None].to(torch.int64)
-    dec = ak.abc_decode_walk_plain(words, states, lane_cls, nsym, inits,
-                                   lcap, nsteps, ra.ACHUNK)
+    dec = ak.abc_decode_walk_plain(words, states, runs[0][0][2], nsym,
+                                   inits, lcap, int(nbits.max()), ra.ACHUNK)
     assert torch.equal(torch.where(valid, dec, 0), torch.where(
         valid, syms.reshape(-1, ra.ACHUNK), 0))
 

@@ -1,8 +1,9 @@
 """Edge-case inputs for K3 (the canonical Huffman chunk walk, whose
 contract K7 shares), K8 (the flat walk), K4 (the MTF decode walk), K2
 (the MTF encode walk), K1 (the MTF recency rows and the start tables'
-tile maxima) and the MTF start tables between K1 and K2, made from a
-numpy seed, with scalar references of the contracts.  The CPU
+tile maxima), the MTF start tables between K1 and K2 and the adaptive
+coder's two walks (symbol blocks whose binarization feeds them), made
+from a numpy seed, with scalar references of the contracts.  The CPU
 tests hold the plain versions to these references and to tpulc; the
 card tests hold the CUDA kernels to the plain versions on the same
 inputs."""
@@ -24,6 +25,12 @@ K4_CASES = ("random", "zeros", "all255", "out_of_range", "nonperm",
 K2_CASES = ("random", "repeats", "duplicates", "absent", "int32")
 START_CASES = ("text", "one_symbol", "all_symbols", "vanishing")
 K1_CASES = ("random", "one_run", "long_runs", "out_of_range")
+# the adaptive coder's walks: symbol blocks made as `abc_stats` and
+# `event_grid` take them (ABC_CASES, each small enough for the CPU
+# tests), and the card tests' larger blocks (ABC_CARD_CASES)
+ABC_CASES = ("one_model", "alternate", "period3", "clip_inits",
+             "full_and_empty", "lanes33", "states_top", "clamped_reads")
+ABC_CARD_CASES = ("one", "three", "empty_lane", "lanes40", *ABC_CASES)
 # (nchunks, C): every chunk length the K1 tests take, at chunk counts of
 # 0, 1, under every tile, and no multiple of any
 K1_SHAPES = ((0, 128), (1, 128), (5, 128), (37, 128), (130, 128), (9, 1),
@@ -438,3 +445,67 @@ def start_reference(syms):
         for v in syms[c].tolist():
             tab.insert(0, tab.pop(tab.index(v)))
     return out
+
+
+def abc_case(name, chunk=1024):
+    """-> (syms int32[B, lcap * chunk], ms int32[B], inits uint16[B, 117]
+    or None for `quantize_inits` of the block's statistics, states, Wc):
+    the decode walk runs from the encode's states ("true"), from 2^32 -
+    1 - l ("top") or from seeded random states ("random"), on the
+    encode's words cut to Wc columns (None: all W + 2).
+
+    one_model       every symbol 0: every event on model 0, bit 1 (the
+                    forwarding of the last event's adapted value)
+    alternate       every symbol 1: models 5 and 33 in turn (forwarded
+                    from two events back)
+    period3         every symbol 2: models 10, 34, 42 in turn (read
+                    back from shared memory)
+    clip_inits      inits at the clip bounds, 8 and 4088 by turns
+    full_and_empty  a lane of 1,024 zeros whose bit count is the grid's
+                    width W, and a lane with no events
+    lanes33         33 lanes, no multiple of 32, 64 or 128
+    states_top      decode from states near 2^32 - 1
+    clamped_reads   decode from random states on 3 columns of words,
+                    every refill past the second read at column Wc - 1
+    the card's four more (one, three, empty_lane, lanes40): 4 to 40
+    lanes of geometric symbols, an empty lane and an empty block
+    """
+    seeds = {"one": 1, "three": 3, "empty_lane": 5, "lanes40": 40}
+    rng = np.random.default_rng(seeds[name] if name in seeds
+                                else ABC_CASES.index(name) + 41)
+    inits, states, wc = None, "true", None
+    B, lcap, ms = {"one": (1, 4, [3333]), "three": (3, 2, [2048, 701, 1537]),
+                   "empty_lane": (2, 3, [2048, 0]),
+                   "lanes40": (4, 10, [10240, 9000, 77, 5000]),
+                   "full_and_empty": (1, 2, [chunk]),
+                   "lanes33": (3, 11, [11 * chunk, 4000, 9000]),
+                   "clip_inits": (2, 2, [2 * chunk, 1500])}.get(
+                       name, (1, 2, [2 * chunk]))
+    syms = np.minimum(rng.geometric(0.6 if name == "lanes33" else 0.3,
+                                    size=(B, lcap * chunk)) - 1, 256)
+    syms[0, :40] = 256  # the longest binarization, 16 events
+    if name in ("one_model", "full_and_empty"):
+        syms[:] = 0
+    elif name in ("alternate", "period3"):
+        syms[:] = 1 if name == "alternate" else 2
+    if name == "clip_inits":
+        inits = np.where(np.arange(117) % 2 == 0, 8, 4088)[None].repeat(B, 0)
+        inits = inits.astype(np.uint16)
+    if name == "states_top":
+        states = "top"
+    if name == "clamped_reads":
+        states, wc = "random", 3
+    return (syms.astype(np.int32), np.asarray(ms, np.int32), inits, states,
+            wc)
+
+
+def abc_states(kind, states):
+    """The decode walk's int64 states for `abc_case`'s kind, beside the
+    encode's `states`."""
+    L = states.shape[0]
+    if kind == "top":
+        return (1 << 32) - 1 - torch.arange(L, dtype=torch.int64)
+    if kind == "random":
+        return torch.from_numpy(np.random.default_rng(7).integers(
+            0, 1 << 32, L, dtype=np.uint64).astype(np.int64))
+    return states

@@ -48,8 +48,9 @@ _SIGNATURES = {
     "tplc_grc_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tplc_rans_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "tplc_rans_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "tplc_abc_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "tplc_abc_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tplc_abc_encode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tplc_abc_encode_lanes": [_I],
+    "tplc_abc_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: types.SimpleNamespace | None = None
