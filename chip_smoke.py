@@ -5,13 +5,14 @@
     python3 chip_smoke.py --walks [--root DIR]
     python3 chip_smoke.py --mtf [--root DIR]
     python3 chip_smoke.py --abc [--root DIR]
+    python3 chip_smoke.py --rans [--root DIR]
     python3 chip_smoke.py --e1
     python3 chip_smoke.py --st
     python3 chip_smoke.py --lz
     python3 chip_smoke.py --dist
     python3 chip_smoke.py --prim
 
-The second to fourth forms run one turn of a parent/change comparison
+The second to fifth forms run one turn of a parent/change comparison
 with the tpulc_torch package under DIR (default: this checkout), e.g. a
 `git archive` of the parent commit; run them in turns, parent, change,
 change, parent.  `--walks`: K3, K7 and K8 device ms and the decode-only
@@ -25,6 +26,16 @@ registers and waves, the parent's zero-fill of the encode words alone,
 the chain bound, and, where the tree's abc.cu has them, every build of
 its comparison library (`-DTPLC_ABC_SWEEP`: lanes a block, the decode's
 16-byte word chunks).
+`--rans`: coder 1's two walks on the arguments that tree's `-e1` path
+gives them on pg1661 x 6 at 4 MiB and on the 100 MB soup at 25 MiB
+(`rans_turn`): ms, device ms, the sha256 of their outputs, the working
+lanes, ns a step of the deepest lane, registers and waves, the chain
+bound, the same call with every nsym 0 and on the working lanes alone,
+the parent's zero-fill of the encode words and a zero-filled decode
+output alone, every build of the tree's comparison library
+(`-DTPLC_RANS_SWEEP`: lanes a block, encode's register batches, the
+decode's word reads and its fused global table, with each block's
+phase clocks), and the compiled loops of both walks.
 `--e1`: the card, the build and phase 9 alone; `--st`: the same for
 phase 10; `--lz`: the same for phases 11 and 12; `--dist`: the same for
 phase 13; `--prim`: the same for phase 14.
@@ -98,7 +109,9 @@ Phases (any failure exits non-zero before the last line is printed):
 9. the bsc -e1 main path (tpulc's default coder, through
    get_codec("bsc") with tpulc's defaults): first coder 1's encode and
    decode walks (csrc/rans_ctx.cu) against their plain versions on the
-   arguments each cell's path gives them, timed as in phase 3; then,
+   arguments each cell's path gives them, timed as in phase 3, and every
+   build of rans_ctx.cu's comparison library (-DTPLC_RANS_SWEEP) equal
+   to the wrappers (device ms, registers, waves, phase clocks); then,
    counted as in phase 4, pg1661 x 6 at 4 MiB blocks (exact round trip,
    177,610 B, ratio 20.098, tpulc's sha256, K1, the start tables and K2
    once a block, K4 twice, each walk once a call, the card's container
@@ -852,6 +865,8 @@ def main() -> int:
                     help="one turn of K1's and the start tables' comparison")
     ap.add_argument("--abc", action="store_true",
                     help="one turn of the adaptive coder's walks' comparison")
+    ap.add_argument("--rans", action="store_true",
+                    help="one turn of coder 1's walks' comparison")
     ap.add_argument("--e1", action="store_true",
                     help="phase 9 alone (bsc -e1 on both cells)")
     ap.add_argument("--st", action="store_true",
@@ -865,7 +880,8 @@ def main() -> int:
                     help="phase 14 alone (the primitive layer and the "
                          "golds)")
     ap.add_argument("--root", default=None,
-                    help="with --walks, --mtf or --abc: the checkout whose "
+                    help="with --walks, --mtf, --abc or --rans: the "
+                         "checkout whose "
                          "tpulc_torch runs")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -874,9 +890,9 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
-    if opts.walks or opts.mtf or opts.abc:
+    if opts.walks or opts.mtf or opts.abc or opts.rans:
         turn = (walks_turn if opts.walks else mtf_turn if opts.mtf
-                else abc_turn)
+                else abc_turn if opts.abc else rans_turn)
         return turn(torch, here, os.path.abspath(opts.root or here))
     sys.path.insert(0, here)
     from tpulc_torch import cuda_lib
@@ -892,10 +908,13 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind}", flush=True)
 
-    # 2. build (with abc.cu's comparison builds where phase 10 runs)
+    # 2. build (with abc.cu's comparison builds where phase 10 runs and
+    # rans_ctx.cu's where phase 9 does)
     t0 = time.perf_counter()
     if not (opts.e1 or opts.lz or opts.dist or opts.prim):
-        abc_sweep_start(here, cuda_lib)
+        sweep_start(here, cuda_lib, "abc")
+    if not (opts.st or opts.lz or opts.dist or opts.prim):
+        sweep_start(here, cuda_lib, "rans_ctx")
     cuda_lib.library()
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
           f"{' '.join(cuda_lib.NVCC_FLAGS)})", flush=True)
@@ -1218,27 +1237,41 @@ def abc_resident(lanes: int, smem: int, regs: int) -> int:
     return max(1, min(32, 233_472 // (smem + 1024), by_regs, 64 // warps))
 
 
-# checkout root -> [nvcc process, temporary .so, .so] of its comparison
-# library, then (ctypes library, {kernel: registers}) once built, or None
-_ABC_SWEEP: dict = {}
+# (checkout root, source stem) -> [nvcc process, temporary .so, .so] of
+# its comparison library, then (ctypes library, {kernel: registers}) once
+# built, or None
+_SWEEP: dict = {}
+# source stem -> (the define that adds its comparison builds, {entry
+# point: argument types as "p" (a pointer or the stream) and "i"})
+SWEEPS = {
+    "abc": ("TPLC_ABC_SWEEP", {"tplc_abc_encode_sweep": "p" * 8 + "iiii" + "p",
+                               "tplc_abc_decode_sweep": "p" * 7 + "i" * 7
+                               + "p"}),
+    "rans_ctx": ("TPLC_RANS_SWEEP", {
+        "tplc_rans_encode_sweep": "p" * 7 + "i" * 6 + "pp",
+        "tplc_rans_decode_sweep": "p" * 7 + "i" * 7 + "pp"}),
+}
 
 
-def abc_sweep_start(root: str, cuda_lib, fresh: bool = False) -> None:
-    """Start nvcc on the checkout's csrc/abc.cu with -DTPLC_ABC_SWEEP,
-    its comparison builds, into its _build/ (anew when `fresh`, so that
-    ptxas reports the registers), where the source has them; `abc_sweep`
-    waits for it and `abc_sweep_stop` ends it."""
-    if root in _ABC_SWEEP:
+def sweep_start(root: str, cuda_lib, stem: str = "abc",
+                fresh: bool = False) -> None:
+    """Start nvcc on the checkout's csrc/{stem}.cu with its comparison
+    define (`SWEEPS`) into its _build/ (anew when `fresh`, so that ptxas
+    reports the registers), where the source has it; `sweep` waits for
+    it and `sweep_stop` ends it."""
+    key = (root, stem)
+    if key in _SWEEP:
         return
-    src = os.path.join(root, "tpulc_torch", "csrc", "abc.cu")
+    define = SWEEPS[stem][0]
+    src = os.path.join(root, "tpulc_torch", "csrc", f"{stem}.cu")
     with open(src, "rb") as f:
         text = f.read()
-    if b"TPLC_ABC_SWEEP" not in text:
-        _ABC_SWEEP[root] = None
+    if define.encode() not in text:
+        _SWEEP[key] = None
         return
-    flags = [*cuda_lib.NVCC_FLAGS, "-DTPLC_ABC_SWEEP"]
+    flags = [*cuda_lib.NVCC_FLAGS, f"-D{define}"]
     build = os.path.join(root, "tpulc_torch", "_build")
-    so = os.path.join(build, "libabcsweep_" + hashlib.sha256(
+    so = os.path.join(build, f"lib{stem}sweep_" + hashlib.sha256(
         " ".join(flags).encode() + text).hexdigest()[:16] + ".so")
     if fresh and os.path.exists(so):
         os.unlink(so)
@@ -1247,34 +1280,35 @@ def abc_sweep_start(root: str, cuda_lib, fresh: bool = False) -> None:
     proc = None if os.path.exists(so) else subprocess.Popen(
         [cuda_lib._nvcc(), *flags, "-o", tmp, src], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
-    _ABC_SWEEP[root] = [proc, tmp, so]
+    _SWEEP[key] = [proc, tmp, so]
 
 
-def abc_sweep(root: str):
-    """(the comparison library, {kernel: registers}) of the checkout,
-    or None where its abc.cu has no comparison builds."""
+def sweep(root: str, stem: str = "abc"):
+    """(the comparison library, {kernel: registers}) of the checkout's
+    csrc/{stem}.cu, or None where it has no comparison builds."""
     import ctypes
 
-    entry = _ABC_SWEEP.get(root)
+    entry = _SWEEP.get((root, stem))
     if entry is None or len(entry) == 2:
         return entry
     proc, tmp, so = entry
     log = ""
     if proc is not None:
         log, _ = proc.communicate()
-        require(proc.returncode == 0, f"nvcc -DTPLC_ABC_SWEEP failed:\n{log}")
+        require(proc.returncode == 0,
+                f"nvcc -D{SWEEPS[stem][0]} failed:\n{log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.tplc_abc_encode_sweep.argtypes = [P] * 8 + [I] * 4 + [P]
-    lib.tplc_abc_decode_sweep.argtypes = [P] * 7 + [I] * 7 + [P]
-    _ABC_SWEEP[root] = (lib, ptxas_registers(log))
-    return _ABC_SWEEP[root]
+    for name, kinds in SWEEPS[stem][1].items():
+        getattr(lib, name).argtypes = [
+            ctypes.c_void_p if k == "p" else ctypes.c_int for k in kinds]
+    _SWEEP[(root, stem)] = (lib, ptxas_registers(log))
+    return _SWEEP[(root, stem)]
 
 
-def abc_sweep_stop() -> None:
+def sweep_stop() -> None:
     """End any comparison build still running."""
-    for entry in _ABC_SWEEP.values():
+    for entry in _SWEEP.values():
         if entry is not None and len(entry) == 3 and entry[0] is not None:
             if entry[0].poll() is None:
                 entry[0].kill()
@@ -1286,7 +1320,7 @@ def abc_sweep_stop() -> None:
 def abc_builds(torch, ak, cuda_lib, enc: tuple, dec: tuple,
                sweep) -> dict:
     """The adaptive coder's walks at every build: with `sweep` (the
-    comparison library, `abc_sweep`), encode at 32, 64 and 128 lanes a
+    comparison library, `sweep`), encode at 32, 64 and 128 lanes a
     block, decode at 32, 64 and 128 with the two-word queue and at 32
     with 16-byte word chunks; without (a tree that has none), the
     wrappers.  Each output equals the wrapper's.  Per build: device ms, ns a step of the
@@ -1413,7 +1447,7 @@ def abc_turn(torch, here: str, root: str) -> int:
     allocations of the parent's wrapper alone (`probs` and a zero-filled
     `words`); then the compiled loops of the walks (`sass_loops`)."""
     smi, build_s = load_tree(root, fresh="abc", before_build=partial(
-        abc_sweep_start, root, fresh=True))
+        sweep_start, root, stem="abc", fresh=True))
     from tpulc_torch import cuda_lib
     from tpulc_torch.codecs.bsclike import abc_kernels as ak
     from tpulc_torch.codecs.bsclike import rans_adaptive as ra
@@ -1454,7 +1488,7 @@ def abc_turn(torch, here: str, root: str) -> int:
             torch.empty((W, L), dtype=torch.int16, device=dev),
             torch.zeros((L, W + 2), dtype=torch.int16, device=dev)))
         row["builds"] = abc_builds(torch, ak, cuda_lib, enc, dec,
-                                   abc_sweep(root))
+                                   sweep(root, "abc"))
         del enc, dec, comp
         out["shapes"][label] = row
         print(json.dumps({label: row}), flush=True)
@@ -1468,6 +1502,264 @@ def abc_turn(torch, here: str, root: str) -> int:
                                                 "abc_")]
     print(smi)
     print(json.dumps({"abc": out}), flush=True)
+    return 0
+
+
+def lane_cut(nsym, nlanes: int):
+    """The first lanes of each block of `nlanes` up to the last working
+    one (nsym > 0) of any block -> (lane indices, lanes kept a block)."""
+    import torch
+
+    L = nsym.shape[0]
+    lanes = torch.arange(L, device=nsym.device)
+    work = lanes[nsym > 0] % nlanes
+    keep = int(work.max()) + 1 if work.numel() else 1
+    blocks = -(-L // nlanes)
+    sel = (torch.arange(blocks, device=nsym.device)[:, None] * nlanes
+           + torch.arange(keep, device=nsym.device)[None, :]).reshape(-1)
+    return sel[sel < L], keep
+
+
+def rans_smem(walk: str, lanes: int, C: int, S: int) -> int:
+    """Shared memory of a coder-1 walk's block (csrc/rans_ctx.cu): the
+    staged entries of one block's NCTX contexts (8 B each), each lane's
+    count, and, encode, each lane's words (C + 2 of 2 B), decode, the
+    slot buckets (512 a context: a 4 B mask and a 2 B count)."""
+    if walk == "encode":
+        return 8 * 32 * S + 2 * lanes * (C + 2) + 4 * lanes
+    return 8 * 32 * S + 6 * 32 * 512 + 4 * (lanes + 32)
+
+
+def rans_builds(torch, rans, cuda_lib, enc: tuple, dec: tuple,
+                sweep_lib) -> dict:
+    """Coder 1's walks at every build of the comparison library
+    (`-DTPLC_RANS_SWEEP`): encode at 32, 64 and 128 lanes a block with
+    register batches of 16 and 32 steps; decode at 32 to 512 lanes a
+    block from the staged tables, and at 32 and 128 from one fused
+    8-byte global entry a (context, slot).  Each output equals the
+    wrapper's.  Per build: device ms, ns a step of the deepest lane,
+    registers (ptxas), shared memory and waves."""
+    dev = enc[0].device
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    idx, nsym, fc, nlanes = enc
+    words, states, fctx, dnsym, lut, dfc, dnl, chunk = (*dec, rans.CHUNK)[:8]
+    (C, L), Ld = idx.shape, words.shape[0]
+    R = lut.numel() // rans.PROB_SCALE
+    S, Sd = fc.numel() // (-(-L // nlanes) * rans.NCTX), dfc.numel() // R
+    lib, regs = sweep_lib
+    rcp = rans._rcp(dev)
+    ref = {"encode": rans.rans_encode_walk(*enc),
+           "decode": (rans.rans_decode_walk(*dec),)}
+    # the fused comparison table: (symbol | f << 16, slot - cum) a slot
+    s = lut.view(R, rans.PROB_SCALE).to(torch.int64)
+    e = dfc.view(R, Sd).to(torch.int64).gather(1, s)
+    slot = torch.arange(rans.PROB_SCALE, device=dev)
+    fused = torch.stack([s | (e >> rans.PROB_BITS) << 16,
+                         slot - (e & (rans.PROB_SCALE - 1))], -1).to(
+        torch.int32).contiguous()
+    del s, e
+
+    def encode(lanes, batch, prof=None):
+        w = torch.empty((L, C + 2), dtype=torch.int16, device=dev)
+        c = torch.empty(L, dtype=torch.int64, device=dev)
+        x = torch.empty(L, dtype=torch.int64, device=dev)
+        cuda_lib.check(lib.tplc_rans_encode_sweep(
+            idx.data_ptr(), nsym.data_ptr(), fc.data_ptr(), rcp.data_ptr(),
+            w.data_ptr(), c.data_ptr(), x.data_ptr(), C, L, S, nlanes,
+            lanes, batch, prof, cuda_lib.stream_of(idx)),
+            "tplc_rans_encode_sweep")
+        return w, c, x
+
+    def decode(lanes, kind, prof=None):
+        o = torch.empty((Ld, chunk), dtype=torch.int32, device=dev)
+        cuda_lib.check(lib.tplc_rans_decode_sweep(
+            words.data_ptr(), states.data_ptr(), fctx.data_ptr(),
+            dnsym.data_ptr(), dfc.data_ptr(),
+            fused.data_ptr() if kind == "fused" else None, o.data_ptr(),
+            chunk, Ld, Sd, R, dnl, lanes, int(kind == "one"), prof,
+            cuda_lib.stream_of(words)), "tplc_rans_decode_sweep")
+        return (o,)
+
+    def phases(fn, blocks):
+        """Each working block's phase clocks (SM cycles, clock64):
+        stage (start to tables staged), walk (to the last lane's end),
+        write (encode: the rows written) -> [median, max] of each."""
+        prof = torch.zeros((blocks, 4), dtype=torch.int64, device=dev)
+        fn(prof=prof.data_ptr())
+        p = prof.cpu()
+        p = p[p[:, 2] != 0]
+        if not p.shape[0]:
+            return {}
+        spans = {"stage": p[:, 1] - p[:, 0], "walk": p[:, 2] - p[:, 1]}
+        if bool((p[:, 3] != 0).all()):
+            spans["write"] = p[:, 3] - p[:, 2]
+        return {"blocks": int(p.shape[0]), **{
+            k: [float(v.double().median()), int(v.max())]
+            for k, v in spans.items()}}
+
+    steps = {"encode": int(nsym.max()), "decode": int(dnsym.max())}
+    out = {"sms": sms, "steps": steps, "wrapper": {
+        "encode": cuda_lib.library().tplc_rans_encode_lanes(L, nlanes, C, S),
+        "decode": cuda_lib.library().tplc_rans_decode_lanes(Ld, dnl, Sd)},
+        "builds": []}
+    builds = [("encode", n, f"batch {b}", partial(encode, n, b),
+               rans_smem("encode", n, C, S), (f"ILi{n}ELi{b}E",),
+               -(-L // nlanes) * -(-nlanes // n))
+              for n in (32, 64, 128) for b in (16, 32)]
+    builds += [("decode", n, kind, partial(decode, n, kind),
+                rans_smem("decode", n, chunk, Sd),
+                ("rans_decode_kernel", f"ILi{n}E",
+                 "WordOne" if kind == "one" else "WordChunks"),
+                -(-Ld // dnl) * -(-dnl // n))
+               for n, kind in ((32, "one"), (64, "one"), (128, "one"),
+                               (256, "one"), (512, "one"), (32, "chunks"),
+                               (512, "chunks"))]
+    builds += [("decode", n, "fused", partial(decode, n, "fused"), 0,
+                ("fused", f"ILi{n}E"), -(-Ld // n)) for n in (32, 128)]
+    for tag, lanes, variant, fn, smem, names, blocks in builds:
+        got = fn()
+        require(all(torch.equal(g, w) for g, w in zip(got, ref[tag])),
+                f"rans {tag} at {lanes} lanes ({variant}) differs")
+        del got
+        ms = device_ms(torch, fn)
+        r = next((v for k, v in regs.items() if f"rans_{tag}" in k
+                  and all(x in k for x in names)), 0)
+        out["builds"].append({
+            "walk": tag, "lanes": lanes, "variant": variant,
+            "device_ms": ms, "ns_per_step": ms * 1e6 / max(steps[tag], 1),
+            "registers": r, "smem": smem, "waves": -(-blocks // (
+                sms * abc_resident(lanes, smem, r))),
+            "phase_cycles": ({} if variant == "fused"
+                             else phases(fn, blocks))})
+    return out
+
+
+def rans_turn(torch, here: str, root: str) -> int:
+    """One turn of coder 1's walks' parent/change comparison, with the
+    tpulc_torch package under `root`: on pg1661 x 6 at 4 MiB and on the
+    100 MB soup at 25 MiB, the arguments that tree's `-e1` compress gives
+    its encode walk and its decompress its decode walk (stopped there),
+    then each walk's `ms`, `device_ms` and output sha256, its working
+    lanes, deepest lane's steps and ns a step, registers and waves, the
+    chain bound (RANS_ENC_CHAIN, RANS_DEC_CHAIN a step of the deepest
+    lane), the device ms of the same call with every lane's nsym set to
+    0 (`no_walk`: what the rows' stores cost alone) and on the working
+    lanes alone (`lane_cut`), a zero-filled int32[L, C] (the decode
+    output's write floor), the parent wrapper's zero-filled `words`
+    alone, and every build of the comparison library where the tree has
+    one (`rans_builds`); then the compiled loops of the walks
+    (`sass_loops`)."""
+    smi, build_s = load_tree(root, fresh="rans_ctx", before_build=partial(
+        sweep_start, root, stem="rans_ctx", fresh=True))
+    from tpulc_torch import cuda_lib
+    from tpulc_torch.codecs.bsclike import rans
+    from tpulc_torch.pipeline.registry import get_codec
+
+    bsc = get_codec("bsc")
+    dev = torch.device("cuda")
+    lib = cuda_lib.library()
+    new = hasattr(lib, "tplc_rans_encode_lanes")
+    log = cuda_lib.build_log.get("rans_ctx.cu", "")
+    regs = ptxas_registers(log)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"root": root, "card": smi, "build_s": build_s,
+           "sm_clock_hz": sm_clock_hz(), "registers": regs,
+           "spills": [ln.strip() for ln in log.splitlines()
+                      if "spill" in ln and " 0 bytes spill stores, 0 bytes"
+                      not in ln], "shapes": {}}
+    for label, data, block, want_sha in (
+            ("pg1661x6", corpus(here), BSC_BLOCK, BSC_E1_SHA256),
+            ("soup100MB", soup(SOUP_SIZE), SOUP_BLOCK, SOUP_E1_SHA256)):
+        comp = []
+        enc = captured(rans, "rans_encode_walk", lambda: comp.append(
+            bsc.compress(data, block_size=block, device="cuda")))
+        require(hashlib.sha256(comp[0]).hexdigest() == want_sha,
+                f"{label}: container differs from tpulc's")
+        dec = first_args(rans, "rans_decode_walk",
+                         lambda: bsc.decompress(comp[0], device="cuda"))
+        del comp
+        idx, nsym = enc[0], enc[1]
+        (C, L), Ld, dnl = idx.shape, dec[0].shape[0], dec[6]
+        dchunk = dec[7] if len(dec) > 7 else rans.CHUNK
+        R = dec[4].numel() // rans.PROB_SCALE
+        S = (enc[2].numel() // (-(-L // enc[3]) * rans.NCTX) if new
+             else 0)
+        Sd = dec[5].numel() // R
+        row = {"encode_shape": f"{C}x{L}", "decode_shape": f"{Ld}x{dchunk}"}
+        for tag, fn, n, lanes_of in (
+                ("encode", rans.rans_encode_walk, nsym,
+                 lambda: lib.tplc_rans_encode_lanes(L, enc[3], C, S)),
+                ("decode", rans.rans_decode_walk, dec[3],
+                 lambda: lib.tplc_rans_decode_lanes(Ld, dnl, Sd))):
+            args = enc if tag == "encode" else dec
+            deep = int(n.max())
+            got = fn(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            row[f"{tag}_sha256"] = outputs_sha256(g.cpu() for g in got)
+            row[f"{tag}_ms"] = time_ms(torch, partial(fn, *args))
+            dms = device_ms(torch, partial(fn, *args))
+            lanes = lanes_of() if new else 32
+            nl = enc[3] if tag == "encode" and new else dnl
+            Ll = L if tag == "encode" else Ld
+            smem = (rans_smem(tag, lanes, C if tag == "encode" else dchunk,
+                              S if tag == "encode" else Sd) if new else 0)
+            r = next((v for k, v in regs.items() if f"rans_{tag}" in k
+                      and (not new or f"ILi{lanes}E" in k)), 0)
+            blocks = (-(-Ll // nl) * -(-nl // lanes) if new
+                      else -(-Ll // lanes))
+            chain_ops = deep * (RANS_ENC_CHAIN if tag == "encode"
+                                else RANS_DEC_CHAIN)
+            # the same call with no lane walking, and on the working
+            # lanes alone (each block's first `keep`)
+            zero = list(args)
+            zero[1 if tag == "encode" else 3] = torch.zeros_like(n)
+            if tag == "encode":
+                sel = (torch.nonzero(n > 0).reshape(-1) if not new
+                       else lane_cut(n, enc[3])[0])
+                keep = None if not new else lane_cut(n, enc[3])[1]
+                cut = (idx[:, sel].contiguous(), n[sel].contiguous(),
+                       *args[2:3], *((keep,) if new else ()))
+            else:
+                sel, keep = lane_cut(n, dnl)
+                cut = (*(a[sel].contiguous() for a in args[:4]), *args[4:6],
+                       keep, *args[7:])
+            cgot = fn(*cut)
+            cgot = cgot if isinstance(cgot, tuple) else (cgot,)
+            require(all(torch.equal(c, g[sel]) for c, g in zip(cgot, got)),
+                    f"{label}: {tag} on the working lanes differs")
+            del got, cgot
+            row[tag] = {
+                "device_ms": dms, "working_lanes": int((n > 0).sum()),
+                "lanes": Ll, "valid_steps": int(n.sum()),
+                "deepest_steps": deep,
+                "ns_per_step": dms * 1e6 / max(deep, 1),
+                "lanes_a_block": lanes, "registers": r, "smem": smem,
+                "waves": -(-blocks // (sms * abc_resident(lanes, smem, r))),
+                "chain_ops": chain_ops, "chain_ms": chain_ms(chain_ops),
+                "no_walk_device_ms": device_ms(
+                    torch, partial(fn, *zero)),
+                "working_lanes_only": {"lanes": int(sel.numel()),
+                                       "device_ms": device_ms(
+                                           torch, partial(fn, *cut))}}
+        row["encode"]["parent_words_fill_device_ms"] = device_ms(
+            torch, lambda: torch.zeros((L, C + 2), dtype=torch.int16,
+                                       device=dev))
+        row["decode"]["out_fill_device_ms"] = device_ms(
+            torch, lambda: torch.zeros((Ld, dchunk), dtype=torch.int32,
+                                       device=dev))
+        sw = sweep(root, "rans_ctx")
+        if sw is not None:
+            row["builds"] = rans_builds(torch, rans, cuda_lib, enc, dec, sw)
+        del enc, dec
+        out["shapes"][label] = row
+        print(json.dumps({label: row}), flush=True)
+    build = os.path.join(root, "tpulc_torch", "_build")
+    out["sass_loops"] = [loop for f in sorted(os.listdir(build))
+                         if f.startswith("librans_ctx_")
+                         for loop in sass_loops(os.path.join(build, f),
+                                                "rans_")]
+    print(smi)
+    print(json.dumps({"rans": out}), flush=True)
     return 0
 
 
@@ -1958,22 +2250,27 @@ def captured(module, name: str, fn) -> tuple:
 
 def rans_checks(rans, enc: tuple, dec: tuple, suffix: str) -> list:
     """`check_kernels` entries of the coder-1 walks on the arguments the
-    path gave them.  Bytes: the valid steps' table entries (encode) or
-    the rows' words (decode), the lane vectors and the tables read once,
-    the words or symbols written once; operations RANS_OPS a valid
+    path gave them.  Bytes, as the kernels read and write them: encode,
+    the valid steps' idx entries, the lane vector, the packed table and
+    the reciprocals read once, every entry of `words` and the counts and
+    states written once; decode, the words the lanes take, the lane
+    vectors and the packed table read once (the slot table is not
+    read), the symbols written once.  Operations RANS_OPS a valid
     step."""
-    idx, nsym, fc = enc
+    idx, nsym, fc, nlanes = enc
     C, L = idx.shape
     steps = int(nsym.sum())
     nwords = int(rans.rans_encode_walk(*enc)[1].sum())
-    lut, Ld = dec[4], dec[0].shape[0]
+    Ld = dec[0].shape[0]
     return [
         dict(name=f"rans_encode_walk{suffix}", src=RANS_SRC,
              replaces="tpulc/codecs/bsclike/rans.py:388-412 (XLA fori_loop, "
                       "no pallas_call)",
-             kern=rans.rans_encode_walk, plain=rans.rans_encode_walk_plain,
+             kern=rans.rans_encode_walk,
+             plain=lambda i, n, f, _: rans.rans_encode_walk_plain(i, n, f),
              args=enc, shape=f"{C}x{L}",
-             bytes=4 * steps + 4 * L + 4 * fc.numel() + 2 * nwords + 16 * L,
+             bytes=4 * steps + 4 * L + 4 * fc.numel()
+             + 4 * (rans.PROB_SCALE + 1) + 2 * L * (C + 2) + 16 * L,
              ops=RANS_OPS * steps, plain_reps=1,
              chain=int(nsym.max()) * RANS_ENC_CHAIN),
         dict(name=f"rans_decode_walk{suffix}", src=RANS_SRC,
@@ -1981,7 +2278,7 @@ def rans_checks(rans, enc: tuple, dec: tuple, suffix: str) -> list:
                       "no pallas_call)",
              kern=rans.rans_decode_walk, plain=rans.rans_decode_walk_plain,
              args=dec, shape=f"{Ld}x{dec[7]}",
-             bytes=2 * nwords + 20 * Ld + 2 * lut.numel() + 4 * fc.numel()
+             bytes=2 * nwords + 20 * Ld + 4 * dec[5].numel()
              + 4 * Ld * dec[7],
              ops=RANS_OPS * int(dec[3].sum()), plain_reps=1,
              chain=int(dec[3].max()) * RANS_DEC_CHAIN),
@@ -1993,8 +2290,10 @@ def bsc_e1_phase(torch, here: str, kernels: list) -> None:
     get_codec("bsc") with tpulc's defaults, counted as in phase 4, on
     pg1661 x 6 at 4 MiB and on 100 MB of word soup at 25 MiB; first the
     coder-1 walks against their plain versions on the arguments each
-    cell's path gives them.  Appends the walks at both shapes to
-    `kernels`."""
+    cell's path gives them, and every build of the comparison library
+    (`rans_builds`) equal to the wrappers.  Appends the walks at both
+    shapes to `kernels`."""
+    from tpulc_torch import cuda_lib
     from tpulc_torch.codecs.bsclike import rans
     from tpulc_torch.pipeline.container import Container
     from tpulc_torch.pipeline.registry import get_codec
@@ -2024,6 +2323,9 @@ def bsc_e1_phase(torch, here: str, kernels: list) -> None:
                        lambda: comp.append(compress()))
         dec = captured(rans, "rans_decode_walk", lambda: decompress(comp[0]))
         entries = check_kernels(torch, rans_checks(rans, enc, dec, suffix))
+        builds = rans_builds(torch, rans, cuda_lib, enc, dec,
+                             sweep(here, "rans_ctx"))
+        print(json.dumps({f"{label}_rans_builds": builds}), flush=True)
         del enc, dec, comp
         torch.cuda.reset_peak_memory_stats()
         (comp, back), dt, counts = counted(torch, path, round_trip)
@@ -2047,7 +2349,7 @@ def bsc_e1_phase(torch, here: str, kernels: list) -> None:
         for e in entries:
             e["launches"] = counts[e["name"][: len(e["name"]) - len(suffix)]]
         kernels += entries
-        res = {"walks": entries,
+        res = {"walks": entries, "builds": builds,
                "input_bytes": len(data), "block_size": block,
                "blocks": nblocks, "container_bytes": len(comp),
                "ratio": ratio, "sha256": sha,
@@ -2236,7 +2538,7 @@ def st_phase(torch, here: str, kernels: list) -> None:
                 "@" + label))
             res["abc_builds"] = abc_builds(
                 torch, ak, cuda_lib, calls["abc_encode_walk"],
-                calls["abc_decode_walk"], abc_sweep(here))
+                calls["abc_decode_walk"], sweep(here, "abc"))
             print(json.dumps({f"{label}_abc_builds": res["abc_builds"]}),
                   flush=True)
         if label == "soup25_st8w_e2":
@@ -3157,5 +3459,5 @@ if __name__ == "__main__":
     try:
         code = main()
     finally:
-        abc_sweep_stop()
+        sweep_stop()
     sys.exit(code)

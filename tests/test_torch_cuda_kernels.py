@@ -15,6 +15,7 @@ from test_torch_walk_cases import (
     K3_CASES,
     K4_CASES,
     K8_CASES,
+    RANS_CARD_CASES,
     START_CASES,
     abc_case,
     abc_states,
@@ -23,6 +24,8 @@ from test_torch_walk_cases import (
     k3_case,
     k4_case,
     k8_case,
+    rans_case,
+    rans_walk_args,
     start_case,
 )
 
@@ -657,74 +660,113 @@ def test_bsc_e1_on_card_matches_cpu(cuda, name):
     assert bsc.decompress(on_card, device="cuda") == data
 
 
-def _rans_case(name):
-    """Inputs of the coder-1 walks: (idx, nsym, fc) of the encode, as
-    `rans_encode_ctx_batch` builds them, and (lut, nlanes) for the
-    decode.  B blocks of cap symbols (RLE2-like ranks, zeros past each
-    block's m) with their normalised order-2 tables."""
+@functools.lru_cache(maxsize=None)
+def _rans_plain(name):
+    """A RANS_CARD_CASES case's walk arguments and the plain walks'
+    outputs: (encode arguments, plain encode, decode runs [(arguments,
+    plain decode)] from the true and from random states)."""
     from tpulc_torch.codecs.bsclike import rans
 
-    rng = np.random.default_rng(len(name))
-    B, cap, ms = {"one": (1, 4096, [3333]),
-                  "three": (3, 2048, [2048, 701, 1537]),
-                  "lanes33": (3, 512 * 11, [5632, 4000, 100]),
-                  "zero_words": (2, 2048, [2000, 1500])}[name]
-    syms = np.minimum(rng.geometric(0.3, size=(B, cap)) - 1, 256)
-    if name == "zero_words":
-        syms[:] = 0   # one symbol a context: f = 2^14, no word
-    for b in range(B):
-        syms[b, ms[b]:] = 0
-    syms = torch.from_numpy(syms.astype(np.int32))
-    ctx = torch.stack([rans.ctx_of_stream(s) for s in syms])
-    fqs = []
-    for b in range(B):
-        h = np.zeros((rans.NCTX, 257), np.int64)
-        np.add.at(h, (ctx[b, : ms[b]].numpy(), syms[b, : ms[b]].numpy()), 1)
-        fqs.append(rans.normalize_freqs_ctx(h))
-    fq = torch.from_numpy(np.concatenate(fqs))
-    cum = torch.cat([torch.zeros(B * rans.NCTX, 1, dtype=torch.int32),
-                     fq.cumsum(1)[:, :-1].to(torch.int32)], 1)
-    gctx = ctx + (torch.arange(B, dtype=torch.int32) * rans.NCTX)[:, None]
-    L = B * cap // rans.CHUNK
-    idx = (gctx * 257 + syms).reshape(L, rans.CHUNK).T.contiguous()
-    nsym = rans._lane_counts(ms, B, cap // rans.CHUNK, rans.CHUNK,
-                             torch.device("cpu"))
-    fctx = gctx.reshape(L, rans.CHUNK)[:, 0].to(torch.int64)
-    return (idx, nsym, rans.packed_table(fq, cum),
-            rans.slot_table(fq, cum), fctx, cap // rans.CHUNK)
-
-
-@pytest.mark.parametrize("name", ["one", "three", "lanes33", "zero_words"])
-def test_rans_walks_equal_plain(cuda, name):
-    """The coder-1 encode and decode kernels against their plain
-    versions (true and random states), lane counts of 8, 12 and 33."""
-    from tpulc_torch.codecs.bsclike import rans
-
-    idx, nsym, fc, lut, fctx, nlanes = _rans_case(name)
+    idx, nsym, fc, lut, fctx, nlanes = rans_walk_args(*rans_case(name))
     want = rans.rans_encode_walk_plain(idx, nsym, fc)
-    n = rans.rans_encode_walk.launches
-    got = rans.rans_encode_walk(idx.to(cuda), nsym.to(cuda), fc.to(cuda))
-    torch.cuda.synchronize()
-    assert rans.rans_encode_walk.launches == n + 1
-    for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
     words, counts, states = want
     assert (int(counts.sum()) == 0) == (name == "zero_words")
     hostile = torch.from_numpy(np.random.default_rng(7).integers(
         0, 1 << 32, states.shape[0], dtype=np.uint64).astype(np.int64))
+    runs = []
     for st in (states, hostile):
         args = (words, st, fctx, nsym, lut, fc, nlanes)
-        plain = rans.rans_decode_walk_plain(*args)
+        runs.append((args, rans.rans_decode_walk_plain(*args)))
+    valid = torch.arange(rans.CHUNK)[None, :] < nsym[:, None]
+    assert torch.equal(torch.where(valid, runs[0][1], 0),
+                       torch.where(valid, (idx % 257).T, 0))
+    return (idx, nsym, fc, nlanes), want, runs
+
+
+def _rans_wide(enc, want, runs, blocks, dev):
+    """A case's bsc blocks repeated to `blocks` (a multiple of its own),
+    each padded to 512 lanes of nsym 0, on dev: -> (encode arguments,
+    the encode they must give, decode runs).  A repeat's contexts are
+    offset by its block, so each lane equals its original."""
+    from tpulc_torch.codecs.bsclike import rans
+
+    idx, nsym, fc, nlanes = enc
+    B = idx.shape[1] // nlanes
+    reps, wide = blocks // B, 512
+    S = fc.shape[0] // (B * rans.NCTX)
+    lane = torch.arange(blocks * wide, device=dev)
+    blk, pos = lane // wide, lane % wide
+    real = pos < nlanes
+    src = torch.where(real, (blk % B) * nlanes + pos, 0)
+
+    def lanes(t, fill):   # a per-lane tensor (last axis lanes) re-laid
+        out = t.to(dev)[..., src]
+        return torch.where(real, out, torch.as_tensor(fill, dtype=t.dtype,
+                                                      device=dev))
+
+    shift = (blk // B * B * rans.NCTX * S).to(torch.int32)
+    w_idx = torch.where(real, lanes(idx, 0) + shift,
+                        (blk * rans.NCTX * S).to(torch.int32))
+    w_enc = (w_idx.contiguous(), lanes(nsym, 0).contiguous(),
+             fc.to(dev).repeat(reps), wide)
+    words, counts, states = want
+    w_want = (lanes(words.T, 0).T.contiguous(), lanes(counts, 0),
+              lanes(states, rans.RANS_L))
+    w_runs = []
+    for (words_, st, fctx, nsym_, lut, fc_, _), plain in runs:
+        fctx_w = torch.where(real, lanes(fctx, 0) + (blk // B * B)
+                             * rans.NCTX, blk * rans.NCTX)
+        w_runs.append(((lanes(words_.T, 0).T.contiguous(),
+                        lanes(st, rans.RANS_L), fctx_w.contiguous(),
+                        lanes(nsym_, 0), lut.to(dev).repeat(reps),
+                        fc_.to(dev).repeat(reps), wide),
+                       lanes(plain.T, 0).T.contiguous()))
+    return w_enc, w_want, w_runs
+
+
+@pytest.mark.parametrize("build", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("name", RANS_CARD_CASES)
+def test_rans_walks_equal_plain(cuda, name, build):
+    """The coder-1 encode and decode kernels against their plain
+    versions (true and random states) on `rans_case`'s blocks: 4 to 45
+    lanes a bsc block, a CUDA block straddling bsc blocks, a lane of the
+    most words, tables with an f = 1 tail and zero-frequency gaps; at
+    build 32 the case itself, else its blocks repeated (each padded to
+    512 lanes) until the decode picks `build` lanes a block (encode:
+    64 at 64, 128 from 128 on), past one wave of blocks at 512."""
+    from tpulc_torch import cuda_lib
+    from tpulc_torch.codecs.bsclike import rans
+
+    enc, want, runs = _rans_plain(name)
+    lib = cuda_lib.library()
+    if build == 32:
+        enc = tuple(a.to(cuda) if torch.is_tensor(a) else a for a in enc)
+        runs = [(tuple(a.to(cuda) if torch.is_tensor(a) else a
+                       for a in args), plain.to(cuda))
+                for args, plain in runs]
+        want = tuple(w.to(cuda) for w in want)
+    else:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        B = enc[0].shape[1] // enc[3]
+        blocks = -(-(sms + 1 if build == 512 else -(-sms * build // 512))
+                   // B) * B
+        enc, want, runs = _rans_wide(enc, want, runs, blocks, cuda)
+    C, L = enc[0].shape
+    S = enc[2].shape[0] // (L // enc[3] * rans.NCTX)
+    assert lib.tplc_rans_decode_lanes(L, enc[3], S) == build
+    assert lib.tplc_rans_encode_lanes(L, enc[3], C, S) == min(build, 128)
+    n = rans.rans_encode_walk.launches
+    got = rans.rans_encode_walk(*enc)
+    torch.cuda.synchronize()
+    assert rans.rans_encode_walk.launches == n + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for args, plain in runs:
         n = rans.rans_decode_walk.launches
-        dec = rans.rans_decode_walk(*(a.to(cuda) if torch.is_tensor(a)
-                                      else a for a in args))
+        dec = rans.rans_decode_walk(*args)
         torch.cuda.synchronize()
         assert rans.rans_decode_walk.launches == n + 1
-        assert torch.equal(dec.cpu(), plain)
-    valid = torch.arange(rans.CHUNK)[None, :] < nsym[:, None]
-    assert torch.equal(torch.where(valid, rans.rans_decode_walk_plain(
-        words, states, fctx, nsym, lut, fc, nlanes), 0),
-        torch.where(valid, (idx % 257).T, 0))
+        assert torch.equal(dec, plain)
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,13 +4,21 @@ frequency normalisation (an empty histogram, a one-symbol context, a
 drift that lands on a tie), the tables and the slot table, the
 contexts, the batched encode (B = 1, 2, 3 blocks whose valid lengths
 differ and are not multiples of 512) and decode, the one-block pair,
-the zero-word stream and the word rows.  tpulc's loops run through JAX
-on the CPU; each is called once a module (fixtures)."""
+the zero-word stream and the word rows; the plain walks on
+`test_torch_walk_cases.RANS_CASES` (straddling blocks, a lane of the
+most words, an f = 1 tail with zero-frequency gaps).  The tables the
+card kernels stage are held to their rules here: the encode's
+reciprocals give the exact quotient, and the decode's slot index
+(`decode_index`, the kernel's staging in numpy) gives tpulc's slot
+table's symbol for every slot.  tpulc's loops run through JAX on the
+CPU; each is called once a module (fixtures)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from test_torch_walk_cases import RANS_CASES, rans_case, rans_tables
 
 from tpulc.codecs.bsclike import driver as td
 from tpulc.codecs.bsclike import rans as tr
@@ -208,3 +216,146 @@ def test_zero_word_stream_equals_tpulc():
     got = pr.rans_decode_ctx_chained(rows, c, s, torch.zeros(4, dtype=torch.int64),
                                      m, fqt, cumt, pr.slot_table(fqt, cumt))
     assert not got.any()
+
+
+def test_rcp_table_gives_the_exact_quotient():
+    """For every f in 0..2^14 (divisor max(f, 1)) and 32-bit x at the
+    edges of each quotient and at random, the encode kernel's step,
+    q = (x * rcp[f]) >> 32 and one correction, gives tpulc's (x // f) <<
+    14 + x % f + c mod 2^32."""
+    rcp = pr.rcp_table().astype(np.uint64)
+    assert rcp.shape == (pr.PROB_SCALE + 1,) and rcp.dtype == np.uint64
+    f = np.arange(pr.PROB_SCALE + 1, dtype=np.uint64)[:, None]
+    fx = np.maximum(f, 1)
+    top = np.uint64(pr.M32) // fx * fx
+    rng = np.random.default_rng(5)
+    x = np.concatenate([
+        np.broadcast_to(np.array([0, 1, 2, pr.M32 - 1, pr.M32], np.uint64),
+                        (f.shape[0], 5)),
+        fx - 1, fx, fx + 1, 2 * fx - 1, top - 1, top, top - fx,
+        np.minimum(top + fx - 1, pr.M32),
+        rng.integers(0, 1 << 32, (f.shape[0], 24), dtype=np.uint64)], 1)
+    c = rng.integers(0, pr.PROB_SCALE, x.shape, dtype=np.uint64)
+    q = (x * rcp[:, None]) >> np.uint64(32)
+    g = (np.uint64(pr.PROB_SCALE) - fx) & np.uint64(pr.M32)
+    xe = (x + c + q * g) & np.uint64(pr.M32)
+    short = ((x - q * fx) & np.uint64(pr.M32)) >= fx
+    got = np.where(short, (xe + g) & np.uint64(pr.M32), xe)
+    want = (((x // fx) << np.uint64(pr.PROB_BITS)) + x % fx + c) \
+        & np.uint64(pr.M32)
+    assert ((x // fx - q) <= 1).all()
+    assert np.array_equal(got, want)
+
+
+def decode_index(freq: np.ndarray, cum: np.ndarray):
+    """One context's slot index as `csrc/rans_ctx.cu`'s decode kernel
+    stages it: the present symbols (f > 0) in symbol order, a 32-bit
+    mask a 32-slot bucket (bit r: a present symbol starts at slot 32 u
+    + r) and the starts before each bucket -> (present, mask, first)."""
+    present = np.flatnonzero(freq > 0)
+    mask = np.zeros(pr.PROB_SCALE >> 5, np.uint64)
+    for s in present:
+        mask[cum[s] >> 5] |= np.uint64(1) << np.uint64(cum[s] & 31)
+    pops = np.array([bin(int(m)).count("1") for m in mask])
+    first = np.concatenate([[0], np.cumsum(pops)[:-1]])
+    return present, mask, first
+
+
+def _index_symbols(freq, cum):
+    """The symbol of every slot through `decode_index`: present[first[u]
+    + popc(mask[u] & bits 0..r) - 1] for slot 32 u + r."""
+    present, mask, first = decode_index(freq, cum)
+    slot = np.arange(pr.PROB_SCALE)
+    low = (np.uint64(1) << (slot & 31).astype(np.uint64) + np.uint64(1)) \
+        - np.uint64(1)
+    bits = mask[slot >> 5] & low
+    pop = np.array([bin(int(b)).count("1") for b in bits])
+    return present[first[slot >> 5] + pop - 1]
+
+
+@pytest.mark.parametrize("name", ["gaps", "one_symbol", "all257", "tail",
+                                  "data"])
+def test_decode_index_gives_the_slot_tables_symbol(name):
+    """The decode kernel's staged index gives tpulc's slot table's
+    symbol (`_lut_from_freqs`) for every slot of every table: zero-
+    frequency gaps, one symbol at f = 2^14, all 257 symbols present
+    (256 at f = 1), an f = 1 tail with gaps, and real order-2 tables."""
+    if name == "data":
+        syms = _syms(4, 1)
+        ctx = np.asarray(tr.ctx_of_stream(jnp.asarray(syms[0])))[None]
+        fq = _tables(syms, ctx)[0]
+    else:
+        f = np.zeros(257, np.int32)
+        if name == "gaps":
+            f[[0, 3, 4, 90, 200, 256]] = (9000, 1, 2000, 3000, 2382, 1)
+        elif name == "one_symbol":
+            f[77] = pr.PROB_SCALE
+        else:
+            f = rans_tables("flat1" if name == "all257" else "tail")
+        fq = f[None]
+    assert (fq.sum(1) == pr.PROB_SCALE).all()
+    cum = np.concatenate([np.zeros((fq.shape[0], 1), np.int32),
+                          np.cumsum(fq, 1)[:, :-1].astype(np.int32)], 1)
+    want = np.asarray(td._lut_from_freqs(jnp.asarray(fq), jnp.asarray(cum)))
+    want = want.reshape(fq.shape[0], pr.PROB_SCALE)
+    for k in range(fq.shape[0]):
+        got = _index_symbols(fq[k], cum[k])
+        assert np.array_equal(got, want[k])
+        assert (fq[k][got] > 0).all() and (cum[k][got] <= np.arange(
+            pr.PROB_SCALE)).all()
+
+
+@pytest.fixture(scope="module", params=RANS_CASES)
+def walk_case(request):
+    """A `rans_case` through tpulc's batched encode and decode (true and
+    hostile states)."""
+    syms, ms, fq = rans_case(request.param)
+    B = syms.shape[0]
+    ctx = np.stack([np.asarray(tr.ctx_of_stream(jnp.asarray(s)))
+                    for s in syms])
+    cum = np.concatenate([np.zeros((fq.shape[0], 1), np.int32),
+                          np.cumsum(fq, 1)[:, :-1].astype(np.int32)], 1)
+    gctx = ctx + (np.arange(B, dtype=np.int32) * tr.NCTX)[:, None]
+    w, c, s = (np.array(a) for a in tr.rans_encode_ctx_batch(
+        jnp.asarray(syms), jnp.asarray(gctx), jnp.asarray(ms),
+        jnp.asarray(fq), jnp.asarray(cum)))
+    lut = np.asarray(td._lut_from_freqs(jnp.asarray(fq), jnp.asarray(cum)))
+    fctx = gctx.reshape(-1, tr.CHUNK)[:, 0]
+    hostile = np.random.default_rng(9).integers(0, 1 << 32, s.shape[0],
+                                                dtype=np.uint64)
+    dec = {tag: np.asarray(tr.rans_decode_ctx_batch(
+        jnp.asarray(w), jnp.asarray(c), jnp.asarray(st), jnp.asarray(fctx),
+        jnp.asarray(ms), jnp.asarray(fq), jnp.asarray(cum), jnp.asarray(lut),
+        B)) for tag, st in (("true", s), ("hostile",
+                                          hostile.astype(np.uint32)))}
+    return dict(name=request.param, B=B, syms=syms, gctx=gctx, ms=ms,
+                fq=fq, cum=cum, words=w, counts=c, states=s, fctx=fctx,
+                hostile=hostile.astype(np.int64), dec=dec)
+
+
+def test_plain_encode_walk_equals_tpulc_on_the_cases(walk_case):
+    k = walk_case
+    w, c, s = pr.rans_encode_ctx_batch(
+        torch.from_numpy(k["syms"]), torch.from_numpy(k["gctx"]), k["ms"],
+        torch.from_numpy(k["fq"]), torch.from_numpy(k["cum"]))
+    assert np.array_equal(c.numpy(), k["counts"])
+    assert np.array_equal(s.numpy(), k["states"].astype(np.int64))
+    assert np.array_equal(w.numpy().view(np.uint16), k["words"])
+    if k["name"] == "full_lane":   # 14 bits a step: 448 words of 512
+        assert int(c.max()) == 448
+
+
+@pytest.mark.parametrize("states", ["true", "hostile"])
+def test_plain_decode_walk_equals_tpulc_on_the_cases(walk_case, states):
+    k = walk_case
+    st = k["states"].astype(np.int64) if states == "true" else k["hostile"]
+    fq, cum = (torch.from_numpy(k[n]) for n in ("fq", "cum"))
+    got = pr.rans_decode_ctx_batch(
+        torch.from_numpy(k["words"].view(np.int16)),
+        torch.from_numpy(k["counts"]), torch.from_numpy(st),
+        torch.from_numpy(k["fctx"].astype(np.int64)), k["ms"], fq, cum,
+        pr.slot_table(fq, cum), k["B"])
+    assert np.array_equal(got.numpy(), k["dec"][states])
+    if states == "true":
+        for b, m in enumerate(k["ms"]):
+            assert np.array_equal(got[b, :m].numpy(), k["syms"][b, :m])

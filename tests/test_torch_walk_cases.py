@@ -1,8 +1,9 @@
 """Edge-case inputs for K3 (the canonical Huffman chunk walk, whose
 contract K7 shares), K8 (the flat walk), K4 (the MTF decode walk), K2
 (the MTF encode walk), K1 (the MTF recency rows and the start tables'
-tile maxima), the MTF start tables between K1 and K2 and the adaptive
-coder's two walks (symbol blocks whose binarization feeds them), made
+tile maxima), the MTF start tables between K1 and K2, the adaptive
+coder's two walks (symbol blocks whose binarization feeds them) and
+coder 1's two walks (symbol blocks with their order-2 tables), made
 from a numpy seed, with scalar references of the contracts.  The CPU
 tests hold the plain versions to these references and to tpulc; the
 card tests hold the CUDA kernels to the plain versions on the same
@@ -31,6 +32,11 @@ K1_CASES = ("random", "one_run", "long_runs", "out_of_range")
 ABC_CASES = ("one_model", "alternate", "period3", "clip_inits",
              "full_and_empty", "lanes33", "states_top", "clamped_reads")
 ABC_CARD_CASES = ("one", "three", "empty_lane", "lanes40", *ABC_CASES)
+# coder 1's walks: blocks of RLE2-like symbols with their tables, as
+# `rans_encode_ctx_batch` takes them (RANS_CASES, each small enough for
+# the CPU tests against tpulc), and the card tests' (RANS_CARD_CASES)
+RANS_CASES = ("straddle", "full_lane", "heavy_tail")
+RANS_CARD_CASES = ("one", "three", "lanes33", "zero_words", *RANS_CASES)
 # (nchunks, C): every chunk length the K1 tests take, at chunk counts of
 # 0, 1, under every tile, and no multiple of any
 K1_SHAPES = ((0, 128), (1, 128), (5, 128), (37, 128), (130, 128), (9, 1),
@@ -509,3 +515,99 @@ def abc_states(kind, states):
         return torch.from_numpy(np.random.default_rng(7).integers(
             0, 1 << 32, L, dtype=np.uint64).astype(np.int64))
     return states
+
+
+def rans_tables(kind):
+    """One explicit quantised table (int32[257], sum 2^14) of `rans_case`:
+    "flat1" symbol 0 at 2^14 - 256 and every other symbol at 1;
+    "tail" symbols 0-7 large, the even symbols from 8 at 1 and the odd
+    ones from 9 absent (zero-frequency gaps)."""
+    f = np.zeros(257, np.int32)
+    if kind == "flat1":
+        f[:] = 1
+        f[0] = (1 << 14) - 256
+    else:
+        f[8::2] = 1
+        f[:8] = (8000, 4000, 2000, 1000, 600, 400, 200, 60)
+        f[0] += (1 << 14) - f.sum()
+    return f
+
+
+def rans_case(name, chunk=512):
+    """-> (syms int32[B, cap], ms, fq int32[B * 32, 257]): B blocks of cap
+    symbols (zeros past each block's m), their order-2 contexts'
+    quantised tables.
+
+    one, three      1 and 3 blocks of geometric ranks, 8 and 12 lanes
+    lanes33         33 lanes, no multiple of 32
+    zero_words      every symbol 0: each context holds one symbol (f =
+                    2^14) and no lane emits a word
+    straddle        3 blocks of 45 lanes: a CUDA block of 32 or more
+                    lanes would take lanes of two bsc blocks
+    full_lane       every table "flat1" (all 257 symbols present, 256 at
+                    f = 1); lane 0 of each block codes symbols 1-256
+                    twice, 14 bits a step, so it emits the most words a
+                    lane of 512 steps can (448 of the row's C + 2)
+    heavy_tail      every table "tail"; half the symbols from the f = 1
+                    tail, so lanes emit most steps
+    """
+    from tpulc_torch.codecs.bsclike import rans
+
+    seeds = {"straddle": 21, "full_lane": 22, "heavy_tail": 23}
+    rng = np.random.default_rng(seeds.get(name, len(name)))
+    B, cap, ms = {"one": (1, 4096, [3333]),
+                  "three": (3, 2048, [2048, 701, 1537]),
+                  "lanes33": (3, chunk * 11, [5632, 4000, 100]),
+                  "zero_words": (2, 2048, [2000, 1500]),
+                  "straddle": (3, chunk * 45, [chunk * 45, chunk * 30 + 7,
+                                               chunk * 44 + 300]),
+                  "full_lane": (2, chunk * 9, [chunk * 9, chunk * 4 + 5]),
+                  "heavy_tail": (2, chunk * 40, [chunk * 40,
+                                                 chunk * 17 + 100]),
+                  }[name]
+    syms = np.minimum(rng.geometric(0.3, size=(B, cap)) - 1, 256)
+    if name == "zero_words":
+        syms[:] = 0
+    elif name == "full_lane":
+        syms[:, :chunk] = np.tile(np.arange(1, 257), 2)
+    elif name == "heavy_tail":
+        tail = rng.integers(4, 128, size=(B, cap)) * 2
+        syms = np.where(rng.random((B, cap)) < 0.5, tail,
+                        np.minimum(syms, 7))
+    for b in range(B):
+        syms[b, ms[b]:] = 0
+    syms = syms.astype(np.int32)
+    if name in ("full_lane", "heavy_tail"):
+        fq = np.tile(rans_tables("flat1" if name == "full_lane" else "tail"),
+                     (B * rans.NCTX, 1))
+    else:
+        fqs = []
+        for b in range(B):
+            ctx = rans.ctx_of_stream(torch.from_numpy(syms[b])).numpy()
+            h = np.zeros((rans.NCTX, 257), np.int64)
+            np.add.at(h, (ctx[: ms[b]], syms[b, : ms[b]]), 1)
+            fqs.append(rans.normalize_freqs_ctx(h))
+        fq = np.concatenate(fqs)
+    return syms, np.asarray(ms, np.int32), fq.astype(np.int32)
+
+
+def rans_walk_args(syms, ms, fq, chunk=512):
+    """`rans_case`'s blocks as the walks take them -> (idx int32[C, L],
+    nsym int32[L], fc packed int32, lut int16 slot table, fctx int64[L],
+    nlanes), lanes block-major (`rans_encode_ctx_batch`'s layout)."""
+    from tpulc_torch.codecs.bsclike import rans
+
+    B, cap = syms.shape
+    st = torch.from_numpy(syms)
+    fq = torch.from_numpy(fq)
+    cum = torch.cat([torch.zeros(fq.shape[0], 1, dtype=torch.int32),
+                     fq.cumsum(1)[:, :-1].to(torch.int32)], 1)
+    ctx = torch.stack([rans.ctx_of_stream(s) for s in st])
+    gctx = ctx + (torch.arange(B, dtype=torch.int32) * rans.NCTX)[:, None]
+    nlanes = cap // chunk
+    L = B * nlanes
+    idx = (gctx * 257 + st).reshape(L, chunk).T.contiguous()
+    nsym = rans._lane_counts(ms, B, nlanes, chunk, torch.device("cpu"))
+    fctx = gctx.reshape(L, chunk)[:, 0].to(torch.int64)
+    return (idx, nsym, rans.packed_table(fq, cum), rans.slot_table(fq, cum),
+            fctx, nlanes)

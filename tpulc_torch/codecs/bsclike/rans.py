@@ -16,9 +16,16 @@ of every block.
 The frequency normalisation and the table builders are tpulc's host
 numpy, copied.  tpulc's two 512-step `fori_loop`s (`rans.py:388-412`,
 `:458-480`) are hand kernels on the card (`csrc/rans_ctx.cu`, one
-thread a lane): `rans_encode_walk` and `rans_decode_walk` launch them
-for CUDA tensors (one more on the wrapper's `launches`) and run their
-plain versions for CPU tensors.  The plain versions,
+thread a lane, a CUDA block's lanes in one bsc block, whose 32
+contexts it stages in shared memory; design notes there):
+`rans_encode_walk` and `rans_decode_walk` launch them for CUDA tensors
+(one more on the wrapper's `launches`) and run their plain versions for
+CPU tensors.  The C entry points pick the lanes a block.  The encode
+kernel reads `rcp_table` (host-built reciprocals: no divide) and writes
+every entry of `words`, which the wrapper allocates without a fill; the
+decode kernel finds a slot's symbol from the packed table alone (so
+it takes `lut` to be `slot_table` of the same tables).  The plain
+versions,
 `rans_encode_walk_plain` and `rans_decode_walk_plain`, walk step-major
 (each step reads one contiguous row of [CHUNK, lanes]) with the uint32
 state in int64, masked to 32 bits where tpulc's uint32 wraps.
@@ -141,6 +148,29 @@ def slot_table(freq: torch.Tensor, cum: torch.Tensor) -> torch.Tensor:
         torch.int16).reshape(-1)
 
 
+def rcp_table() -> np.ndarray:
+    """The encode kernel's reciprocals: entry f (0..2^14) is
+    floor((2^32 - 1) / max(f, 1)) as uint32, so that for any uint32 x
+    q = (x * rcp[f]) >> 32 is x // max(f, 1) or one less."""
+    f = np.maximum(np.arange(PROB_SCALE + 1, dtype=np.uint64), 1)
+    return (np.uint64(M32) // f).astype(np.uint32)
+
+
+_RCP: dict = {}
+
+
+def _rcp(dev: torch.device) -> torch.Tensor:
+    """`rcp_table` as int32 on dev, made once a device."""
+    if dev not in _RCP:
+        _RCP[dev] = torch.from_numpy(rcp_table().view(np.int32)).to(dev)
+    return _RCP[dev]
+
+
+# symbols a context the kernels take (shared memory, and s with its
+# class in 16 bits)
+MAX_SYMS = 512
+
+
 def _lane_counts(ms, B: int, nlanes: int, chunk: int,
                  dev: torch.device) -> torch.Tensor:
     """Valid symbols of each lane (block-major) -> int32[B * nlanes]: a
@@ -193,27 +223,40 @@ def rans_encode_walk_plain(idx: torch.Tensor, nsym: torch.Tensor,
 
 
 def rans_encode_walk(idx: torch.Tensor, nsym: torch.Tensor,
-                     fc: torch.Tensor):
+                     fc: torch.Tensor, nlanes: int):
     """The encode walk (`rans_encode_walk_plain`'s contract): idx int32[C,
-    L] with entries in [0, len(fc)), nsym int32[L], fc int32 1-D.  A CUDA
-    tensor launches `csrc/rans_ctx.cu`'s encode kernel.  The entries'
-    range is the caller's to keep (`rans_encode_ctx_batch` builds them
-    from its tables): checking it would wait for the card."""
+    L] with entries in [0, len(fc)), nsym int32[L], fc int32 1-D, lanes
+    block-major, nlanes a block.  A CUDA tensor launches
+    `csrc/rans_ctx.cu`'s encode kernel, which takes fc as B = ceil(L /
+    nlanes) blocks of NCTX tables of S <= MAX_SYMS symbols, each lane's
+    entries inside its own block's, C a multiple of 4, and writes every
+    entry of `words`.  The entries' range is the caller's to keep
+    (`rans_encode_ctx_batch` builds them from its tables): checking it
+    would wait for the card."""
     cuda_lib.check_tensor("idx", idx, torch.int32, (None, None))
     C, L = idx.shape
     cuda_lib.check_tensor("nsym", nsym, torch.int32, (L,))
     cuda_lib.check_tensor("fc", fc, torch.int32, (None,))
+    if nlanes < 1:
+        raise ValueError("rans_encode_walk: nlanes must be positive")
     if cuda_lib.device_of(idx, nsym, fc).type == "cpu":
         return rans_encode_walk_plain(idx, nsym, fc)
+    rows = max(-(-L // nlanes), 1) * NCTX
+    S = fc.shape[0] // rows
+    if fc.shape[0] != rows * S or not 1 <= S <= MAX_SYMS or C < 4 or C % 4:
+        raise ValueError("rans_encode_walk: the kernel takes NCTX tables of "
+                         f"1..{MAX_SYMS} symbols a block and C a multiple "
+                         "of 4")
     lib = cuda_lib.library()
-    words = torch.zeros((L, C + 2), dtype=torch.int16, device=idx.device)
+    rcp = _rcp(idx.device)
+    words = torch.empty((L, C + 2), dtype=torch.int16, device=idx.device)
     counts = torch.empty(L, dtype=torch.int64, device=idx.device)
     states = torch.empty(L, dtype=torch.int64, device=idx.device)
     with torch.cuda.device(idx.device):
         cuda_lib.check(lib.tplc_rans_encode(
-            idx.data_ptr(), nsym.data_ptr(), fc.data_ptr(), words.data_ptr(),
-            counts.data_ptr(), states.data_ptr(), C, L,
-            cuda_lib.stream_of(idx)), "rans_encode_walk")
+            idx.data_ptr(), nsym.data_ptr(), fc.data_ptr(), rcp.data_ptr(),
+            words.data_ptr(), counts.data_ptr(), states.data_ptr(), C, L, S,
+            nlanes, cuda_lib.stream_of(idx)), "rans_encode_walk")
     rans_encode_walk.launches += 1
     return words, counts, states
 
@@ -235,7 +278,8 @@ def rans_encode_ctx_batch(syms2: torch.Tensor, gctx2: torch.Tensor, ms,
     idx = (gctx2.to(torch.int32) * S + syms2.to(torch.int32)).reshape(
         L, chunk).T.contiguous()
     nsym = _lane_counts(ms, B, nlanes, chunk, syms2.device)
-    return rans_encode_walk(idx, nsym, packed_table(freq, cum))
+    return rans_encode_walk(idx, nsym, packed_table(freq, cum),
+                            max(nlanes, 1))
 
 
 def rans_encode_ctx(syms: torch.Tensor, ctx: torch.Tensor, m,
@@ -300,10 +344,13 @@ def rans_decode_walk(words: torch.Tensor, states: torch.Tensor,
     int16[L, chunk+2], states and fctx int64[L], nsym int32[L], lut
     int16[R * 2^14] with values in [0, S), fc int32[R * S], each fctx[l]
     in its block's [base, base + NCTX), chunk a multiple of 4.  A CUDA
-    tensor launches `csrc/rans_ctx.cu`'s decode kernel.  The ranges are
-    the caller's to keep (the driver's tables sum to 2^14, so the slot
-    table's symbols are < S, and its contexts are 5-bit fields plus the
-    block's base): checking them would wait for the card."""
+    tensor launches `csrc/rans_ctx.cu`'s decode kernel, which takes S <=
+    MAX_SYMS and finds each slot's symbol from fc's tables, so it takes
+    `lut` to be their `slot_table` (each table summing to 2^14).  The
+    ranges are the caller's to keep (the driver's tables sum to 2^14,
+    so the slot table's symbols are < S, and its contexts are 5-bit
+    fields plus the block's base): checking them would wait for the
+    card."""
     cuda_lib.check_tensor("words", words, torch.int16, (None, chunk + 2))
     L = words.shape[0]
     cuda_lib.check_tensor("states", states, torch.int64, (L,))
@@ -320,14 +367,16 @@ def rans_decode_walk(words: torch.Tensor, states: torch.Tensor,
     if dev.type == "cpu":
         return rans_decode_walk_plain(words, states, fctx, nsym, lut, fc,
                                       nlanes, chunk)
+    if S > MAX_SYMS:
+        raise ValueError(f"rans_decode_walk: the kernel takes at most "
+                         f"{MAX_SYMS} symbols a table")
     lib = cuda_lib.library()
     out = torch.empty((L, chunk), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         cuda_lib.check(lib.tplc_rans_decode(
             words.data_ptr(), states.data_ptr(), fctx.data_ptr(),
-            nsym.data_ptr(), lut.data_ptr(), fc.data_ptr(), out.data_ptr(),
-            chunk, L, S, nlanes, cuda_lib.stream_of(words)),
-            "rans_decode_walk")
+            nsym.data_ptr(), fc.data_ptr(), out.data_ptr(), chunk, L, S, R,
+            nlanes, cuda_lib.stream_of(words)), "rans_decode_walk")
     rans_decode_walk.launches += 1
     return out
 

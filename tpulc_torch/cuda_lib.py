@@ -46,8 +46,10 @@ _SIGNATURES = {
     "tplc_grc_walk_probs": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tplc_grc_reverse_rans": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tplc_grc_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "tplc_rans_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "tplc_rans_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tplc_rans_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tplc_rans_encode_lanes": [_I, _I, _I, _I],
+    "tplc_rans_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tplc_rans_decode_lanes": [_I, _I, _I],
     "tplc_abc_encode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tplc_abc_encode_lanes": [_I],
     "tplc_abc_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
