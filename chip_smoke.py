@@ -57,15 +57,22 @@ Phases (any failure exits non-zero before the last line is printed):
    final table), K1 and the start tables at 8-, 16-, 32- and 64-chunk
    tiles (K1 with and without the maxima; the start tables from K1's
    maxima and by their own three launches), K3 at 32-, 64- and
-   128-chunk tiles;
+   128-chunk tiles; the running max / min scans (csrc/scan.cu) on the
+   four arrays the first block's RLE2 scans (`rle2_encode`'s three,
+   `rle2_decode`'s one) and the anchored inverse-BWT walk
+   (csrc/ibwt.cu) on its real last column and anchors, each against its
+   plain version, the scans beside torch.cummax / cummin, the walk
+   beside its chain: S dependent loads, each priced by a one-thread
+   pointer chase over a random cycle of the walk's table size;
 4. the bz main path: bz compress + decompress of pg1661 x 6 (3,569,598
    B, 900,000 B blocks) through the codec entry points on the card, with
    every kernel's launch count reset before and read after; exact round
    trip, ratio 4.145, each kernel launched (K1, the start tables and K2
-   once a block), the container byte-identical
+   once a block, the walk once an anchored block, each scan once a call
+   of the path), the container byte-identical
    to the port's CPU path on a small input; MB/s from warm repeats;
    stage times and a torch.profiler trace of one warm compress and one
-   warm decompress;
+   warm decompress, in which no torch.cummax / cummin may run;
 5. the huffman kernels (K3 packed, K7 v1, K8 flat) against their plain
    versions at the huffman path's full width: the 100 MB group of 96
    blocks x 8,192 chunks x 128 symbols from its real streams;
@@ -98,7 +105,7 @@ Phases (any failure exits non-zero before the last line is printed):
 8. the bsc -e2 main path, counted as in phase 4: pg1661 x 6 at 4 MiB
    blocks (exact round trip, ratio 21.281, tpulc's sha256, K4
    launched, K1, the start tables, K2, K5, the emission and K6 once per
-   block, the card's
+   block, the scans once a call and the walk once a block, the card's
    container equal to the CPU path's on 50 KB, MB/s from warm repeats),
    then 100,000,000 B of bench.py's word soup at 25 MiB blocks (4
    blocks, exact round trip, K1, the start tables, K2, K5, the emission
@@ -117,7 +124,10 @@ Phases (any failure exits non-zero before the last line is printed):
    once a block, K4 twice, each walk once a call, the card's container
    equal to the CPU path's on 50 KB, MB/s from warm repeats) and 100 MB
    of word soup at 25 MiB blocks (the same checks at 8,361,750 B, stage
-   times, peak device memory and a trace as in phase 8);
+   times, peak device memory and a trace as in phase 8), the scans
+   once a call and the walk once a block in both; on the soup's first
+   block the scans and the walk against their plain versions as in
+   phase 3;
 10. bsc on the ST sorters (`ST_CELLS`: `-m st8`, `st8 -e2` and `st8w
    -e2` on pg1661 x 6 at 4 MiB, `st8 -e2` and `st8w -e2` on one 25 MiB
    block of bench.py's soup), counted as in phase 4: each container's
@@ -167,8 +177,9 @@ Phases (any failure exits non-zero before the last line is printed):
    synchronisations, with GB/s of input and peak device memory: the
    doubling and device-DC3 suffix arrays of pg1661 x 6 and of one 25
    MiB soup block, equal to each other and, on the first 900,000 B, to
-   the host DC3 (doubling rounds printed); SA + sa_to_bwt beside
-   rotsort.bwt_encode_anchored on that 900,000 B block; sort_strings_full
+   the host DC3 (doubling rounds printed); SA + sa_to_bwt on that
+   900,000 B block (and, outside the layer's count, bz's
+   rotsort.bwt_encode_anchored on it); sort_strings_full
    of pg1661 x 6's lines against Python's sorted (ties by the device
    DC3's ranks); scans (cummax beside the log-step form),
    segmented_scan, compact, multisplit, sort_pairs, merge_sorted and
@@ -197,7 +208,13 @@ bytes include its tile maxima; the start tables' are the function's
 (K1's rows in, the tables out), whichever route feeds them.  The start
 tables' plain version is the chain of PyTorch calls the path ran
 before they had a kernel (`cummax`, `cat`, a stable `argsort`); no one
-call computes them.  `ms` is the
+call computes them.  The scans' library time is torch.cummax /
+cummin (a reverse scan's on the flipped input); their bytes are x read
+and y written once.  The walk's bytes are its n table reads as 32-byte
+sectors and its n output bytes; its `chain` is measured (S dependent
+loads times one load's latency from a one-thread pointer chase over a
+random cycle of the table's size), not computed; no one PyTorch call
+computes it.  `ms` is the
 wrapper's call between two CUDA events; `device_ms` is the kernel
 alone, from a CUDA graph of 5 calls replayed, because the wrapper's
 host time exceeds a kernel of some tens of microseconds.
@@ -300,20 +317,22 @@ DIST_STEPS = (
     ("huffman_roundtrip_step", 512, (),
      "b83fc8e651df52b57b1c855deb1a321ac3a130b685cd6ffdcef7cb473d9d0a22"),
     ("bz_forward", 512,
-     ("mtf_recency", "mtf_start_tables", "mtf_encode_lockstep"),
+     ("mtf_recency", "mtf_start_tables", "mtf_encode_lockstep",
+      "running_max", "running_min"),
      "a43c62c8f542b8acaac5451dfa3ae6b3fb6a856bf6ffc59b39cebe3854ce5d8f"),
     ("bz_roundtrip", 512,
      ("mtf_recency", "mtf_start_tables", "mtf_encode_lockstep",
-      "mtf_lockstep"),
+      "mtf_lockstep", "running_max", "running_min"),
      "d7c1a483ddfd306f5d49e8088545af0a3079e07ece807c3d497b65b5ad4694fc"),
     ("bsc_rans_forward", 512,
      ("mtf_recency", "mtf_start_tables", "mtf_encode_lockstep",
-      "rans_encode_walk"),
+      "rans_encode_walk", "running_max", "running_min"),
      "d5d19a97f0bfaa9f2b9e2be49726d1c28802eadafca18be00eaea6c0224bfb54"),
     ("abc_roundtrip", 512, ("abc_encode_walk", "abc_decode_walk"),
      "a79f8d03ccca6424cab7c9a5698d358633b3c1ad3a010adddcfadac803cefad1"),
     ("grc_roundtrip", 512,
-     ("grc_walk_probs", "grc_reverse_rans", "grc_decode_walk"),
+     ("grc_walk_probs", "grc_reverse_rans", "grc_decode_walk",
+      "running_max", "running_min"),
      "a5efec28d836329873b1479ad5a63fad9820ba46bd7aab86f56014cb60b3ee1e"),
     ("culzss_roundtrip", 4096, (),
      "e670ea69fef2976b032d4566e2c0480c279450fcc336969488506e236b052867"),
@@ -332,6 +351,40 @@ MTF_FORWARD = ("mtf_recency", "mtf_start_tables", "mtf_encode_lockstep")
 START_TILES = (8, 16, 32, 64)
 START_REPLACES = "tpulc/primitives/mtf.py:85-96 (XLA scan and argsort, no " \
                  "pallas_call)"
+# the running max / min scans and the anchored inverse-BWT walk (hand
+# kernels for XLA stages, no pallas_call), their sources and the tpulc
+# stages they replace
+SCAN_SRC = "tpulc_torch/csrc/scan.cu"
+IBWT_SRC = "tpulc_torch/csrc/ibwt.cu"
+STAGE_REPLACES = {
+    "running_max": "tpulc/codecs/bwt/rle.py:43,78,103 (jax.lax."
+                   "associative_scan, no pallas_call)",
+    "running_min": "tpulc/codecs/bwt/rle.py:46, rotsort.py:148, "
+                   "bsclike/grc.py:299 (reverse jax.lax.associative_scan, no "
+                   "pallas_call)",
+    "anchored_walk": "tpulc/codecs/bwt/rotsort.py:375, masked.py:235 (jax."
+                     "lax.fori_loop, no pallas_call)",
+}
+STAGE_KERNELS = tuple(STAGE_REPLACES)
+# every call site of those three wrappers on the codec paths: (module,
+# name) as the module imported it
+STAGE_SITES = (("tpulc_torch.codecs.bwt.rle", "running_max"),
+               ("tpulc_torch.codecs.bwt.rle", "running_min"),
+               ("tpulc_torch.codecs.bwt.rotsort", "running_min"),
+               ("tpulc_torch.codecs.bsclike.grc", "running_max"),
+               ("tpulc_torch.codecs.bsclike.grc", "running_min"),
+               ("tpulc_torch.codecs.bwt.rotsort", "anchored_walk"),
+               ("tpulc_torch.codecs.bwt.masked", "anchored_walk"))
+RLE_MOD = "tpulc_torch.codecs.bwt.rle"
+# what the path must not run any more: torch's 1-D scans
+NO_TORCH_SCANS = ("aten::cummax", "aten::cummin")
+# the walk's integer operations a step (the mask of the successor, the
+# byte's shift and or into its word); the pointer chase's steps
+WALK_OPS = 3
+CHASE_STEPS = 1 << 13
+# the walk's lanes a warp (csrc/ibwt.cu picks one from the lanes and the
+# SM count), swept
+WALK_LANES_PER_WARP = (1, 2, 4, 8, 16, 32)
 SOUP_WORDS = [
     b"the", b"of", b"and", b"compression", b"lossless", b"entropy",
     b"transform", b"block", b"sorting", b"data", b"parallel", b"encode",
@@ -565,7 +618,8 @@ def check_kernels(torch, checks: list[dict]) -> list[dict]:
     output written once; `library` is one PyTorch
     call computing the same function, timed beside the kernel; `chain`,
     the dependent operations of the longest lane, prints `chain_ms`
-    beside the bound (not in the entry: it is computed, not measured).
+    beside the bound (not in the entry: it is computed, not measured);
+    `chain_ms` with `chain_note` prints a chain measured elsewhere.
     Launches are filled in from the main path's run later."""
     kernels = []
     for c in checks:
@@ -587,7 +641,9 @@ def check_kernels(torch, checks: list[dict]) -> list[dict]:
             library_ms = time_ms(torch, c["library"])
         b = bound(moved, c["ops"])
         chain = (f" chain {chain_ms(c['chain'])} ms ({c['chain']} dependent "
-                 f"ops)" if "chain" in c else "")
+                 f"ops)" if "chain" in c else
+                 f" chain {c['chain_ms']} ms ({c['chain_note']})"
+                 if "chain_ms" in c else "")
         print(f"kernel {c['name']}: shape {c['shape']} max_abs_err {err} "
               f"kernel {ms:.4f} ms (on the device {dev_ms:.4f}) plain "
               f"{plain_ms:.4f} ms library "
@@ -809,6 +865,162 @@ def launch_split(torch, fn, reps: int = 20):
     return split or "not measured"
 
 
+def stage_calls(fn, keep: dict | None = None):
+    """Run fn() with every call site of STAGE_SITES wrapped -> (fn(),
+    {kernel: calls with work (a non-empty scan, a walk of n > 0)},
+    {site: [(args, kwargs) of its first calls]}): `keep` maps a site to
+    how many of its first calls to keep."""
+    import importlib
+
+    calls = dict.fromkeys(STAGE_KERNELS, 0)
+    kept = {site: [] for site in keep or {}}
+    origs = []
+    for site in STAGE_SITES:
+        mod = importlib.import_module(site[0])
+        orig = getattr(mod, site[1])
+
+        def spy(*args, _orig=orig, _site=site, **kw):
+            name = _site[1]
+            calls[name] += (args[3] > 0 if name == "anchored_walk"
+                            else args[0].numel() > 0)
+            if _site in kept and len(kept[_site]) < keep[_site]:
+                kept[_site].append((args, kw))
+            return _orig(*args, **kw)
+
+        origs.append((mod, site[1], orig))
+        setattr(mod, site[1], spy)
+    try:
+        out = fn()
+    finally:
+        for mod, name, orig in origs:
+            setattr(mod, name, orig)
+    return out, calls, kept
+
+
+def require_stage_launches(label: str, counts: dict, calls: dict,
+                           walks: int | None = None) -> None:
+    """Each of the scans and the walk launched once a call with work,
+    the walk at least once (`walks` times where the blocks say so)."""
+    require(all(counts[k] == calls[k] for k in STAGE_KERNELS),
+            f"{label}: scan or walk launches {counts} differ from their "
+            f"calls {calls}")
+    require(calls["anchored_walk"] > 0 and (
+        walks is None or calls["anchored_walk"] == walks),
+        f"{label}: the anchored walk ran {calls['anchored_walk']} times, "
+        f"not {walks if walks is not None else 'at least once'}")
+
+
+def chase_ns(torch, cuda_lib, entries: int, reps: int = 5) -> float:
+    """ns of one dependent 8-byte load: one thread follows CHASE_STEPS
+    steps of a random cycle through `entries` entries (the walk's table
+    size), each run from a fresh start after a pass that reads the whole
+    table (so that a table that fits is in L2, as the walk finds its
+    freshly written one); median of `reps`."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(PRIM_SEED)
+    perm = torch.randperm(entries, device=dev, generator=g)
+    nxt = torch.empty(entries, dtype=torch.int64, device=dev)
+    nxt[perm] = torch.roll(perm, -1)
+    sink = torch.empty(1, dtype=torch.int64, device=dev)
+    lib = cuda_lib.library()
+    starts = perm[::max(1, entries // (reps + 1))][: reps + 1].tolist()
+    times = []
+    for k, start in enumerate(starts):
+        nxt.max()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        cuda_lib.check(lib.tplc_pointer_chase(
+            nxt.data_ptr(), int(start), CHASE_STEPS, sink.data_ptr(),
+            cuda_lib.stream_of(nxt)), "pointer_chase")
+        b.record()
+        b.synchronize()
+        if k:   # the first run warms the code
+            times.append(a.elapsed_time(b) * 1e6 / CHASE_STEPS)
+    return statistics.median(times)
+
+
+def stage_checks(torch, cuda_lib, enc: dict, dec: dict, suffix: str):
+    """`check_kernels` entries of the scans on the four arrays a block's
+    RLE2 scans (`rle2_encode`'s three, `rle2_decode`'s one: kept by
+    `stage_calls` as enc and dec) and of the walk on the block's real
+    arguments -> (the entries for the kernels line: the first max and
+    min of the encode and the walk; every entry)."""
+    from tpulc_torch.codecs.bwt import ibwt_kernels as ik
+    from tpulc_torch.primitives import scan_kernels as sk
+
+    plain = {"running_max": sk.running_max_plain,
+             "running_min": sk.running_min_plain}
+    arrays = [(k[1], a, kw, f"rle2_encode[{i}]")
+              for k in ((RLE_MOD, "running_max"), (RLE_MOD, "running_min"))
+              for i, (a, kw) in enumerate(enc[k])]
+    arrays += [(k[1], a, kw, "rle2_decode")
+               for k in ((RLE_MOD, "running_max"),) for a, kw in dec[k]]
+    checks = []
+    for name, (x,), kw, site in arrays:
+        rev = kw.get("reverse", False)
+        lib_fn = torch.cummax if name == "running_max" else torch.cummin
+        xl = torch.flip(x, (0,)) if rev else x
+        checks.append(dict(
+            name=name + suffix, src=SCAN_SRC, replaces=STAGE_REPLACES[name],
+            kern=partial(getattr(sk, name), reverse=rev),
+            plain=partial(plain[name], reverse=rev), args=(x,),
+            shape=f"{x.shape[0]} {x.dtype} {'reverse ' if rev else ''}"
+                  f"({site})",
+            ops=x.shape[0], library=partial(lib_fn, xl, 0)))
+    walk = [v for k, v in dec.items() if k[1] == "anchored_walk"][0]
+    T, last, anchors, n, S, cap = walk[0][0]
+    ns = chase_ns(torch, cuda_lib, cap)
+    checks.append(dict(
+        name="anchored_walk" + suffix, src=IBWT_SRC,
+        replaces=STAGE_REPLACES["anchored_walk"], kern=ik.anchored_walk,
+        plain=ik.anchored_walk_plain, args=(T, last, anchors, n, S, cap),
+        shape=f"{-(-n // S)} lanes x {S} steps, n {n}, cap {cap}",
+        bytes=33 * n, ops=WALK_OPS * n, plain_reps=1,
+        chain_ms=S * ns * 1e-6,
+        chain_note=f"{S} dependent loads x {ns:.1f} ns, a one-thread "
+                   f"pointer chase over {cap} entries"))
+    entries = check_kernels(torch, checks)
+    print(json.dumps({f"anchored_walk_lanes_per_warp{suffix}": walk_sweep(
+        torch, cuda_lib, (T, last, anchors, n, S, cap))}), flush=True)
+    line = [entries[0], entries[len(enc[(RLE_MOD, "running_max")])],
+            entries[-1]]
+    return line, entries
+
+
+def walk_sweep(torch, cuda_lib, args) -> dict:
+    """The walk's kernel alone (its packed table built once, not by its
+    first launch) at every lanes a warp, each output equal to the
+    wrapper's, with device ms; the kernel's own pick; the wrapper's
+    device ms."""
+    from tpulc_torch.codecs.bwt import ibwt_kernels as ik
+
+    T, last, anchors, n, S, cap = args
+    lanes = -(-n // S)
+    lib = cuda_lib.library()
+    TL = T | (last.to(torch.int64) << 32)
+    a = anchors.to(torch.int32).contiguous()
+    want = ik.anchored_walk(*args)
+    out = torch.zeros(cap, dtype=torch.uint8, device=T.device)
+    res = {"lanes": lanes, "pick": lib.tplc_anchored_walk_lanes(lanes),
+           "kernel_device_ms": {}}
+    for lpw in WALK_LANES_PER_WARP:
+        def run(lpw=lpw):
+            cuda_lib.check(lib.tplc_anchored_walk(
+                None, None, TL.data_ptr(), a.data_ptr(), out.data_ptr(), n,
+                S, cap, lanes, lpw, cuda_lib.stream_of(T)), "anchored_walk")
+
+        out.zero_()
+        run()
+        torch.cuda.synchronize()
+        require(torch.equal(out, want),
+                f"the walk at {lpw} lanes a warp differs from the wrapper's")
+        res["kernel_device_ms"][lpw] = device_ms(torch, run)
+    res["wrapper_device_ms"] = device_ms(torch, lambda: ik.anchored_walk(
+        *args))
+    return res
+
+
 def k1_library(torch, d):
     """K1's library twin: one scatter_reduce_ "amax" of the step index
     into a -1-filled [nchunks, 256]."""
@@ -897,9 +1109,11 @@ def main() -> int:
     sys.path.insert(0, here)
     from tpulc_torch import cuda_lib
     from tpulc_torch.codecs.bwt import driver
+    from tpulc_torch.codecs.bwt import ibwt_kernels as ik
     from tpulc_torch.codecs.huffman import decode_kernels as dk
     from tpulc_torch.pipeline.container import Container
     from tpulc_torch.primitives import mtf_kernels as mk
+    from tpulc_torch.primitives import scan_kernels as sk
 
     # 1. the card
     print(card())
@@ -941,9 +1155,14 @@ def main() -> int:
     rec, part, tile = mk.mtf_recency(d, partials=True)
     table0 = mk.mtf_start_tables(rec, 128, tile=tile, part=part)
     ranks, _ = mk.mtf_encode_lockstep(table0, d)
-    payload = Container.from_bytes(
-        driver.compress(data[:BLOCK], block_size=BLOCK, device="cuda")
-    ).payloads[0]
+    # the block's RLE2 scans and its anchored walk, kept for their checks
+    one, _, enc = stage_calls(lambda: driver.compress(
+        data[:BLOCK], block_size=BLOCK, device="cuda"),
+        {(RLE_MOD, "running_max"): 2, (RLE_MOD, "running_min"): 1})
+    _, _, dec = stage_calls(lambda: driver.decompress(one, device="cuda"), {
+        (RLE_MOD, "running_max"): 1,
+        ("tpulc_torch.codecs.bwt.rotsort", "anchored_walk"): 1})
+    payload = Container.from_bytes(one).payloads[0]
     _, walk, _, _ = driver.walk_args(payload, cap, dev)
     mtf_shape = "x".join(map(str, d.shape))
     k1_lib = k1_library(torch, d)
@@ -977,24 +1196,36 @@ def main() -> int:
                                     mk.mtf_start_tables_plain(rec, 128)),
         "k4": k4, "k3": k3_tiles(torch, dk, cuda_lib, walk, False,
                                  dk.huffman_walk_plain(*walk))}}), flush=True)
+    # the scans on the four arrays a bz block's RLE2 scans, the walk on
+    # its real last column and anchors
+    stage_line, stage_all = stage_checks(torch, cuda_lib, enc, dec, "")
+    print(json.dumps({"bwt_stage_kernels_bz": stage_all}), flush=True)
+    kernels += stage_line
+    del enc, dec, one
 
     # 4. the main path, counted
     wrappers = {"mtf_recency": mk.mtf_recency,
                 "mtf_start_tables": mk.mtf_start_tables,
                 "mtf_encode_lockstep": mk.mtf_encode_lockstep,
                 "huffman_walk": dk.huffman_walk,
-                "mtf_lockstep": mk.mtf_lockstep}
+                "mtf_lockstep": mk.mtf_lockstep,
+                "running_max": sk.running_max,
+                "running_min": sk.running_min,
+                "anchored_walk": ik.anchored_walk}
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    comp = driver.compress(data, block_size=BLOCK, device="cuda")
+    comp, calls, _ = stage_calls(lambda: driver.compress(
+        data, block_size=BLOCK, device="cuda"))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    back = driver.decompress(comp, device="cuda")
+    back, dcalls, _ = stage_calls(lambda: driver.decompress(
+        comp, device="cuda"))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     counts = {k: w.launches for k, w in wrappers.items()}
+    calls = {k: calls[k] + dcalls[k] for k in calls}
     for k in kernels:
         k["launches"] = counts[k["name"]]
     ratio = len(data) / len(comp)
@@ -1008,6 +1239,11 @@ def main() -> int:
     nblocks = len(Container.from_bytes(comp).payloads)
     require(all(counts[k] == nblocks for k in MTF_FORWARD),
             f"K1, the start tables, K2 not once per block: {counts}")
+    anchored = sum(driver._parse_block(p)[7] is not None
+                   for p in Container.from_bytes(comp).payloads)
+    require_stage_launches("bz", counts, calls, anchored)
+    print(f"bz: {nblocks} blocks, {anchored} anchored; scan and walk calls "
+          f"{calls}", flush=True)
 
     # the container does not depend on the device (small input)
     small = data[:150_000]
@@ -1045,8 +1281,8 @@ def main() -> int:
         }}))
     print(json.dumps({"bz_pg1661x6_profile": path_profile(
         torch, lambda: driver.compress(data, block_size=BLOCK, device="cuda"),
-        lambda c: driver.decompress(c, device="cuda"), len(data))}),
-        flush=True)
+        lambda c: driver.decompress(c, device="cuda"), len(data),
+        forbid=NO_TORCH_SCANS)}), flush=True)
     huffman_phases(torch, here, dev, kernels)
     bsc_phases(torch, here, dev, kernels)
     bsc_e1_phase(torch, here, kernels)
@@ -2130,7 +2366,8 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
             "mtf_lockstep": mk.mtf_lockstep,
             "grc_walk_probs": gk.grc_walk_probs,
             "grc_reverse_rans": gk.grc_reverse_rans,
-            "grc_decode_walk": gk.grc_decode_walk}
+            "grc_decode_walk": gk.grc_decode_walk,
+            **stage_wrappers()}
     grc_path = ("grc_walk_probs", "grc_reverse_rans", "grc_decode_walk")
 
     def round_trip(data, block):
@@ -2142,8 +2379,8 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
             data, block_size=block, coder=2, device="cuda"),
             lambda c: bsc.decompress(c, device="cuda"), data, reps)
 
-    (comp, back), dt, counts = counted(torch, path,
-                                       lambda: round_trip(pg6, BSC_BLOCK))
+    ((comp, back), dt, counts), calls, _ = stage_calls(
+        lambda: counted(torch, path, lambda: round_trip(pg6, BSC_BLOCK)))
     sha = hashlib.sha256(comp).hexdigest()
     ratio = len(pg6) / len(comp)
     print(f"bsc -e2 pg1661 x 6: {dt:.3f} s, {len(comp)} B, sha256 {sha}, "
@@ -2156,6 +2393,7 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
     nblocks = len(Container.from_bytes(comp).payloads)
     require(all(counts[k] == nblocks for k in (*grc_path, *MTF_FORWARD)),
             f"K1/start tables/K2/K5/emission/K6 not once per block: {counts}")
+    require_stage_launches("bsc -e2 pg1661 x 6", counts, calls)
     small = pg6[:50_000]
     on_card = bsc.compress(small, block_size=1 << 16, coder=2, device="cuda")
     on_cpu = bsc.compress(small, block_size=1 << 16, coder=2, device="cpu")
@@ -2169,10 +2407,11 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
         "first_roundtrip_s": dt, **warm(pg6, BSC_BLOCK, 3)}}), flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    (comp, back), dt, counts = counted(torch, path,
-                                       lambda: round_trip(big, SOUP_BLOCK))
+    ((comp, back), dt, counts), calls, _ = stage_calls(
+        lambda: counted(torch, path, lambda: round_trip(big, SOUP_BLOCK)))
     peak = torch.cuda.max_memory_allocated()
     nblocks = len(Container.from_bytes(comp).payloads)
+    require_stage_launches("bsc -e2 soup", counts, calls, nblocks)
     print(f"bsc -e2 soup 100 MB: {dt:.3f} s, {len(comp)} B, {nblocks} "
           f"blocks, launches {counts}", flush=True)
     require(back == big, "bsc soup round trip is not exact")
@@ -2197,9 +2436,10 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
         **warm(big, SOUP_BLOCK, reps)}}), flush=True)
     print(json.dumps({"bsc_e2_soup100MB_trace": {
         "compress": traced(torch, lambda: bsc.compress(
-            big, block_size=SOUP_BLOCK, coder=2, device="cuda")),
+            big, block_size=SOUP_BLOCK, coder=2, device="cuda"),
+            forbid=NO_TORCH_SCANS),
         "decompress": traced(torch, lambda: bsc.decompress(
-            comp, device="cuda"))}}), flush=True)
+            comp, device="cuda"), forbid=NO_TORCH_SCANS)}}), flush=True)
 
 
 def warm_runs(torch, compress, decompress, data: bytes, reps: int) -> dict:
@@ -2303,6 +2543,7 @@ def bsc_e1_phase(torch, here: str, kernels: list) -> None:
     walks = ("rans_encode_walk", "rans_decode_walk")
     path = {k: getattr(mk, k) for k in (*MTF_FORWARD, "mtf_lockstep")}
     path.update((k, getattr(rans, k)) for k in walks)
+    path.update(stage_wrappers())
     cells = (("bsc_e1_pg1661x6", corpus(here), BSC_BLOCK, BSC_E1_BYTES,
               BSC_E1_RATIO, BSC_E1_SHA256, ""),
              ("bsc_e1_soup100MB", soup(SOUP_SIZE), SOUP_BLOCK, SOUP_E1_BYTES,
@@ -2318,21 +2559,40 @@ def bsc_e1_phase(torch, here: str, kernels: list) -> None:
             c = compress()
             return c, decompress(c)
 
+        # the soup's first block: its RLE2 scans and its anchored walk
+        keep_enc = keep_dec = None
+        if suffix:
+            keep_enc = {(RLE_MOD, "running_max"): 2,
+                        (RLE_MOD, "running_min"): 1}
+            keep_dec = {(RLE_MOD, "running_max"): 1,
+                        ("tpulc_torch.codecs.bwt.masked", "anchored_walk"): 1}
         comp = []
-        enc = captured(rans, "rans_encode_walk",
-                       lambda: comp.append(compress()))
-        dec = captured(rans, "rans_decode_walk", lambda: decompress(comp[0]))
+        enc, _, s_enc = stage_calls(lambda: captured(
+            rans, "rans_encode_walk", lambda: comp.append(compress())),
+            keep_enc)
+        dec, _, s_dec = stage_calls(lambda: captured(
+            rans, "rans_decode_walk", lambda: decompress(comp[0])), keep_dec)
         entries = check_kernels(torch, rans_checks(rans, enc, dec, suffix))
+        if suffix:
+            stage_line, stage_all = stage_checks(torch, cuda_lib, s_enc,
+                                                 s_dec, suffix)
+            print(json.dumps({f"bwt_stage_kernels_{label}": stage_all}),
+                  flush=True)
+            entries += stage_line
+        del s_enc, s_dec
         builds = rans_builds(torch, rans, cuda_lib, enc, dec,
                              sweep(here, "rans_ctx"))
         print(json.dumps({f"{label}_rans_builds": builds}), flush=True)
         del enc, dec, comp
         torch.cuda.reset_peak_memory_stats()
-        (comp, back), dt, counts = counted(torch, path, round_trip)
+        ((comp, back), dt, counts), calls, _ = stage_calls(
+            lambda: counted(torch, path, round_trip))
         peak = torch.cuda.max_memory_allocated()
         sha = hashlib.sha256(comp).hexdigest()
         ratio = len(data) / len(comp)
         nblocks = len(Container.from_bytes(comp).payloads)
+        require_stage_launches(label, counts, calls,
+                               nblocks if suffix else None)
         print(f"{label}: {dt:.3f} s, {len(comp)} B, {nblocks} blocks, "
               f"sha256 {sha}, launches {counts}", flush=True)
         require(back == data, f"{label}: round trip is not exact")
@@ -2365,9 +2625,11 @@ def bsc_e1_phase(torch, here: str, kernels: list) -> None:
             require(bsc.decompress(on_cpu, device="cuda") == small,
                     "card fails to decode the CPU bsc -e1 container")
         else:
-            res["trace"] = {"compress": traced(torch, compress),
+            res["trace"] = {"compress": traced(torch, compress,
+                                               forbid=NO_TORCH_SCANS),
                             "decompress": traced(torch,
-                                                 lambda: decompress(comp))}
+                                                 lambda: decompress(comp),
+                                                 forbid=NO_TORCH_SCANS)}
         print(json.dumps({label: res}), flush=True)
 
 
@@ -2734,6 +2996,16 @@ def lz_phase(torch, here: str, kernels: list) -> None:
         "decompress_MBps": len(data) / 1e6 / td}}), flush=True)
 
 
+def stage_wrappers() -> dict:
+    """The running max / min scans' and the anchored walk's wrappers, by
+    name."""
+    from tpulc_torch.codecs.bwt import ibwt_kernels as ik
+    from tpulc_torch.primitives import scan_kernels as sk
+
+    return {"running_max": sk.running_max, "running_min": sk.running_min,
+            "anchored_walk": ik.anchored_walk}
+
+
 def hand_kernels() -> dict:
     """Every hand kernel's wrapper (each counts its launches), by name."""
     from tpulc_torch.codecs.bsclike import abc_kernels as ak
@@ -2747,7 +3019,7 @@ def hand_kernels() -> dict:
            dk.huffman_walk_flat, gk.grc_walk_probs, gk.grc_reverse_rans,
            gk.grc_decode_walk, rans.rans_encode_walk, rans.rans_decode_walk,
            ak.abc_encode_walk, ak.abc_decode_walk)
-    return {f.__name__: f for f in fns}
+    return {**{f.__name__: f for f in fns}, **stage_wrappers()}
 
 
 def culzss_phase(torch, here: str, kernels: list) -> None:
@@ -2953,7 +3225,6 @@ def prim_suffix(torch, here: str) -> None:
     sort, and sort_strings_full."""
     import numpy as np
 
-    from tpulc_torch.codecs.bwt import rotsort
     from tpulc_torch.primitives import parallel as par
     from tpulc_torch.primitives.dc3 import dc3_suffix_array
     from tpulc_torch.primitives.dc3_device import (
@@ -2998,12 +3269,9 @@ def prim_suffix(torch, here: str) -> None:
     require(np.array_equal(bwt.cpu().numpy(), head[(want - 1) % BLOCK])
             and int(idx0) == int(np.flatnonzero(want == 0)[0]),
             "sa_to_bwt differs from the host DC3's BWT")
-    _, ms_rot, peak_rot = warm3(
-        torch, lambda: rotsort.bwt_encode_anchored(blk, 512))
     prim_line("sa_bwt_900000", BLOCK, ms, peak,
               doubling_rounds=suffix_array.rounds, host_dc3_s=host_s,
-              equals_host_dc3=True, rotsort_bwt_encode_anchored_ms=ms_rot,
-              rotsort_peak_mem_bytes=peak_rot)
+              equals_host_dc3=True)
     del sa, bwt, blk
 
     # sort_strings_full of pg1661 x 6's lines
@@ -3304,7 +3572,23 @@ def prim_phase(torch, here: str, kernels: list) -> None:
     launched = {k: v for k, v in launches.items() if v}
     require(not launched, f"the primitive layer launched hand kernels: "
                           f"{launched}")
+    prim_rotsort(torch, here)
     print(f"phase 14: {dt:.1f} s", flush=True)
+
+
+def prim_rotsort(torch, here: str) -> None:
+    """bz's production rotation sort on the 900,000 B block of
+    `prim_suffix`'s SA-based BWT, beside it: a codec stage, outside the
+    primitive layer (its pair resolver may launch the running-min
+    scan, whose launches are printed)."""
+    from tpulc_torch.codecs.bwt import rotsort
+
+    blk = torch.frombuffer(bytearray(corpus(here)[:BLOCK]),
+                           dtype=torch.uint8).to("cuda")
+    (_, ms, peak), _, launches = counted(torch, hand_kernels(), lambda: warm3(
+        torch, lambda: rotsort.bwt_encode_anchored(blk, 512)))
+    prim_line("rotsort_bwt_encode_anchored_900000", BLOCK, ms, peak,
+              hand_kernel_launches={k: v for k, v in launches.items() if v})
 
 
 def mtf_soup_entries(torch, ranks, suffix: str = "@soup",
@@ -3397,7 +3681,7 @@ def resident_blocks(nl: int) -> int:
 
 
 def traced(torch, fn, keep: list | None = None,
-           on_device: bool = True) -> dict:
+           on_device: bool = True, forbid: tuple = ()) -> dict:
     """One run of fn under torch.profiler: host wall, device-busy time
     (the union of the device events' intervals: kernels and copies) and
     share, the kernels the trace recorded beside the kernel launches the
@@ -3405,7 +3689,8 @@ def traced(torch, fn, keep: list | None = None,
     records, and its busy share is low), and the ten largest device
     times by name; fn's output is
     appended to `keep` when one is given.  A run `on_device` must show
-    device time; one that runs on the host alone must show none."""
+    device time; one that runs on the host alone must show none; no op
+    named in `forbid` (e.g. "aten::cummax") may run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3416,9 +3701,11 @@ def traced(torch, fn, keep: list | None = None,
     if keep is not None:
         keep.append(out)
     spans, by_name, kernel_events, launch_calls = [], {}, 0, 0
+    ran = set()
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             launch_calls += ev.name in LAUNCH_CALLS
+            ran.add(ev.name)
             continue
         kernel_events += not ev.name.startswith(("Memcpy", "Memset"))
         t0, t1 = ev.time_range.start, ev.time_range.end
@@ -3432,6 +3719,7 @@ def traced(torch, fn, keep: list | None = None,
     require((busy_us > 0) == on_device,
             "the profiler saw no device time" if on_device else
             "a host-only run put work on the device")
+    require(not ran & set(forbid), f"the run called {sorted(ran & set(forbid))}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "busy_share": busy_us / 1e6 / wall,
@@ -3440,10 +3728,11 @@ def traced(torch, fn, keep: list | None = None,
                     for k, (us, n) in top]}
 
 
-def path_profile(torch, compress, decompress, total_bytes: int) -> dict:
+def path_profile(torch, compress, decompress, total_bytes: int,
+                 forbid: tuple = ()) -> dict:
     """Where a warm round trip's time goes: the codec's own stage
     timers over one compress() and one decompress(comp), then each
-    under torch.profiler (`traced`)."""
+    under torch.profiler (`traced`, no op of `forbid` allowed)."""
     from tpulc_torch.utils import timing
 
     timer = timing.enable()
@@ -3451,8 +3740,10 @@ def path_profile(torch, compress, decompress, total_bytes: int) -> dict:
     synced(torch, lambda: decompress(comp))
     stages = timer.report(total_bytes=total_bytes)
     timing.disable()
-    return {"stages": stages, "compress": traced(torch, compress),
-            "decompress": traced(torch, lambda: decompress(comp))}
+    return {"stages": stages,
+            "compress": traced(torch, compress, forbid=forbid),
+            "decompress": traced(torch, lambda: decompress(comp),
+                                 forbid=forbid)}
 
 
 if __name__ == "__main__":

@@ -1056,3 +1056,203 @@ def test_cuckoo_table_on_card(cuda):
     assert np.array_equal(got.cpu().numpy(), vals.astype(np.int64))
     absent = (keys.astype(np.uint64) + (1 << 31)).astype(np.uint32)
     assert not bool(on_card.lookup(absent)[1].any())
+
+
+# ---------------------------------------------- running max/min scans
+
+SCAN_SIZES = [1, 2, 3, 4095, 4096, 4097, 8191, 8193, 4096 * 1024 + 5]
+
+
+def _scan_input(kind, n, dtype):
+    rng = np.random.default_rng(n + len(kind))
+    info = np.iinfo(dtype)
+    if kind == "random":
+        x = rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True)
+    elif kind == "equal":
+        x = np.full(n, 7, dtype)
+    elif kind == "increasing":
+        x = np.arange(n, dtype=dtype)
+    elif kind == "decreasing":
+        x = -np.arange(n, dtype=dtype)
+    elif kind == "sentinels":   # rle.py's -1 / n + 1, rotsort's 1 << 30
+        x = rng.choice(np.array([-1, n + 1, 1 << 30, info.min, info.max, 0],
+                                dtype), n)
+    else:
+        raise KeyError(kind)
+    return torch.from_numpy(x.astype(dtype))
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n", SCAN_SIZES)
+def test_running_scans_equal_plain(cuda, n, dtype, reverse):
+    """Both kernels equal their plain versions across tile boundaries
+    (4,096 elements a tile; the last size needs 1,025 tiles, more than
+    the carry scan's 1,024 threads), on an aligned tensor and on a view
+    that is not 16-byte aligned; one launch a call."""
+    from tpulc_torch.primitives import scan_kernels as sk
+
+    for kind in ("random", "equal", "increasing", "decreasing",
+                 "sentinels"):
+        x = _scan_input(kind, n, dtype)
+        for kern, plain in ((sk.running_max, sk.running_max_plain),
+                            (sk.running_min, sk.running_min_plain)):
+            want = plain(x, reverse)
+            for xc in (x.to(cuda), _shifted(x, cuda)):
+                before = kern.launches
+                got = kern(xc, reverse)
+                torch.cuda.synchronize()
+                assert kern.launches == before + 1
+                assert got.dtype == x.dtype
+                assert torch.equal(got.cpu(), want), (kind, kern.__name__)
+
+
+def test_running_scans_empty_and_refused_on_card(cuda):
+    from tpulc_torch.primitives import scan_kernels as sk
+
+    for kern in (sk.running_max, sk.running_min):
+        before = kern.launches
+        assert kern(torch.empty(0, dtype=torch.int64, device=cuda)).numel() == 0
+        assert kern.launches == before
+        with pytest.raises(ValueError):
+            kern(torch.zeros(8, dtype=torch.float32, device=cuda))
+
+
+# ------------------------------------------- anchored inverse-BWT walk
+
+def _walk_block(src, n):
+    if src == "pg1661":
+        with open("tests/data/pg1661.txt", "rb") as f:
+            raw = np.frombuffer(f.read(), np.uint8)
+        return raw[1234: 1234 + n].copy()
+    return np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
+
+
+WALK_CASES = [(src, S, n) for S in (512, 1024)
+              for n in (1, S - 1, S, S + 1, 50_000)
+              for src in ("pg1661", "random")]
+
+
+def _walk_equal(T, last, anchors, n, S, cap, dev):
+    from tpulc_torch.codecs.bwt import ibwt_kernels as ik
+
+    want = ik.anchored_walk_plain(T, last, anchors, n, S, cap)
+    before = ik.anchored_walk.launches
+    got = ik.anchored_walk(T.to(dev), last.to(dev), anchors.to(dev), n, S,
+                           cap)
+    torch.cuda.synchronize()
+    assert ik.anchored_walk.launches == before + (n > 0)
+    assert torch.equal(got.cpu(), want)
+    return want
+
+
+@pytest.mark.parametrize("src,S,n", WALK_CASES,
+                         ids=[f"{s}-S{S}-n{n}" for s, S, n in WALK_CASES])
+def test_anchored_walk_equals_plain(cuda, src, S, n):
+    """The rotation sort's inverse (cap = n) and the masked one (cap >
+    n, lanes past n starting at idx0 and writing nothing), each equal
+    to the plain walk and giving the block back."""
+    from tpulc_torch.codecs.bwt import masked as pm
+    from tpulc_torch.codecs.bwt import rotsort as prot
+
+    data = _walk_block(src, n)
+    last, _, anchors, ok = prot.bwt_encode_anchored(torch.from_numpy(data),
+                                                    S)
+    assert ok
+    out = _walk_equal(prot._lf_map(last), last, anchors, n, S, n, cuda)
+    assert np.array_equal(out.numpy(), data)
+    cap = 51_000
+    padded = np.zeros(cap, np.uint8)
+    padded[:n] = data
+    last, _, anchors, ok = pm.bwt_encode_masked_anchored(
+        torch.from_numpy(padded), n, S)
+    assert ok
+    out = _walk_equal(pm._lf_map(last, n), last, anchors, n, S, cap, cuda)
+    assert np.array_equal(out.numpy(), padded)
+
+
+@pytest.mark.parametrize("lpw", [1, 2, 4, 8, 16, 32])
+def test_anchored_walk_at_every_lanes_per_warp(cuda, lpw):
+    """Every lanes a warp the kernel can pick writes the plain walk's
+    bytes, on a ragged stride-512 block and a masked stride-1,024 one
+    (the C entry point, which takes the lanes a warp; the wrapper lets
+    the kernel pick), and 3 lanes a warp is refused."""
+    from tpulc_torch import cuda_lib
+    from tpulc_torch.codecs.bwt import ibwt_kernels as ik
+    from tpulc_torch.codecs.bwt import masked as pm
+
+    lib = cuda_lib.library()
+    for S, n, cap in ((512, 50_000, 50_000), (1024, 50_000, 51_000)):
+        padded = np.zeros(cap, np.uint8)
+        padded[:n] = _walk_block("pg1661", n)
+        last, _, anchors, ok = pm.bwt_encode_masked_anchored(
+            torch.from_numpy(padded), n, S)
+        assert ok
+        T = pm._lf_map(last, n)
+        want = ik.anchored_walk_plain(T, last, anchors, n, S, cap)
+        Tc, lc = T.to(cuda), last.to(cuda)
+        ac = anchors.to(torch.int32).to(cuda)
+        tl, out = torch.empty_like(Tc), torch.zeros_like(lc)
+        for w in (lpw, 3):
+            err = lib.tplc_anchored_walk(
+                Tc.data_ptr(), lc.data_ptr(), tl.data_ptr(), ac.data_ptr(),
+                out.data_ptr(), n, S, cap, -(-n // S), w,
+                cuda_lib.stream_of(Tc))
+            assert (err == 0) == (w == lpw)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), want)
+
+
+def test_anchored_walk_on_real_blocks(cuda):
+    """A real 900,000 B bz block (its int32 anchors, as the bz decoder
+    gets them from the payload) and a stride-1,024 masked block with a
+    ragged last lane, through both decoders on the card."""
+    from tpulc_torch.codecs.bwt import masked as pm
+    from tpulc_torch.codecs.bwt import rotsort as prot
+
+    with open("tests/data/pg1661.txt", "rb") as f:
+        raw = f.read()
+    data = np.frombuffer((raw * 2)[:900_096], np.uint8).copy()
+    blk = torch.from_numpy(data).to(cuda)
+    last, _, anchors, ok = prot.bwt_encode_anchored(blk, 512)
+    assert ok and anchors.dtype == torch.int32
+    back = prot.bwt_decode_anchored(last, anchors, 512)
+    assert np.array_equal(back.cpu().numpy(), data)
+    _walk_equal(prot._lf_map(last.cpu()), last.cpu(), anchors.cpu(),
+                data.shape[0], 512, data.shape[0], cuda)
+    n, cap = 300_001, 1 << 19
+    assert n % 1024
+    padded = np.zeros(cap, np.uint8)
+    padded[:n] = data[:n]
+    last, _, anchors, ok = pm.bwt_encode_masked_anchored(
+        torch.from_numpy(padded).to(cuda), n, 1024)
+    assert ok
+    back = pm.bwt_decode_masked_anchored(last, n, anchors.to(torch.int64),
+                                         1024)
+    assert np.array_equal(back.cpu().numpy(), padded)
+    _walk_equal(pm._lf_map(last.cpu(), n), last.cpu(), anchors.cpu(), n,
+                1024, cap, cuda)
+
+
+def test_anchored_walk_refuses_and_survives_bad_anchors(cuda):
+    """Too few anchors raise; an anchor past the table (a corrupt
+    payload) reads nothing and writes zeros over its lane."""
+    from tpulc_torch.codecs.bwt import ibwt_kernels as ik
+    from tpulc_torch.codecs.bwt import rotsort as prot
+
+    data = _walk_block("pg1661", 3000)
+    last, _, anchors, _ = prot.bwt_encode_anchored(torch.from_numpy(data),
+                                                   512)
+    T = prot._lf_map(last).to(cuda)
+    lc, ac = last.to(cuda), anchors.to(cuda)
+    with pytest.raises(ValueError):
+        ik.anchored_walk(T, lc, ac[:-1], 3000, 512, 3000)
+    bad = ac.clone()
+    bad[1] = 1 << 30
+    out = ik.anchored_walk(T, lc, bad, 3000, 512, 3000).cpu().numpy()
+    torch.cuda.synchronize()
+    lane1 = slice(3000 - 2 * 512, 3000 - 512)
+    assert not out[lane1].any()
+    keep = np.ones(3000, bool)
+    keep[lane1] = False
+    assert np.array_equal(out[keep], data[keep])

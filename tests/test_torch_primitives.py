@@ -68,6 +68,34 @@ def test_integer_scans_equal_tpulc(op, exclusive, reverse):
         par.multi_scan(torch.from_numpy(x1))
 
 
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_exclusive_scan_of_an_empty_axis_is_empty(op, reverse):
+    """An exclusive scan of n elements has n outputs: `scan` of length 0
+    and `multi_scan` of [R, 0] give empty tensors of x's shape.  tpulc
+    returns [identity] here, shape (1,) and (2, 1) (its fault F10), which
+    the port does not follow; an op without an identity still raises."""
+    jop, top = OPS[op]
+    for fn, tfn, shape in ((par.scan, tpar.scan, (0,)),
+                           (par.multi_scan, tpar.multi_scan, (2, 0))):
+        x = np.zeros(shape, np.int32)
+        jx, tx = _both(x)
+        if op == "or":
+            with pytest.raises(ValueError):
+                fn(tx, op=top, exclusive=True, reverse=reverse)
+            continue
+        got = fn(tx, op=top, exclusive=True, reverse=reverse)
+        assert got.shape == shape and got.dtype == torch.int32
+        f10 = tfn(jx, op=jop, exclusive=True, reverse=reverse)
+        assert f10.shape == shape[:-1] + (1,)   # the reference fault
+        for exclusive in (False, True):
+            y = fn(torch.zeros(shape, dtype=torch.float32), op=top,
+                   exclusive=exclusive, reverse=reverse)
+            assert y.shape == shape and y.dtype == torch.float32
+        _same(tfn(jx, op=jop, reverse=reverse),
+              fn(tx, op=top, reverse=reverse))
+
+
 @pytest.mark.parametrize("op", ["add", "max", "min"])
 @pytest.mark.parametrize("exclusive", [False, True])
 @pytest.mark.parametrize("reverse", [False, True])

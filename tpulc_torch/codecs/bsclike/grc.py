@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpulc_torch.primitives.scan_kernels import running_max, running_min
+
 GCHUNK = 1024
 PROB_BITS = 12
 SCALE = 1 << PROB_BITS
@@ -122,8 +124,8 @@ def grc_lane_bits(ranks: torch.Tensor, m: int, chunk: int = GCHUNK):
     ilp = pos % chunk
     is_start = ((rk != 0) | (ilp == 0)) & valid
     lane_end = (pos // chunk + 1) * chunk
-    nxt_start = torch.flip(torch.cummin(torch.flip(
-        torch.where(is_start, pos, cap + 1), (0,)), 0).values, (0,))
+    nxt_start = running_min(torch.where(is_start, pos, cap + 1),
+                            reverse=True)
     nxt_after = torch.cat([nxt_start[1:],
                            torch.full((1,), cap + 1, device=dev)])
     k = (torch.minimum(nxt_after, lane_end).clamp(max=m) - pos).clamp(
@@ -178,7 +180,7 @@ def _binarize(ranks: torch.Tensor, m: int, W: int, chunk: int = GCHUNK):
     # lane's first start
     excl = torch.cumsum(ev, 0) - ev
     idx = torch.arange(spos.shape[0], device=dev)
-    first = torch.cummax(torch.where(same1, 0, idx), 0).values
+    first = running_max(torch.where(same1, 0, idx))
     off = excl - excl[first]
     lane_bits = torch.zeros(L, dtype=torch.int64, device=dev).index_add_(
         0, lane, ev)

@@ -12,15 +12,16 @@ doubled buffer and a `dynamic_slice` at a traced offset, because random
 access is the TPU's expensive primitive (`masked.py:9-16`); here it is
 a gather at ``(i + k) mod n``.  The keys of padding rows differ from
 tpulc's garbage there, but a padding row's own rank is unique, so they
-never decide an order or a group.  Likewise the anchored inverse pads
-the flipped lane walk before slicing only because `dynamic_slice`
-clamps; torch slicing does not, and the slice below stays in range.
+never decide an order or a group.  The anchored inverse is the walk
+that `rotsort.bwt_decode_anchored` runs too (`ibwt_kernels`), over this
+module's `_lf_map`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpulc_torch.codecs.bwt.ibwt_kernels import anchored_walk
 from tpulc_torch.codecs.bwt.rotsort import (
     _FAN,
     _scatter_perm,
@@ -151,26 +152,13 @@ def _lf_map(last: torch.Tensor, n: int) -> torch.Tensor:
 def bwt_decode_masked_anchored(last: torch.Tensor, n: int,
                                anchors: torch.Tensor,
                                anchor_stride: int = ANCHOR_STRIDE):
-    """Anchored masked inverse BWT -> uint8[cap] (valid prefix n): lane
-    j runs S serial LF steps from anchors[j] (anchors[0] == idx0), and
-    its steps are output positions n-1-j*S downwards."""
+    """Anchored masked inverse BWT -> uint8[cap] (valid prefix n, zeros
+    past it): lane j runs S serial LF steps from anchors[j] (anchors[0]
+    == idx0), and its steps are output positions n-1-j*S downwards; on
+    the card one thread a lane (`ibwt_kernels.anchored_walk`)."""
     cap = last.shape[0]
-    S = anchor_stride
-    R = anchors.shape[0]
-    # (T, last) ride one int64 so each serial step is a single gather
-    TL = _lf_map(last, n) | (last.to(torch.int64) << 32)
-    out = torch.empty((S, R), dtype=torch.int64, device=last.device)
-    p = anchors.to(torch.int64)
-    for t in range(S):
-        e = TL[p]
-        out[t] = e
-        p = e & 0xFFFFFFFF
-    flat = (out >> 32).to(torch.uint8).T.reshape(-1)   # lane-major steps
-    flipped = torch.cat([torch.flip(flat, (0,)),
-                         torch.zeros(cap, dtype=torch.uint8,
-                                     device=last.device)])
-    start = R * S - n
-    return flipped[start: start + cap]
+    return anchored_walk(_lf_map(last, n), last, anchors, n, anchor_stride,
+                         cap)
 
 
 def bwt_decode_masked(last: torch.Tensor, n: int, idx0: int):

@@ -9,12 +9,15 @@ encode: zero-run starts/lengths via max/min scans; a run of L zeros
   emits k = floor(log2(L+1)) digits, digit i = bit i of (L+1) (LSB
   first, 0->RUNA, 1->RUNB); each token's record is scattered to its
   output offset and every output slot reads the latest record at or
-  before it (a cummax of token slots plus one gather).
+  before it (a running max of token slots plus one gather).
 
 decode: run-group membership via a max scan; each group's zero count
   is a per-group sum of (digit+1)<<i (`index_add_` over group ids, in
   place of tpulc's reverse segmented scan); literals scatter at cumsum
   offsets into a zero-initialised output.
+
+The running max and min scans are `primitives/scan_kernels.py`'s: a hand
+kernel on the card, torch's cummax / cummin on the CPU.
 
 Alphabet: 0 = RUNA, 1 = RUNB, nonzero MTF rank r -> symbol r+1
 (2..256); 257-symbol Huffman alphabet, no EOB.
@@ -24,13 +27,11 @@ from __future__ import annotations
 
 import torch
 
+from tpulc_torch.primitives.scan_kernels import running_max, running_min
+
 RUNA = 0
 RUNB = 1
 ALPHABET = 257  # 2 run symbols + ranks 1..255 shifted to 2..256
-
-
-def _rev_cummin(x: torch.Tensor) -> torch.Tensor:
-    return torch.flip(torch.cummin(torch.flip(x, (0,)), 0).values, (0,))
 
 
 def rle2_encode(ranks: torch.Tensor):
@@ -43,9 +44,9 @@ def rle2_encode(ranks: torch.Tensor):
     r = ranks.to(torch.int64)
     i = torch.arange(n, device=dev)
     z = r == 0
-    prev_nz = torch.cummax(torch.where(z, -1, i), 0).values
+    prev_nz = running_max(torch.where(z, -1, i))
     is_run_start = z & (i == prev_nz + 1)
-    next_nz = _rev_cummin(torch.where(z, n, i))
+    next_nz = running_min(torch.where(z, n, i), reverse=True)
     L = torch.where(is_run_start, next_nz - i, 0)
     M = L + 1
     # k = floor(log2(M)), exact from the binary exponent (M >= 1)
@@ -61,7 +62,7 @@ def rle2_encode(ranks: torch.Tensor):
     rec_at = torch.zeros(n + 1, dtype=torch.int64, device=dev)
     rec_at[torch.where(tok, off, n)] = rec
     rec_at = rec_at[:n]
-    owner = torch.cummax(torch.where(rec_at > 0, i, -1), 0).values.clamp(min=0)
+    owner = running_max(torch.where(rec_at > 0, i, -1)).clamp(min=0)
     o_rec = rec_at[owner]
     is_run_slot = (o_rec & RUNBIT) != 0
     digit = (o_rec >> (i - owner).clamp(0, 29)) & 1
@@ -83,7 +84,7 @@ def rle2_decode(symbols: torch.Tensor, m):
     valid = i < m
     s = torch.where(valid, symbols.to(torch.int64), 2)
     isrun = valid & (s <= 1)
-    prev_lit = torch.cummax(torch.where(isrun, -1, i), 0).values
+    prev_lit = running_max(torch.where(isrun, -1, i))
     pos_in_group = i - (prev_lit + 1)
     contrib = torch.where(isrun, (s + 1) << pos_in_group.clamp(0, 30), 0)
     is_gstart = isrun & (pos_in_group == 0)

@@ -20,6 +20,9 @@ from __future__ import annotations
 
 import torch
 
+from tpulc_torch.codecs.bwt.ibwt_kernels import anchored_walk
+from tpulc_torch.primitives.scan_kernels import running_min
+
 _FAN = 8  # ranks composed per refinement round (depth 8 -> 64 -> 512)
 
 
@@ -93,7 +96,7 @@ def _pair_resolve(data, rank, pf_rot, ps_rot, P: int, n: int):
     idx2 = torch.arange(2 * n, device=dev)
     sent = 1 << 30
     enc = torch.where(cmp2 != 0, (idx2 << 2) | (cmp2 + 1), sent)
-    fnz = torch.flip(torch.cummin(torch.flip(enc, (0,)), 0).values, (0,))[:n]
+    fnz = running_min(enc, reverse=True)[:n]
     v = torch.where(fnz >= sent, 0, (fnz & 3) - 1)
     ok = not bool((pf_rot & (v == 0)).any())
     vP = torch.roll(v, P)  # v[(x - P) mod n]
@@ -190,21 +193,10 @@ def _lf_map(last: torch.Tensor) -> torch.Tensor:
 def bwt_decode_anchored(last: torch.Tensor, anchors: torch.Tensor,
                         anchor_stride: int = 1024) -> torch.Tensor:
     """Inverse BWT via anchored lane walks: each of R lanes runs S serial
-    LF steps from its anchor (anchors[0] == idx0 by construction)."""
+    LF steps from its anchor (anchors[0] == idx0 by construction); on
+    the card one thread a lane (`ibwt_kernels.anchored_walk`)."""
     n = last.shape[0]
-    S = anchor_stride
-    R = anchors.shape[0]
-    T = _lf_map(last)
-    # (T, last) ride one int64 so each serial step is a single gather
-    TL = T | (last.to(torch.int64) << 32)
-    out = torch.empty((S, R), dtype=torch.int64, device=last.device)
-    p = anchors.to(torch.int64)
-    for t in range(S):
-        e = TL[p]
-        out[t] = e
-        p = e & 0xFFFFFFFF
-    lin = torch.flip((out >> 32).to(torch.uint8).T.reshape(-1), (0,))
-    return lin[R * S - n:]
+    return anchored_walk(_lf_map(last), last, anchors, n, anchor_stride, n)
 
 
 def bwt_decode(last: torch.Tensor, idx0: int) -> torch.Tensor:

@@ -53,6 +53,12 @@ def _identity_for(op, dtype: torch.dtype):
 
 
 def _scan(x, op, exclusive: bool, reverse: bool, dim: int) -> torch.Tensor:
+    if x.shape[dim] == 0:
+        # n inputs give n outputs, also for an exclusive scan (tpulc's
+        # `[identity]` here is its fault F10, not followed)
+        if exclusive:
+            _identity_for(op, x.dtype)
+        return x.clone()
     if reverse:
         x = torch.flip(x, (dim,))
     out = _inclusive(x, op, dim)
