@@ -6,13 +6,14 @@
     python3 chip_smoke.py --mtf [--root DIR]
     python3 chip_smoke.py --abc [--root DIR]
     python3 chip_smoke.py --rans [--root DIR]
+    python3 chip_smoke.py --ibwt [--root DIR]
     python3 chip_smoke.py --e1
     python3 chip_smoke.py --st
     python3 chip_smoke.py --lz
     python3 chip_smoke.py --dist
     python3 chip_smoke.py --prim
 
-The second to fifth forms run one turn of a parent/change comparison
+The second to sixth forms run one turn of a parent/change comparison
 with the tpulc_torch package under DIR (default: this checkout), e.g. a
 `git archive` of the parent commit; run them in turns, parent, change,
 change, parent.  `--walks`: K3, K7 and K8 device ms and the decode-only
@@ -36,6 +37,17 @@ output alone, every build of the tree's comparison library
 (`-DTPLC_RANS_SWEEP`: lanes a block, encode's register batches, the
 decode's word reads and its fused global table, with each block's
 phase clocks), and the compiled loops of both walks.
+`--ibwt`: the running max / min scans on the four arrays RLE2 scans and
+the anchored inverse BWT (LF map and walk, through that tree's
+`bwt_decode_anchored` / `bwt_decode_masked_anchored`, and the walk's
+wrapper alone) on the first bz block of pg1661 x 6, on pg1661 x 6 as
+one 4 MiB bsc -e1 block and on the first 25 MiB soup block under bsc
+-e1 (`ibwt_turn`): device ms, ms (host time included), the host's
+microseconds a call, the sha256 of each
+output, the pointer chase's ns a load over the walk's table at 8-byte
+entries and, where the tree has it, at 4-byte ones, and, where the
+tree has them, the walk at every lanes a warp and the scans at every
+tile of scan.cu's comparison build (`-DTPLC_SCAN_SWEEP`).
 `--e1`: the card, the build and phase 9 alone; `--st`: the same for
 phase 10; `--lz`: the same for phases 11 and 12; `--dist`: the same for
 phase 13; `--prim`: the same for phase 14.
@@ -62,8 +74,12 @@ Phases (any failure exits non-zero before the last line is printed):
    `rle2_decode`'s one) and the anchored inverse-BWT walk
    (csrc/ibwt.cu) on its real last column and anchors, each against its
    plain version, the scans beside torch.cummax / cummin, the walk
-   beside its chain: S dependent loads, each priced by a one-thread
-   pointer chase over a random cycle of the walk's table size;
+   beside its chain: S dependent loads, each priced by the faster of
+   two one-thread pointer chases over a random cycle of the walk's
+   table size, of 8-byte entries (the walk's first design) and of
+   4-byte ones (its own); then the walk at every lanes a warp, the
+   scans at every tile of scan.cu's comparison build, and each
+   wrapper's device time and CUDA launches a call (torch.profiler);
 4. the bz main path: bz compress + decompress of pg1661 x 6 (3,569,598
    B, 900,000 B blocks) through the codec entry points on the card, with
    every kernel's launch count reset before and read after; exact round
@@ -212,9 +228,9 @@ call computes them.  The scans' library time is torch.cummax /
 cummin (a reverse scan's on the flipped input); their bytes are x read
 and y written once.  The walk's bytes are its n table reads as 32-byte
 sectors and its n output bytes; its `chain` is measured (S dependent
-loads times one load's latency from a one-thread pointer chase over a
-random cycle of the table's size), not computed; no one PyTorch call
-computes it.  `ms` is the
+loads times one load's latency from the faster of two one-thread
+pointer chases, of 8- and of 4-byte entries, over a random cycle of the
+table's size), not computed; no one PyTorch call computes it.  `ms` is the
 wrapper's call between two CUDA events; `device_ms` is the kernel
 alone, from a CUDA graph of 5 calls replayed, because the wrapper's
 host time exceeds a kernel of some tens of microseconds.
@@ -383,8 +399,10 @@ NO_TORCH_SCANS = ("aten::cummax", "aten::cummin")
 WALK_OPS = 3
 CHASE_STEPS = 1 << 13
 # the walk's lanes a warp (csrc/ibwt.cu picks one from the lanes and the
-# SM count), swept
+# SM count), swept; the scans' tiles (csrc/scan.cu's comparison build)
 WALK_LANES_PER_WARP = (1, 2, 4, 8, 16, 32)
+SCAN_TILES = (2048, 4096, 8192, 16384)
+HOST_REPS = 21   # calls a median of `time_ms` in --ibwt
 SOUP_WORDS = [
     b"the", b"of", b"and", b"compression", b"lossless", b"entropy",
     b"transform", b"block", b"sorting", b"data", b"parallel", b"encode",
@@ -842,10 +860,11 @@ def bz_block_syms(torch, driver, data: bytes, dev):
     return last.to(torch.int32).reshape(-1, 128).contiguous()
 
 
-def launch_split(torch, fn, reps: int = 20):
+def launch_split(torch, fn, reps: int = 20, counts: bool = False):
     """Device ms of one fn() by kernel name: `reps` calls under
-    torch.profiler, each kernel's total over reps; "not measured" if the
-    profiler caught no device event (it drops some now and then)."""
+    torch.profiler, each kernel's total over reps (with `counts`, [ms,
+    launches a call], memsets included); "not measured" if the profiler
+    caught no device event (it drops some now and then)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -861,8 +880,11 @@ def launch_split(torch, fn, reps: int = 20):
         if ev.device_type == DeviceType.CUDA:
             name = ev.name.split("::")[-1].split("(")[0]
             dt = (ev.time_range.end - ev.time_range.start) / 1e3 / reps
-            split[name] = split.get(name, 0.0) + dt
-    return split or "not measured"
+            ms, k = split.get(name, (0.0, 0))
+            split[name] = (ms + dt, k + 1 / reps)
+    if counts:
+        return {k: list(v) for k, v in split.items()} or "not measured"
+    return {k: v[0] for k, v in split.items()} or "not measured"
 
 
 def stage_calls(fn, keep: dict | None = None):
@@ -910,8 +932,11 @@ def require_stage_launches(label: str, counts: dict, calls: dict,
         f"not {walks if walks is not None else 'at least once'}")
 
 
-def chase_ns(torch, cuda_lib, entries: int, reps: int = 5) -> float:
-    """ns of one dependent 8-byte load: one thread follows CHASE_STEPS
+def chase_ns(torch, cuda_lib, entries: int, reps: int = 5,
+             width: int = 8) -> float:
+    """ns of one dependent load of a `width`-byte entry (8: the walk's
+    first design's T | last << 32, `tplc_pointer_chase`; 4: its uint32
+    successor, `tplc_pointer_chase4`): one thread follows CHASE_STEPS
     steps of a random cycle through `entries` entries (the walk's table
     size), each run from a fresh start after a pass that reads the whole
     table (so that a table that fits is in L2, as the walk finds its
@@ -919,8 +944,9 @@ def chase_ns(torch, cuda_lib, entries: int, reps: int = 5) -> float:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(PRIM_SEED)
     perm = torch.randperm(entries, device=dev, generator=g)
-    nxt = torch.empty(entries, dtype=torch.int64, device=dev)
-    nxt[perm] = torch.roll(perm, -1)
+    nxt = torch.empty(entries, dtype=torch.int64 if width == 8
+                      else torch.int32, device=dev)
+    nxt[perm] = torch.roll(perm, -1).to(nxt.dtype)
     sink = torch.empty(1, dtype=torch.int64, device=dev)
     lib = cuda_lib.library()
     starts = perm[::max(1, entries // (reps + 1))][: reps + 1].tolist()
@@ -930,7 +956,9 @@ def chase_ns(torch, cuda_lib, entries: int, reps: int = 5) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        cuda_lib.check(lib.tplc_pointer_chase(
+        chase = (lib.tplc_pointer_chase if width == 8
+                 else lib.tplc_pointer_chase4)
+        cuda_lib.check(chase(
             nxt.data_ptr(), int(start), CHASE_STEPS, sink.data_ptr(),
             cuda_lib.stream_of(nxt)), "pointer_chase")
         b.record()
@@ -940,25 +968,62 @@ def chase_ns(torch, cuda_lib, entries: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def stage_checks(torch, cuda_lib, enc: dict, dec: dict, suffix: str):
+def host_us(torch, fn, reps: int = HOST_REPS * 10) -> float:
+    """The host's microseconds a call of fn(): `reps` calls issued with
+    no wait between them, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / reps
+
+
+def scan_entry(torch, cuda_lib, x, is_max: bool, reverse: bool):
+    """A call of the scan's C entry alone on x, its output and scratch
+    allocated once (scratch sized for any tree: the first design counted
+    it in elements of x, the second in bytes)."""
+    lib = cuda_lib.library()
+    y = torch.empty_like(x)
+    scratch = torch.empty(8 * lib.tplc_running_scan_scratch(x.shape[0]),
+                          dtype=torch.uint8, device=x.device)
+    stream = cuda_lib.stream_of(x)
+    return lambda: cuda_lib.check(lib.tplc_running_scan(
+        x.data_ptr(), y.data_ptr(), scratch.data_ptr(), x.shape[0],
+        x.element_size(), int(is_max), int(reverse), stream), "scan")
+
+
+def rle2_arrays(enc: dict, dec: dict) -> list:
+    """The four arrays a block's RLE2 scans (`rle2_encode`'s three,
+    `rle2_decode`'s one: kept by `stage_calls` as enc and dec) -> [(the
+    wrapper's name, x, reverse, the call site)]."""
+    arrays = [(k[1], a[0], kw.get("reverse", False), f"rle2_encode[{i}]")
+              for k in ((RLE_MOD, "running_max"), (RLE_MOD, "running_min"))
+              for i, (a, kw) in enumerate(enc[k])]
+    return arrays + [(k[1], a[0], kw.get("reverse", False), "rle2_decode")
+                     for k in ((RLE_MOD, "running_max"),)
+                     for a, kw in dec[k]]
+
+
+def stage_checks(torch, cuda_lib, here: str, enc: dict, dec: dict,
+                 suffix: str):
     """`check_kernels` entries of the scans on the four arrays a block's
-    RLE2 scans (`rle2_encode`'s three, `rle2_decode`'s one: kept by
-    `stage_calls` as enc and dec) and of the walk on the block's real
-    arguments -> (the entries for the kernels line: the first max and
-    min of the encode and the walk; every entry)."""
+    RLE2 scans (`rle2_arrays`) and of the walk on the block's real
+    arguments, whose chain is S loads at the faster of the 8- and 4-byte
+    pointer chases; then the walk at every lanes a warp (`walk_sweep`),
+    the scans at every tile (`scan_tiles`) and each wrapper's device
+    time and CUDA launches a call -> (the entries for the kernels line:
+    the first max and min of the encode and the walk; every entry)."""
     from tpulc_torch.codecs.bwt import ibwt_kernels as ik
     from tpulc_torch.primitives import scan_kernels as sk
 
     plain = {"running_max": sk.running_max_plain,
              "running_min": sk.running_min_plain}
-    arrays = [(k[1], a, kw, f"rle2_encode[{i}]")
-              for k in ((RLE_MOD, "running_max"), (RLE_MOD, "running_min"))
-              for i, (a, kw) in enumerate(enc[k])]
-    arrays += [(k[1], a, kw, "rle2_decode")
-               for k in ((RLE_MOD, "running_max"),) for a, kw in dec[k]]
+    arrays = rle2_arrays(enc, dec)
     checks = []
-    for name, (x,), kw, site in arrays:
-        rev = kw.get("reverse", False)
+    for name, x, rev, site in arrays:
         lib_fn = torch.cummax if name == "running_max" else torch.cummin
         xl = torch.flip(x, (0,)) if rev else x
         checks.append(dict(
@@ -970,7 +1035,9 @@ def stage_checks(torch, cuda_lib, enc: dict, dec: dict, suffix: str):
             ops=x.shape[0], library=partial(lib_fn, xl, 0)))
     walk = [v for k, v in dec.items() if k[1] == "anchored_walk"][0]
     T, last, anchors, n, S, cap = walk[0][0]
-    ns = chase_ns(torch, cuda_lib, cap)
+    ns8 = chase_ns(torch, cuda_lib, cap)
+    ns4 = chase_ns(torch, cuda_lib, cap, width=4)
+    ns = min(ns8, ns4)
     checks.append(dict(
         name="anchored_walk" + suffix, src=IBWT_SRC,
         replaces=STAGE_REPLACES["anchored_walk"], kern=ik.anchored_walk,
@@ -978,46 +1045,94 @@ def stage_checks(torch, cuda_lib, enc: dict, dec: dict, suffix: str):
         shape=f"{-(-n // S)} lanes x {S} steps, n {n}, cap {cap}",
         bytes=33 * n, ops=WALK_OPS * n, plain_reps=1,
         chain_ms=S * ns * 1e-6,
-        chain_note=f"{S} dependent loads x {ns:.1f} ns, a one-thread "
-                   f"pointer chase over {cap} entries"))
+        chain_note=f"{S} dependent loads x {ns:.1f} ns, the faster of "
+                   f"one-thread pointer chases over {cap} entries of 8 "
+                   f"bytes ({ns8:.1f} ns) and of 4 ({ns4:.1f} ns)"))
     entries = check_kernels(torch, checks)
-    print(json.dumps({f"anchored_walk_lanes_per_warp{suffix}": walk_sweep(
-        torch, cuda_lib, (T, last, anchors, n, S, cap))}), flush=True)
+    args = (T, last, anchors, n, S, cap)
+    print(json.dumps({
+        f"anchored_walk_lanes_per_warp{suffix}": walk_sweep(
+            torch, cuda_lib, args),
+        f"scan_tiles{suffix}": scan_tiles(torch, cuda_lib,
+                                          sweep(here, "scan"), arrays),
+        f"launches_a_call{suffix}": {
+            "running_max": launch_split(torch, partial(
+                sk.running_max, arrays[0][1]), counts=True),
+            "running_min_reverse": launch_split(torch, partial(
+                sk.running_min, arrays[len(enc[(RLE_MOD, "running_max")])][1],
+                True), counts=True),
+            "anchored_walk": launch_split(torch, partial(
+                ik.anchored_walk, *args), counts=True)}}), flush=True)
     line = [entries[0], entries[len(enc[(RLE_MOD, "running_max")])],
             entries[-1]]
     return line, entries
 
 
 def walk_sweep(torch, cuda_lib, args) -> dict:
-    """The walk's kernel alone (its packed table built once, not by its
-    first launch) at every lanes a warp, each output equal to the
-    wrapper's, with device ms; the kernel's own pick; the wrapper's
+    """The walk's C entry at every lanes a warp (the memset and the count
+    launch, the same at every choice, included), each output equal to
+    the wrapper's, with device ms; the kernel's own pick; the wrapper's
     device ms."""
     from tpulc_torch.codecs.bwt import ibwt_kernels as ik
 
     T, last, anchors, n, S, cap = args
     lanes = -(-n // S)
     lib = cuda_lib.library()
-    TL = T | (last.to(torch.int64) << 32)
-    a = anchors.to(torch.int32).contiguous()
+    a = anchors[:lanes].contiguous()
+    counts = torch.empty(256, dtype=torch.int32, device=T.device)
     want = ik.anchored_walk(*args)
-    out = torch.zeros(cap, dtype=torch.uint8, device=T.device)
+    out = torch.empty(cap, dtype=torch.uint8, device=T.device)
     res = {"lanes": lanes, "pick": lib.tplc_anchored_walk_lanes(lanes),
-           "kernel_device_ms": {}}
+           "device_ms": {}}
     for lpw in WALK_LANES_PER_WARP:
         def run(lpw=lpw):
             cuda_lib.check(lib.tplc_anchored_walk(
-                None, None, TL.data_ptr(), a.data_ptr(), out.data_ptr(), n,
-                S, cap, lanes, lpw, cuda_lib.stream_of(T)), "anchored_walk")
+                T.data_ptr(), last.data_ptr(), counts.data_ptr(),
+                a.data_ptr(), a.element_size(), out.data_ptr(), n, S, cap,
+                lanes, lpw, cuda_lib.stream_of(T)), "anchored_walk")
 
-        out.zero_()
+        out.fill_(0xAB)
         run()
         torch.cuda.synchronize()
         require(torch.equal(out, want),
                 f"the walk at {lpw} lanes a warp differs from the wrapper's")
-        res["kernel_device_ms"][lpw] = device_ms(torch, run)
+        res["device_ms"][lpw] = device_ms(torch, run)
     res["wrapper_device_ms"] = device_ms(torch, lambda: ik.anchored_walk(
         *args))
+    return res
+
+
+def scan_tiles(torch, cuda_lib, scan_lib, arrays) -> dict:
+    """The scans at every tile of scan.cu's comparison build
+    (`-DTPLC_SCAN_SWEEP`: SCAN_TILES elements a tile), each output equal
+    to the wrapper's: device ms by array and tile, and the wrapper's
+    pick; {} without that build."""
+    from tpulc_torch.primitives import scan_kernels as sk
+
+    if scan_lib is None:
+        return {}
+    lib, main = scan_lib[0], cuda_lib.library()
+    res = {}
+    for name, x, rev, site in arrays:
+        want = getattr(sk, name)(x, rev)
+        row = {"pick": main.tplc_running_scan_tile(x.shape[0])}
+        scratch = torch.empty(main.tplc_running_scan_scratch(x.shape[0]),
+                              dtype=torch.uint8, device=x.device)
+        for tile in SCAN_TILES:
+            y = torch.empty_like(x)
+
+            def run(tile=tile, y=y):
+                cuda_lib.check(lib.tplc_running_scan_sweep(
+                    x.data_ptr(), y.data_ptr(), scratch.data_ptr(),
+                    x.shape[0], x.element_size(), int(name == "running_max"),
+                    int(rev), tile, cuda_lib.stream_of(x)), name)
+
+            run()
+            torch.cuda.synchronize()
+            require(torch.equal(y, want),
+                    f"{name} at a tile of {tile} differs from the wrapper's")
+            row[tile] = device_ms(torch, run)
+        res[f"{name}_{site}"] = row
     return res
 
 
@@ -1079,6 +1194,9 @@ def main() -> int:
                     help="one turn of the adaptive coder's walks' comparison")
     ap.add_argument("--rans", action="store_true",
                     help="one turn of coder 1's walks' comparison")
+    ap.add_argument("--ibwt", action="store_true",
+                    help="one turn of the anchored walk's and the running "
+                         "scans' comparison")
     ap.add_argument("--e1", action="store_true",
                     help="phase 9 alone (bsc -e1 on both cells)")
     ap.add_argument("--st", action="store_true",
@@ -1092,9 +1210,8 @@ def main() -> int:
                     help="phase 14 alone (the primitive layer and the "
                          "golds)")
     ap.add_argument("--root", default=None,
-                    help="with --walks, --mtf, --abc or --rans: the "
-                         "checkout whose "
-                         "tpulc_torch runs")
+                    help="with --walks, --mtf, --abc, --rans or --ibwt: "
+                         "the checkout whose tpulc_torch runs")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1102,9 +1219,10 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
-    if opts.walks or opts.mtf or opts.abc or opts.rans:
+    if opts.walks or opts.mtf or opts.abc or opts.rans or opts.ibwt:
         turn = (walks_turn if opts.walks else mtf_turn if opts.mtf
-                else abc_turn if opts.abc else rans_turn)
+                else abc_turn if opts.abc else rans_turn if opts.rans
+                else ibwt_turn)
         return turn(torch, here, os.path.abspath(opts.root or here))
     sys.path.insert(0, here)
     from tpulc_torch import cuda_lib
@@ -1129,6 +1247,7 @@ def main() -> int:
         sweep_start(here, cuda_lib, "abc")
     if not (opts.st or opts.lz or opts.dist or opts.prim):
         sweep_start(here, cuda_lib, "rans_ctx")
+        sweep_start(here, cuda_lib, "scan")
     cuda_lib.library()
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
           f"{' '.join(cuda_lib.NVCC_FLAGS)})", flush=True)
@@ -1198,7 +1317,8 @@ def main() -> int:
                                  dk.huffman_walk_plain(*walk))}}), flush=True)
     # the scans on the four arrays a bz block's RLE2 scans, the walk on
     # its real last column and anchors
-    stage_line, stage_all = stage_checks(torch, cuda_lib, enc, dec, "")
+    stage_line, stage_all = stage_checks(torch, cuda_lib, here, enc, dec,
+                                         "")
     print(json.dumps({"bwt_stage_kernels_bz": stage_all}), flush=True)
     kernels += stage_line
     del enc, dec, one
@@ -1440,6 +1560,90 @@ def mtf_turn(torch, here: str, root: str) -> int:
     return 0
 
 
+def ibwt_turn(torch, here: str, root: str) -> int:
+    """One turn of the anchored walk's and the running scans'
+    parent/change comparison, with the tpulc_torch package under `root`,
+    on the first 900,000 B bz block of pg1661 x 6, on pg1661 x 6 as one
+    4 MiB bsc -e1 block, and on the first 25 MiB block of the soup under
+    bsc -e1 (the blocks phases 3 and 9 hold the kernels on, and the one
+    between them): device ms (`device_ms`), ms (`time_ms`: the call
+    between two events, host time included, median of HOST_REPS), the
+    host's microseconds a call (`host_us`; for the scans also of the C
+    entry alone on the same array) and the sha256 of the output of
+    `running_max` / `running_min` on the four arrays that block's RLE2
+    scans (`rle2_arrays`), of `rotsort.bwt_decode_anchored` (bz) or
+    `masked.bwt_decode_masked_anchored` (soup) on its last column and
+    anchors (the LF map and the walk), and of the walk's wrapper alone
+    on that tree's LF map; the pointer chase's ns a load over the walk's
+    table of 8-byte entries, and of 4-byte ones where the tree has that
+    chase; where the tree has them, the walk at every lanes a warp
+    (`walk_sweep`) and the scans at every tile (`scan_tiles`)."""
+    smi, build_s = load_tree(root, before_build=lambda cl: sweep_start(
+        root, cl, "scan"))
+    from tpulc_torch import cuda_lib
+    from tpulc_torch.codecs.bwt import driver, masked, rotsort
+    from tpulc_torch.codecs.bwt import ibwt_kernels as ik
+    from tpulc_torch.pipeline.registry import get_codec
+    from tpulc_torch.primitives import scan_kernels as sk
+
+    four = hasattr(cuda_lib.library(), "tplc_pointer_chase4")
+    bsc = get_codec("bsc")
+    out = {"root": root, "card": smi, "build_s": build_s, "device_ms": {},
+           "ms": {}, "host_us": {}, "sha256": {}, "chase_ns": {}}
+    keep_enc = {(RLE_MOD, "running_max"): 2, (RLE_MOD, "running_min"): 1}
+    rot = ("tpulc_torch.codecs.bwt.rotsort", "anchored_walk")
+    msk = ("tpulc_torch.codecs.bwt.masked", "anchored_walk")
+    cells = (("bz", partial(driver.compress, corpus(here)[:BLOCK],
+                            block_size=BLOCK, device="cuda"),
+              partial(driver.decompress, device="cuda"), rot),
+             ("pg", partial(bsc.compress, corpus(here), block_size=BSC_BLOCK,
+                            device="cuda"),
+              partial(bsc.decompress, device="cuda"), msk),
+             ("soup", partial(bsc.compress, soup(SOUP_SIZE)[:SOUP_BLOCK],
+                              block_size=SOUP_BLOCK, device="cuda"),
+              partial(bsc.decompress, device="cuda"), msk))
+    for label, compress, decompress, site in cells:
+        comp, _, enc = stage_calls(compress, keep_enc)
+        _, _, dec = stage_calls(lambda: decompress(comp), {
+            (RLE_MOD, "running_max"): 1, site: 1})
+        arrays = rle2_arrays(enc, dec)
+        _, last, anchors, n, S, cap = dec[site][0][0]
+        if site == rot:
+            T = rotsort._lf_map(last)
+            inverse = partial(rotsort.bwt_decode_anchored, last, anchors, S)
+        else:
+            T = masked._lf_map(last, n)
+            inverse = partial(masked.bwt_decode_masked_anchored, last, n,
+                              anchors, S)
+        args = (T, last, anchors, n, S, cap)
+        fns = [(f"{name}_{where}_{label}", partial(getattr(sk, name), x, rev))
+               for name, x, rev, where in arrays]
+        fns += [(f"inverse_{label}", inverse),
+                (f"walk_{label}", partial(ik.anchored_walk, *args))]
+        for key, fn in fns:
+            got = fn().contiguous().cpu().numpy()
+            out["sha256"][key] = hashlib.sha256(got.tobytes()).hexdigest()
+            out["device_ms"][key] = device_ms(torch, fn)
+            out["ms"][key] = time_ms(torch, fn, reps=HOST_REPS)
+            out["host_us"][key] = host_us(torch, fn)
+        name, x, rev, where = arrays[0]
+        out["host_us"][f"{name}_{where}_{label}_c_entry"] = host_us(
+            torch, scan_entry(torch, cuda_lib, x, name == "running_max",
+                              rev))
+        out["chase_ns"][f"8_{label}"] = chase_ns(torch, cuda_lib, cap)
+        if four:
+            out["chase_ns"][f"4_{label}"] = chase_ns(torch, cuda_lib, cap,
+                                                     width=4)
+            out[f"walk_lanes_per_warp_{label}"] = walk_sweep(
+                torch, cuda_lib, args)
+        out[f"scan_tiles_{label}"] = scan_tiles(torch, cuda_lib,
+                                                sweep(root, "scan"), arrays)
+        del comp, enc, dec, arrays, fns
+    print(smi)
+    print(json.dumps({"ibwt": out}), flush=True)
+    return 0
+
+
 class _Stop(Exception):
     pass
 
@@ -1486,6 +1690,8 @@ SWEEPS = {
     "rans_ctx": ("TPLC_RANS_SWEEP", {
         "tplc_rans_encode_sweep": "p" * 7 + "i" * 6 + "pp",
         "tplc_rans_decode_sweep": "p" * 7 + "i" * 7 + "pp"}),
+    "scan": ("TPLC_SCAN_SWEEP", {
+        "tplc_running_scan_sweep": "ppp" + "i" * 5 + "p"}),
 }
 
 
@@ -2574,8 +2780,8 @@ def bsc_e1_phase(torch, here: str, kernels: list) -> None:
             rans, "rans_decode_walk", lambda: decompress(comp[0])), keep_dec)
         entries = check_kernels(torch, rans_checks(rans, enc, dec, suffix))
         if suffix:
-            stage_line, stage_all = stage_checks(torch, cuda_lib, s_enc,
-                                                 s_dec, suffix)
+            stage_line, stage_all = stage_checks(torch, cuda_lib, here,
+                                                 s_enc, s_dec, suffix)
             print(json.dumps({f"bwt_stage_kernels_{label}": stage_all}),
                   flush=True)
             entries += stage_line

@@ -1060,7 +1060,8 @@ def test_cuckoo_table_on_card(cuda):
 
 # ---------------------------------------------- running max/min scans
 
-SCAN_SIZES = [1, 2, 3, 4095, 4096, 4097, 8191, 8193, 4096 * 1024 + 5]
+SCAN_SIZES = [1, 2, 3, 4095, 4096, 4097, 8191, 8193, 4096 * 1024 + 5,
+              8192 * 600 + 3]
 
 
 def _scan_input(kind, n, dtype):
@@ -1087,9 +1088,11 @@ def _scan_input(kind, n, dtype):
 @pytest.mark.parametrize("n", SCAN_SIZES)
 def test_running_scans_equal_plain(cuda, n, dtype, reverse):
     """Both kernels equal their plain versions across tile boundaries
-    (4,096 elements a tile; the last size needs 1,025 tiles, more than
-    the carry scan's 1,024 threads), on an aligned tensor and on a view
-    that is not 16-byte aligned; one launch a call."""
+    (2,048 elements a tile up to 4096 x 1024 + 5, 2,049 tiles, so the
+    look-back slides over several windows of 128; 8,192 at the last
+    size, 601 tiles),
+    on an aligned tensor and on a view that is not 16-byte aligned; one
+    launch a call."""
     from tpulc_torch.primitives import scan_kernels as sk
 
     for kind in ("random", "equal", "increasing", "decreasing",
@@ -1105,6 +1108,29 @@ def test_running_scans_equal_plain(cuda, n, dtype, reverse):
                 assert kern.launches == before + 1
                 assert got.dtype == x.dtype
                 assert torch.equal(got.cpu(), want), (kind, kern.__name__)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_running_scans_called_50_times_equal_plain(cuda, reverse):
+    """Both scans called 50 times in a row on 2^22 + 17 int64 elements
+    (2,049 tiles of 2,048 whose blocks race through the look-back), each
+    output equal to the plain version: a torn or early read of a tile's
+    status word would show as a wrong prefix in some call."""
+    from tpulc_torch.primitives import scan_kernels as sk
+
+    n = (1 << 22) + 17
+    rng = np.random.default_rng(17 + reverse)
+    x = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, n))
+    xc = x.to(cuda)
+    for kern, plain in ((sk.running_max, sk.running_max_plain),
+                        (sk.running_min, sk.running_min_plain)):
+        want = plain(x, reverse).to(cuda)
+        before = kern.launches
+        outs = [kern(xc, reverse) for _ in range(50)]
+        torch.cuda.synchronize()
+        assert kern.launches == before + 50
+        for k, got in enumerate(outs):
+            assert torch.equal(got, want), (kern.__name__, k)
 
 
 def test_running_scans_empty_and_refused_on_card(cuda):
@@ -1176,7 +1202,8 @@ def test_anchored_walk_at_every_lanes_per_warp(cuda, lpw):
     """Every lanes a warp the kernel can pick writes the plain walk's
     bytes, on a ragged stride-512 block and a masked stride-1,024 one
     (the C entry point, which takes the lanes a warp; the wrapper lets
-    the kernel pick), and 3 lanes a warp is refused."""
+    the kernel pick), with int32 and int64 anchors; 3 lanes a warp and
+    2-byte anchors are refused."""
     from tpulc_torch import cuda_lib
     from tpulc_torch.codecs.bwt import ibwt_kernels as ik
     from tpulc_torch.codecs.bwt import masked as pm
@@ -1189,18 +1216,23 @@ def test_anchored_walk_at_every_lanes_per_warp(cuda, lpw):
             torch.from_numpy(padded), n, S)
         assert ok
         T = pm._lf_map(last, n)
+        assert T.dtype == torch.int32   # the 4-byte entry
         want = ik.anchored_walk_plain(T, last, anchors, n, S, cap)
         Tc, lc = T.to(cuda), last.to(cuda)
-        ac = anchors.to(torch.int32).to(cuda)
-        tl, out = torch.empty_like(Tc), torch.zeros_like(lc)
-        for w in (lpw, 3):
-            err = lib.tplc_anchored_walk(
-                Tc.data_ptr(), lc.data_ptr(), tl.data_ptr(), ac.data_ptr(),
-                out.data_ptr(), n, S, cap, -(-n // S), w,
-                cuda_lib.stream_of(Tc))
-            assert (err == 0) == (w == lpw)
-        torch.cuda.synchronize()
-        assert torch.equal(out.cpu(), want)
+        counts = torch.empty(256, dtype=torch.int32, device=cuda)
+        for dtype in (torch.int32, torch.int64):
+            ac = anchors.to(dtype).to(cuda)
+            out = torch.full_like(lc, 0xAB)
+            for w, width in ((lpw, ac.element_size()), (3, 8), (lpw, 2)):
+                err = lib.tplc_anchored_walk(
+                    Tc.data_ptr(), lc.data_ptr(), counts.data_ptr(),
+                    ac.data_ptr(), width, out.data_ptr(), n, S, cap,
+                    -(-n // S), w, cuda_lib.stream_of(Tc))
+                assert (err == 0) == (w == lpw and width != 2)
+            torch.cuda.synchronize()
+            assert torch.equal(out.cpu(), want)
+            assert torch.equal(counts.cpu(), torch.bincount(
+                last[:n].long(), minlength=256).to(torch.int32))
 
 
 def test_anchored_walk_on_real_blocks(cuda):
@@ -1236,7 +1268,8 @@ def test_anchored_walk_on_real_blocks(cuda):
 
 def test_anchored_walk_refuses_and_survives_bad_anchors(cuda):
     """Too few anchors raise; an anchor past the table (a corrupt
-    payload) reads nothing and writes zeros over its lane."""
+    payload), as int32 or as an int64 whose low 32 bits name a row,
+    reads nothing and writes zeros over its lane."""
     from tpulc_torch.codecs.bwt import ibwt_kernels as ik
     from tpulc_torch.codecs.bwt import rotsort as prot
 
@@ -1247,12 +1280,39 @@ def test_anchored_walk_refuses_and_survives_bad_anchors(cuda):
     lc, ac = last.to(cuda), anchors.to(cuda)
     with pytest.raises(ValueError):
         ik.anchored_walk(T, lc, ac[:-1], 3000, 512, 3000)
-    bad = ac.clone()
-    bad[1] = 1 << 30
-    out = ik.anchored_walk(T, lc, bad, 3000, 512, 3000).cpu().numpy()
-    torch.cuda.synchronize()
     lane1 = slice(3000 - 2 * 512, 3000 - 512)
-    assert not out[lane1].any()
     keep = np.ones(3000, bool)
     keep[lane1] = False
-    assert np.array_equal(out[keep], data[keep])
+    for wide, row in ((ac, 1 << 30), (ac.long(), (1 << 32) + int(ac[0]))):
+        bad = wide.clone()
+        bad[1] = row
+        out = ik.anchored_walk(T, lc, bad, 3000, 512, 3000).cpu().numpy()
+        torch.cuda.synchronize()
+        assert not out[lane1].any()
+        assert np.array_equal(out[keep], data[keep])
+
+
+def test_anchored_walk_zeroes_lanes_anchored_in_the_padding(cuda):
+    """The anchor contract on a masked block (cap > n): an anchor in [n,
+    cap), a padding row with no byte in C, reads nothing and writes
+    zeros over its lane, as does a negative one, equal to the plain
+    walk; the other lanes give the block back."""
+    from tpulc_torch.codecs.bwt import ibwt_kernels as ik
+    from tpulc_torch.codecs.bwt import masked as pm
+
+    S, n, cap = 512, 2_000, 3_000
+    padded = np.zeros(cap, np.uint8)
+    padded[:n] = _walk_block("pg1661", n)
+    last, _, anchors, _ = pm.bwt_encode_masked_anchored(
+        torch.from_numpy(padded), n, S)
+    T = pm._lf_map(last, n)
+    for a_dtype in (torch.int32, torch.int64):
+        bad = anchors.to(a_dtype).clone()
+        bad[1], bad[2], bad[3] = n, -1, cap - 1
+        want = _walk_equal(T, last, bad, n, S, cap, cuda).numpy()
+        keep = np.ones(cap, bool)
+        for j in (1, 2, 3):
+            run = slice(max(n - (j + 1) * S, 0), n - j * S)
+            assert not want[run].any()
+            keep[run] = False
+        assert np.array_equal(want[keep], padded[keep])

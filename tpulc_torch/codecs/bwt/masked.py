@@ -139,12 +139,12 @@ def bwt_encode_masked_anchored(data: torch.Tensor, n: int,
 
 
 def _lf_map(last: torch.Tensor, n: int) -> torch.Tensor:
-    """LF successor map int64[cap] over the valid prefix (padding rows
+    """LF successor map int32[cap] over the valid prefix (padding rows
     map to themselves)."""
     cap = last.shape[0]
-    idx = torch.arange(cap, device=last.device)
+    idx = torch.arange(cap, dtype=torch.int32, device=last.device)
     real = idx < n
-    sym = torch.where(real, last.to(torch.int64), 256 + idx)
+    sym = torch.where(real, last.to(torch.int32), 256 + idx)
     order = torch.sort(sym, stable=True).indices
     return torch.where(real, _scatter_perm(order, idx), idx)
 

@@ -184,10 +184,12 @@ def bwt_encode_anchored(data: torch.Tensor, anchor_stride: int = 1024):
 
 
 def _lf_map(last: torch.Tensor) -> torch.Tensor:
-    """LF map T[j] = C[L[j]] + occ(L[j], j) as int64[n]."""
+    """LF map T[j] = C[L[j]] + occ(L[j], j) as int32[n] (the walk's
+    table entry)."""
     n = last.shape[0]
     order = torch.sort(last.to(torch.int32), stable=True).indices
-    return _scatter_perm(order, torch.arange(n, device=last.device))
+    return _scatter_perm(order, torch.arange(n, dtype=torch.int32,
+                                             device=last.device))
 
 
 def bwt_decode_anchored(last: torch.Tensor, anchors: torch.Tensor,

@@ -13,110 +13,197 @@
 // 25 MiB block).
 //
 // The function: lane j (j*S < n) starts at row anchors[j] and takes
-// min(S, n - j*S) LF steps; step t reads the packed entry TL[p] =
-// T[p] | last[p] << 32, writes the byte last[p] to out[n-1-j*S-t] and
-// moves to p = T[p].  So each lane fills a contiguous run of out,
-// going downwards.
+// min(S, n - j*S) LF steps; step t writes the byte last[p] to
+// out[n-1-j*S-t] and moves to p = T[p].  So each lane fills a
+// contiguous run of out, going downwards.  A lane whose anchor is not
+// a row of [0, n) (a corrupt payload) reads nothing and writes zeros.
 //
 // Bound on the H100: the chain of S dependent loads of a lane, one
-// load's latency each (L2 for a bz block's 7.2 MB table, device memory
-// for a 25 MiB block's 210 MB one); the n reads move n 32-byte sectors.
-// Design: one thread a lane, and few lanes a warp: a warp's step waits
-// for the slowest of its lanes' loads, so a warp carries the fewest
-// lanes (a power of two, 1 to 32) that still fit every lane's warp in
-// kWalkWarpsPerSm warps an SM (1 lane a warp at bz's 1,758 lanes, 8 at a
-// 25 MiB block's 25,600 on 132 SMs); the other threads of the warp
-// exit.  A step is one 8-byte load of the packed entry (the byte rides
-// with the successor), which a first launch (`pack_kernel`) writes from
-// T and last in one pass: 17 bytes an entry, where three torch
-// elementwise ops moved ~45.  The bytes gather in a register, 8 at a time,
-// and leave as one aligned 8-byte store; the partial words at the ends
-// of a lane's run, which it may share with its neighbour lane, leave
-// byte by byte.  No [S, R] matrix, no
-// transpose, flip or slice.  A lane whose anchor is not a row of the
-// table (a corrupt payload) writes zeros and reads nothing.
+// load's latency each (L2 for a bz block's table, device memory for
+// most of a 25 MiB block's); the n reads move n 32-byte sectors.
 //
-// `pointer_chase_kernel` is the measurement that prices one step: one
-// thread follows `steps` dependent loads of a table of 8-byte entries
-// (chip_smoke.py gives it a random cycle of the walk's table size).
+// Design.
+// - A table entry is the successor row alone, T[p] as a uint32 (3.6 MB
+//   at bz, 105 MB at a 25 MiB block, half the 8-byte T | last << 32 of
+//   the first design; the 50 MB L2 holds about half of the larger).
+//   The byte is recovered from the successor: T is a stable LF map,
+//   T[p] = C[L[p]] + occ(L[p], p) with C the cumulative byte counts of
+//   last[:n], so L[p] is the c with C[c] <= T[p] < C[c+1].  The search
+//   runs over C in shared memory: 15 compares against C[16], ..., C[240]
+//   held in registers pick 16 candidates, 4 halving steps over shared
+//   memory pick one.  Every row in [0, n) maps into [0, n), so the
+//   search never sees a padding row.
+// - The next load first: a step issues the load of the next entry,
+//   T[e], as soon as e arrives, then searches e's byte, shifts it into
+//   the word and stores; so the search rides under the load and stays
+//   off the dependent chain.  Each lane makes one load past its last
+//   step (a row of [0, n), never outside the table).  In the compiled
+//   word loop (cuobjdump -sass, CUDA 12.8) the first step's load issues
+//   at 0x0fe0 (int32 anchors; 0x1050 with int64); compares of its
+//   search, which need only e, fill the wait; the next step's load,
+//   which waits only on the first, issues at 0x10b0 (0x1140), before
+//   the rest of the search; each later load of the eight sits among
+//   the earlier steps' compares and shared-memory reads.
+// - The bytes gather in a register, 8 at a time, and leave as one
+//   aligned 8-byte store; the partial words at the ends of a lane's
+//   run, which it may share with its neighbour lane, leave byte by
+//   byte.
+// - The counts: a first launch (`count_kernel`) reads last[:n] once
+//   (16 bytes a thread a round, a shared histogram a warp) into 256
+//   global counts that one cudaMemsetAsync cleared; it also writes the
+//   zeros of out[n, cap).  Each walk block turns the counts into C in
+//   shared memory (one warp's scan).  1 byte read an entry, where the
+//   first design's packing read 9 and wrote 8.
+// - Lanes: one thread a lane, and few lanes a warp: a warp's step waits
+//   for the slowest of its lanes' loads, so a warp carries the fewest
+//   lanes (a power of two, 2 to 32) that still fit every lane's warp in
+//   kWalkWarpsPerSm warps an SM; the other threads of the warp exit
+//   after the block has built C.  chip_smoke.py's `walk_sweep` measured
+//   every choice at both shapes on an H100: at bz (1,758 lanes, the
+//   table in L2) 2 lanes a warp beat 1 by ~16 % (a step's ~55 issued
+//   instructions, not its load, set the pace of 13 one-lane warps an
+//   SM), and at a 25 MiB block (25,596 lanes) 8 was best, as in the
+//   first design.  At pg1661 x 6's 4 MiB bsc block (581 lanes, 4 warps
+//   an SM) 1 beats the pick of 2 by ~2 %, not worth a second rule.
+//
+// `pointer_chase_kernel` and `pointer_chase4_kernel` are the
+// measurements that price one step: one thread follows `steps`
+// dependent loads of a table of 8-byte (the first design's entry) or
+// 4-byte entries (chip_smoke.py gives each a random cycle of the walk's
+// table size).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
 constexpr int kWalkWarps = 4;   // a block
 constexpr int kWalkThreads = 32 * kWalkWarps;
 constexpr int kWalkWarpsPerSm = 32;
+constexpr int kCountThreads = 256;
+constexpr int kCountWarps = kCountThreads / 32;
 
 bool known_lanes_per_warp(int lpw) {
   return lpw >= 1 && lpw <= 32 && (lpw & (lpw - 1)) == 0;
 }
 
-// the fewest lanes a warp (a power of two) whose warps fit in
-// kWalkWarpsPerSm an SM, else 32; -1 if the card does not answer
-int walk_lanes_per_warp(int nlanes) {
+// the current card's SM count, read once a device (-1 if the card does
+// not answer): the count launch's grid and the lanes a warp use it on
+// every call
+int sm_count() {
+  static std::atomic<int> cached[64];   // 0: not read yet
   int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (dev < 64 && (sms = cached[dev].load(std::memory_order_relaxed)) > 0)
+    return sms;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
     return -1;
-  int lpw = 1;
+  if (dev < 64) cached[dev].store(sms, std::memory_order_relaxed);
+  return sms;
+}
+
+// the fewest lanes a warp (a power of two, at least 2) whose warps fit
+// in kWalkWarpsPerSm an SM, else 32; -1 if the card does not answer
+int walk_lanes_per_warp(int nlanes) {
+  const int sms = sm_count();
+  if (sms < 0) return -1;
+  int lpw = 2;
   while (lpw < 32 && (nlanes + lpw - 1) / lpw >
                          static_cast<long long>(sms) * kWalkWarpsPerSm)
     lpw *= 2;
   return lpw;
 }
 
-__device__ __forceinline__ void flush(uint8_t* __restrict__ out,
-                                      uint64_t word, long long pos,
-                                      long long lo, long long hi) {
-  // word holds the bytes of out[w, w + 8), w = pos & ~7, from pos up to
-  // the lane's end hi; [lo, hi) is the lane's run
-  const long long w = pos & ~7LL;
-  if (w >= lo && w + 8 <= hi) {
-    *reinterpret_cast<uint64_t*>(out + w) = word;
-  } else {
-    const long long end = hi < w + 8 ? hi : w + 8;
-    for (long long q = pos; q < end; ++q)
-      out[q] = static_cast<uint8_t>(word >> (8 * (q - w)));
-  }
-}
-
-// tl[i] = T[i] | last[i] << 32, a thread 8 entries a round (16-byte
-// loads of T, an 8-byte load of last) while whole groups of 8 remain
-constexpr int kPackThreads = 256;
-
-__global__ void __launch_bounds__(kPackThreads)
-    pack_kernel(const uint64_t* __restrict__ T,
-                const uint8_t* __restrict__ last, uint64_t* __restrict__ tl,
-                long long cap, bool aligned) {
-  const long long stride =
-      static_cast<long long>(gridDim.x) * kPackThreads * 8;
-  for (long long i = (static_cast<long long>(blockIdx.x) * kPackThreads +
-                      threadIdx.x) * 8;
-       i < cap; i += stride) {
-    if (aligned && i + 8 <= cap) {
-      const uint64_t b = *reinterpret_cast<const uint64_t*>(last + i);
+// counts[c] += the c bytes of last[0, n) (a shared histogram a warp,
+// 16-byte loads a thread where whole aligned groups remain); zeros over
+// out[n, cap)
+__global__ void __launch_bounds__(kCountThreads)
+    count_kernel(const uint8_t* __restrict__ last, int n,
+                 uint32_t* __restrict__ counts, uint8_t* __restrict__ out,
+                 int cap, bool aligned) {
+  __shared__ uint32_t hist[kCountWarps][256];
+  const int warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < kCountWarps * 256; i += kCountThreads)
+    (&hist[0][0])[i] = 0;
+  __syncthreads();
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * kCountThreads + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kCountThreads;
+  uint32_t* h = hist[warp];
+  for (long long i = tid * 16; i < n; i += stride * 16) {
+    if (aligned && i + 16 <= n) {
+      const uint4 v = *reinterpret_cast<const uint4*>(last + i);
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int k = 0; k < 8; k += 2) {
-        ulonglong2 t = *reinterpret_cast<const ulonglong2*>(T + i + k);
-        t.x |= ((b >> (8 * k)) & 0xff) << 32;
-        t.y |= ((b >> (8 * (k + 1))) & 0xff) << 32;
-        *reinterpret_cast<ulonglong2*>(tl + i + k) = t;
-      }
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          atomicAdd(&h[(w[k] >> (8 * b)) & 0xff], 1u);
     } else {
-      for (long long q = i; q < cap && q < i + 8; ++q)
-        tl[q] = T[q] | static_cast<uint64_t>(last[q]) << 32;
+      for (long long q = i; q < n && q < i + 16; ++q)
+        atomicAdd(&h[last[q]], 1u);
     }
   }
+  for (long long q = n + tid; q < cap; q += stride) out[q] = 0;
+  __syncthreads();
+  for (int c = threadIdx.x; c < 256; c += kCountThreads) {
+    uint32_t s = 0;
+#pragma unroll
+    for (int w = 0; w < kCountWarps; ++w) s += hist[w][c];
+    if (s) atomicAdd(&counts[c], s);
+  }
 }
 
+// the byte of the row whose successor is e: the c with C[c] <= e <
+// C[c+1]; c16[i] = C[16 (i + 1)]
+__device__ __forceinline__ uint32_t byte_of(uint32_t e,
+                                            const uint32_t (&c16)[15],
+                                            const uint32_t* __restrict__ C) {
+  uint32_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 15; ++i) c += c16[i] <= e ? 16u : 0u;
+#pragma unroll
+  for (uint32_t s = 8; s >= 1; s >>= 1)
+    if (C[c + s] <= e) c += s;
+  return c;
+}
+
+template <typename A>   // the anchors' type: int32_t or int64_t
 __global__ void __launch_bounds__(kWalkThreads)
-    anchored_walk_kernel(const uint64_t* __restrict__ tl,
-                         const int32_t* __restrict__ anchors,
-                         uint8_t* __restrict__ out, int n, int S, int cap,
+    anchored_walk_kernel(const uint32_t* __restrict__ T,
+                         const uint32_t* __restrict__ counts,
+                         const A* __restrict__ anchors,
+                         uint8_t* __restrict__ out, int n, int S,
                          int nlanes, int lpw) {
+  __shared__ uint32_t C[257];
+  if (threadIdx.x < 32) {
+    // C[c] = counts[0, c): lane l sums counts[8l, 8l + 8), the warp
+    // scans the sums
+    const int l = threadIdx.x;
+    uint32_t v[8], s = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      v[k] = counts[8 * l + k];
+      s += v[k];
+    }
+    uint32_t inc = s;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t o = __shfl_up_sync(0xffffffffu, inc, d);
+      if (l >= d) inc += o;
+    }
+    uint32_t run = inc - s;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      C[8 * l + k] = run;
+      run += v[k];
+    }
+    if (l == 31) C[256] = run;
+  }
+  __syncthreads();
   const int l = threadIdx.x & 31;
   const long long lane = (static_cast<long long>(blockIdx.x) * kWalkWarps +
                           (threadIdx.x >> 5)) * lpw + l;
@@ -124,24 +211,40 @@ __global__ void __launch_bounds__(kWalkThreads)
   const int j = static_cast<int>(lane);
   const long long hi = static_cast<long long>(n) -
                        static_cast<long long>(j) * S;
-  const int steps = hi < S ? static_cast<int>(hi) : S;
-  const long long lo = hi - steps;
-  uint32_t p = static_cast<uint32_t>(anchors[j]);
-  const bool bad = p >= static_cast<uint32_t>(cap);
-  uint64_t word = 0;
-  for (int t = 0; t < steps; ++t) {
-    const long long pos = hi - 1 - t;
-    uint64_t b = 0;
-    if (!bad) {
-      const uint64_t e = __ldg(tl + p);
-      p = static_cast<uint32_t>(e);
-      b = (e >> 32) & 0xff;
+  const long long lo = hi - (hi < S ? hi : S);
+  const long long a = anchors[j];
+  long long pos = hi;   // the next byte goes to out[pos - 1]
+  if (a < 0 || a >= n) {
+    for (; pos > lo; --pos) out[pos - 1] = 0;
+    return;
+  }
+  const uint32_t p = static_cast<uint32_t>(a);
+  uint32_t c16[15];
+#pragma unroll
+  for (int i = 0; i < 15; ++i) c16[i] = C[16 * (i + 1)];
+  uint32_t e = __ldg(T + p);
+  // the head: byte by byte up to an 8-byte boundary
+  for (; pos > lo && (pos & 7) != 0; --pos) {
+    const uint32_t nx = __ldg(T + e);
+    out[pos - 1] = static_cast<uint8_t>(byte_of(e, c16, C));
+    e = nx;
+  }
+  // whole words, the step writing out[pos - 1] first (the word's top byte)
+  for (; pos - 8 >= lo; pos -= 8) {
+    uint64_t word = 0;
+#pragma unroll
+    for (int k = 7; k >= 0; --k) {
+      const uint32_t nx = __ldg(T + e);
+      word |= static_cast<uint64_t>(byte_of(e, c16, C)) << (8 * k);
+      e = nx;
     }
-    word |= b << (8 * (pos & 7));
-    if ((pos & 7) == 0 || t == steps - 1) {
-      flush(out, word, pos, lo, hi);
-      word = 0;
-    }
+    *reinterpret_cast<uint64_t*>(out + pos - 8) = word;
+  }
+  // the tail, byte by byte
+  for (; pos > lo; --pos) {
+    const uint32_t nx = __ldg(T + e);
+    out[pos - 1] = static_cast<uint8_t>(byte_of(e, c16, C));
+    e = nx;
   }
 }
 
@@ -158,6 +261,14 @@ __global__ void pointer_chase_kernel(const uint64_t* __restrict__ table,
   *sink = acc + p;
 }
 
+__global__ void pointer_chase4_kernel(const uint32_t* __restrict__ table,
+                                      int start, int steps,
+                                      uint64_t* __restrict__ sink) {
+  uint32_t p = static_cast<uint32_t>(start);
+  for (int t = 0; t < steps; ++t) p = __ldg(table + p);
+  *sink = p;
+}
+
 }  // namespace
 
 // The lanes a warp the walk picks for nlanes lanes on the current card
@@ -167,44 +278,51 @@ extern "C" int tplc_anchored_walk_lanes(int nlanes) {
   return lpw > 0 ? lpw : -static_cast<int>(cudaGetLastError());
 }
 
-// T: int64[cap], the LF map (T < cap); last: uint8[cap]; tl: int64[cap]
-// scratch for the packed entries T | last << 32, written here, or, if T
-// is nullptr, already packed; anchors: int32[>= nlanes]; out: uint8[cap],
-// of which this writes [0, n) (the caller zeroes the rest); nlanes =
-// ceil(n / S); out 8-byte aligned; lanes_per_warp a power of two up to
-// 32, or 0 for the walk's own pick
-extern "C" int tplc_anchored_walk(const void* T, const void* last, void* tl,
-                                  const void* anchors, void* out, int n,
-                                  int S, int cap, int nlanes,
-                                  int lanes_per_warp, void* stream) {
+// T: int32[cap], the LF map (T[:n] a permutation of [0, n)); last:
+// uint8[cap]; counts: int32[256] scratch for the byte counts of
+// last[:n], cleared and counted here; anchors: >= nlanes entries of
+// anchor_bytes (4: int32, 8: int64); out: uint8[cap], 8-byte aligned;
+// nlanes = ceil(n / S); lanes_per_warp a power of two up to 32, or 0
+// for the walk's own pick.  One cudaMemsetAsync and two kernel launches.
+extern "C" int tplc_anchored_walk(const void* T, const void* last,
+                                  void* counts, const void* anchors,
+                                  int anchor_bytes, void* out, int n, int S,
+                                  int cap, int nlanes, int lanes_per_warp,
+                                  void* stream) {
   if (n < 0 || S < 1 || cap < n || nlanes < 0 ||
       static_cast<long long>(nlanes) * S < n ||
+      (anchor_bytes != 4 && anchor_bytes != 8) ||
       reinterpret_cast<uintptr_t>(out) % 8 != 0 ||
       (lanes_per_warp != 0 && !known_lanes_per_warp(lanes_per_warp)))
     return static_cast<int>(cudaErrorInvalidValue);
+  auto* s = static_cast<cudaStream_t>(stream);
+  const int sms = sm_count();
+  if (sms < 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaMemsetAsync(counts, 0, 256 * sizeof(uint32_t), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long work = (static_cast<long long>(cap) + 15) / 16;
+  const long long want = (work + kCountThreads - 1) / kCountThreads;
+  const int blocks = static_cast<int>(
+      want < 2LL * sms ? (want > 0 ? want : 1) : 2LL * sms);
+  count_kernel<<<blocks, kCountThreads, 0, s>>>(
+      static_cast<const uint8_t*>(last), n, static_cast<uint32_t*>(counts),
+      static_cast<uint8_t*>(out), cap,
+      reinterpret_cast<uintptr_t>(last) % 16 == 0);
   if (nlanes > 0) {
     const int lpw =
         lanes_per_warp ? lanes_per_warp : walk_lanes_per_warp(nlanes);
     if (lpw < 0) return static_cast<int>(cudaGetLastError());
-    auto* s = static_cast<cudaStream_t>(stream);
-    if (T != nullptr) {
-      const bool aligned = reinterpret_cast<uintptr_t>(T) % 16 == 0 &&
-                           reinterpret_cast<uintptr_t>(last) % 8 == 0 &&
-                           reinterpret_cast<uintptr_t>(tl) % 16 == 0;
-      const long long groups = (static_cast<long long>(cap) + 7) / 8;
-      const int blocks = static_cast<int>(
-          (groups + kPackThreads - 1) / kPackThreads < 4096
-              ? (groups + kPackThreads - 1) / kPackThreads
-              : 4096);
-      pack_kernel<<<blocks, kPackThreads, 0, s>>>(
-          static_cast<const uint64_t*>(T), static_cast<const uint8_t*>(last),
-          static_cast<uint64_t*>(tl), cap, aligned);
-    }
     const long long warps = (static_cast<long long>(nlanes) + lpw - 1) / lpw;
-    const int blocks = static_cast<int>((warps + kWalkWarps - 1) / kWalkWarps);
-    anchored_walk_kernel<<<blocks, kWalkThreads, 0, s>>>(
-        static_cast<const uint64_t*>(tl), static_cast<const int32_t*>(anchors),
-        static_cast<uint8_t*>(out), n, S, cap, nlanes, lpw);
+    const int grid = static_cast<int>((warps + kWalkWarps - 1) / kWalkWarps);
+    const auto* t = static_cast<const uint32_t*>(T);
+    const auto* c = static_cast<const uint32_t*>(counts);
+    auto* o = static_cast<uint8_t*>(out);
+    if (anchor_bytes == 8)
+      anchored_walk_kernel<<<grid, kWalkThreads, 0, s>>>(
+          t, c, static_cast<const int64_t*>(anchors), o, n, S, nlanes, lpw);
+    else
+      anchored_walk_kernel<<<grid, kWalkThreads, 0, s>>>(
+          t, c, static_cast<const int32_t*>(anchors), o, n, S, nlanes, lpw);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -216,6 +334,16 @@ extern "C" int tplc_pointer_chase(const void* table, int start, int steps,
   if (steps < 0) return static_cast<int>(cudaErrorInvalidValue);
   pointer_chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(table), start, steps,
+      static_cast<uint64_t*>(sink));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the same over 4-byte entries (each the next index), the walk's own
+extern "C" int tplc_pointer_chase4(const void* table, int start, int steps,
+                                   void* sink, void* stream) {
+  if (steps < 0) return static_cast<int>(cudaErrorInvalidValue);
+  pointer_chase4_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(table), start, steps,
       static_cast<uint64_t*>(sink));
   return static_cast<int>(cudaGetLastError());
 }

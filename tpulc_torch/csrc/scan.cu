@@ -13,35 +13,66 @@
 // on a 25 MiB bsc block, against a bytes bound of 2 x the input's bytes
 // over 3.35 TB/s (~4.3 us and ~0.125 ms in int64).
 //
-// Bound on the H100: bytes.  A max or min a element is no work.  Design:
-// three launches, tiles of kTile elements.
-//   1. each block reduces one tile to one value (`tile_reduce`);
-//   2. one block scans the tile values into each tile's carry-in, from
-//      the left (forward) or the right (reverse) (`carry_scan`);
-//   3. each block scans its tile again from its carry-in and writes it
-//      (`tile_scan`).
-// x is read twice and y written once: 3 passes over the bytes where the
-// bound counts 2.  A tile is kRounds rounds of kThreads threads x one
-// 16-byte vector (4 int32 or 2 int64): every load and store of a warp
-// covers 512 contiguous bytes, and a thread's kRounds loads are all in
-// flight before it computes.  A thread scans each of its vectors, a
-// warp the thread totals (shuffles), the block the warp totals of every
-// round through shared memory, in one pass for all rounds.  Reverse
-// reads the same addresses and combines in descending order: no flip.
-// An input of one tile runs launch 3 alone.  Inputs whose address is
-// not 16-byte aligned take scalar loads.
+// Bound on the H100: bytes.  A max or min a element is no work.
+// Design: one launch, a single pass with decoupled look-back (Merrill
+// and Garland, "Single-pass Parallel Prefix Scan with Decoupled
+// Look-back", NVIDIA, 2016); x is read once and y written once.
+// - A block takes the next tile from an atomic counter, so every tile
+//   before it (in scan order: from the left, or for reverse from the
+//   right) has started and none waits on a later one.
+// - It loads its tile (kRounds rounds of kThreads threads x one 16-byte
+//   vector: 4 int32 or 2 int64; every load and store of a warp covers
+//   512 contiguous bytes, and a thread's loads are all in flight before
+//   it computes), scans each vector, a warp the thread totals
+//   (shuffles), and the block the warp totals of every round through
+//   shared memory.
+// - One thread publishes the tile's aggregate, flag PARTIAL; one warp
+//   then looks back over the status words of the kWindow tiles before
+//   it (kLookPerLane a lane), waits until all are published, folds in
+//   their values, and stops at a window that holds an INCLUSIVE one,
+//   else slides kWindow tiles back.  Max and min are commutative and
+//   idempotent, so the order of the fold, and folding a tile that an
+//   inclusive value already covers, change nothing.  The thread
+//   publishes the tile's inclusive value, flag INCLUSIVE, and the block
+//   adds the prefix to its values and writes them.
+// - No torn reads: a tile's status is one 16-byte word, its value
+//   (widened to int64) and its flag, written by one 16-byte store and
+//   read by one 16-byte load (both relaxed, device scope), so a flag is
+//   never seen without its own value and a window costs one round trip
+//   to L2.  The first design read a flag and then its value: two round
+//   trips a window of 32, which at a bz block's 220 tiles cost more
+//   than the three launches it replaced.  The counter and the status
+//   words are cleared by one cudaMemsetAsync on the same stream.
+// - An input of one tile takes no counter, no status words and no
+//   memset.  Reverse reads the same addresses and combines in
+//   descending order: no flip.  Inputs whose address is not 16-byte
+//   aligned take scalar loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 4096;
-constexpr int kCarryThreads = 1024;
+// elements a tile: the larger of these where it still gives kTilesPerSm
+// tiles an SM, else the smaller.  chip_smoke.py's sweep on an H100,
+// int64, device ms over four turns: 2,048 best at a bz block's 900,096
+// elements (440 tiles), 0.0107-0.0120 against 0.0127-0.0144 at 4,096
+// and 0.0131-0.0150 at 8,192; level with 4,096 (two turns) on the
+// arrays of pg1661 x 6's one 4 MiB bsc block, 594,046 B after LZP
+// (0.0124-0.0129 against 0.0120-0.0139); 8,192 best
+// at a 25 MiB block's 26,214,400, 0.1912-0.1960 against 0.1975-0.2029
+// at 4,096 and 0.2207-0.2275 at 2,048.  4,096 (and 16,384) won at no
+// shape a path gives, so only the comparison build has them.
+constexpr int kTiles[] = {2048, 8192};
+constexpr int kTilesPerSm = 4;
 constexpr unsigned kFullMask = 0xffffffffu;
-static_assert(kTile % (kThreads * 4) == 0, "a tile is whole rounds of int32");
+constexpr uint64_t kPartial = 1, kInclusive = 2;   // 0: not yet published
+constexpr int kLookPerLane = 4;
+constexpr int kWindow = 32 * kLookPerLane;   // tiles a look-back round
 
 template <typename T>
 struct Lim;
@@ -73,6 +104,57 @@ struct alignas(16) Vec {
   static constexpr int kN = 16 / sizeof(T);
   T v[kN];
 };
+
+// ---- the status word: {value, flag}, one 16-byte access (device scope)
+struct alignas(16) Word {
+  int64_t value;
+  uint64_t flag;
+};
+__device__ __forceinline__ void store_word(Word* p, int64_t v, uint64_t f) {
+  asm volatile("st.relaxed.gpu.global.v2.u64 [%0], {%1, %2};" ::"l"(p),
+               "l"(v), "l"(f)
+               : "memory");
+}
+__device__ __forceinline__ Word load_word(const Word* p) {
+  Word w;
+  asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];"
+               : "=l"(w.value), "=l"(w.flag)
+               : "l"(p)
+               : "memory");
+  return w;
+}
+// ----
+
+// the look-back's state in the scratch: the tile counter (16 bytes),
+// then a status word a tile, all cleared by the memset
+struct Status {
+  uint32_t* counter;
+  Word* word;
+};
+
+// the current card's SM count, read once a device (-1 if the card does
+// not answer): the tile pick runs on every call, on the host
+int sm_count() {
+  static std::atomic<int> cached[64];   // 0: not read yet
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (dev < 64 && (sms = cached[dev].load(std::memory_order_relaxed)) > 0)
+    return sms;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return -1;
+  if (dev < 64) cached[dev].store(sms, std::memory_order_relaxed);
+  return sms;
+}
+
+long long scratch_bytes(long long ntiles) {
+  return ntiles > 1 ? 16 + 16 * ntiles : 0;
+}
+
+Status status_of(void* scratch) {
+  auto* b = static_cast<uint8_t*>(scratch);
+  return {reinterpret_cast<uint32_t*>(b), reinterpret_cast<Word*>(b + 16)};
+}
 
 // the tile's values: round r, element e of thread tid is x[base + (r *
 // kThreads + tid) * kN + e]; the identity past n
@@ -111,77 +193,66 @@ __device__ __forceinline__ T warp_scan(T a, int lane) {
   return a;
 }
 
-// 1. one value a tile
 template <typename T, bool kMax>
-__global__ void __launch_bounds__(kThreads)
-    tile_reduce(const T* __restrict__ x, T* __restrict__ agg, long long n,
-                bool aligned) {
+__device__ __forceinline__ T warp_reduce(T a) {
   using O = Op<T, kMax>;
-  constexpr int kN = Vec<T>::kN;
-  constexpr int kRounds = kTile / (kThreads * kN);
-  __shared__ T warp_red[kWarps];
-  Vec<T> v[kRounds];
-  load_tile<T, kMax, kRounds>(v, x, static_cast<long long>(blockIdx.x) * kTile,
-                              n, aligned);
-  T a = O::identity();
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r)
-#pragma unroll
-    for (int e = 0; e < kN; ++e) a = O::apply(a, v[r].v[e]);
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1)
     a = O::apply(a, __shfl_xor_sync(kFullMask, a, d));
-  if ((threadIdx.x & 31) == 0) warp_red[threadIdx.x >> 5] = a;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T t = warp_red[0];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) t = O::apply(t, warp_red[w]);
-    agg[blockIdx.x] = t;
-  }
+  return a;
 }
 
-// 2. carry[b] = the op over the tiles before b (forward: b' < b; reverse:
-// b' > b), the identity for the first; one block of kCarryThreads
-template <typename T, bool kMax, bool kRev>
-__global__ void __launch_bounds__(kCarryThreads)
-    carry_scan(const T* __restrict__ agg, T* __restrict__ carry, int ntiles) {
+// the op over every tile before `tile` (tile >= 1), by the calling
+// warp: windows of kWindow tiles, back to the first that holds an
+// inclusive value
+template <typename T, bool kMax>
+__device__ __forceinline__ T look_back(const Status& st, long long tile,
+                                      int lane) {
   using O = Op<T, kMax>;
-  constexpr int kW = kCarryThreads / 32;
-  __shared__ T warp_tot[kW];
-  __shared__ T run;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) run = O::identity();
-  for (int c = 0; c < ntiles; c += kCarryThreads) {
-    // logical index k = c + tid; tile kRev ? ntiles - 1 - k : k
-    const int k = c + threadIdx.x;
-    const int b = kRev ? ntiles - 1 - k : k;
-    const T a = k < ntiles ? agg[b] : O::identity();
-    const T inc = warp_scan<T, kMax, false>(a, lane);
-    if (lane == 31) warp_tot[warp] = inc;
-    __syncthreads();
-    T pre = run;
-    for (int w = 0; w < warp; ++w) pre = O::apply(pre, warp_tot[w]);
-    const T up = __shfl_up_sync(kFullMask, inc, 1);
-    const T excl = lane == 0 ? pre : O::apply(pre, up);
-    if (k < ntiles) carry[b] = excl;
-    __syncthreads();
-    if (threadIdx.x == kCarryThreads - 1) run = O::apply(excl, a);
-    __syncthreads();
+  T run = O::identity();
+  for (long long top = tile - 1;; top -= kWindow) {
+    Word w[kLookPerLane];
+    bool wait;
+    do {
+      wait = false;
+#pragma unroll
+      for (int k = 0; k < kLookPerLane; ++k) {
+        const long long t = top - lane - 32 * k;
+        w[k] = t >= 0 ? load_word(st.word + t)
+                      : Word{static_cast<int64_t>(O::identity()), kInclusive};
+        wait |= w[k].flag == 0;
+      }
+    } while (__any_sync(kFullMask, wait));
+    bool inclusive = false;
+#pragma unroll
+    for (int k = 0; k < kLookPerLane; ++k) {
+      run = O::apply(run, static_cast<T>(w[k].value));
+      inclusive |= w[k].flag == kInclusive;
+    }
+    if (__any_sync(kFullMask, inclusive)) break;
   }
+  return warp_reduce<T, kMax>(run);
 }
 
-// 3. the tile scanned from its carry-in (carry == nullptr: the identity)
-template <typename T, bool kMax, bool kRev>
+template <typename T, bool kMax, bool kRev, int kTileN>
 __global__ void __launch_bounds__(kThreads)
-    tile_scan(const T* __restrict__ x, T* __restrict__ y,
-              const T* __restrict__ carry, long long n, bool aligned) {
+    scan_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
+                long long ntiles, Status st, bool aligned) {
   using O = Op<T, kMax>;
   constexpr int kN = Vec<T>::kN;
-  constexpr int kRounds = kTile / (kThreads * kN);
+  constexpr int kRounds = kTileN / (kThreads * kN);
+  static_assert(kTileN % (kThreads * 4) == 0, "whole rounds of int32");
   __shared__ T warp_tot[kRounds][kWarps];
+  __shared__ T s_prefix;
+  __shared__ long long s_tile;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long base = static_cast<long long>(blockIdx.x) * kTile;
+  long long tile = 0;
+  if (ntiles > 1) {
+    if (threadIdx.x == 0) s_tile = atomicAdd(st.counter, 1u);
+    __syncthreads();
+    tile = s_tile;
+  }
+  const long long base = (kRev ? ntiles - 1 - tile : tile) * kTileN;
   Vec<T> v[kRounds];
   load_tile<T, kMax, kRounds>(v, x, base, n, aligned);
   // each vector scanned in place; its total, then the warp's inclusive
@@ -203,10 +274,34 @@ __global__ void __launch_bounds__(kThreads)
     if (lane == (kRev ? 0 : 31)) warp_tot[r][warp] = inc[r];
   }
   __syncthreads();
-  // the carry into each round of this thread: the tile's carry-in, the
+  T pre = O::identity();
+  if (ntiles > 1) {
+    if (warp == 0) {
+      // the tile's aggregate: the op over every warp total of every round
+      T agg = O::identity();
+      for (int k = lane; k < kRounds * kWarps; k += 32)
+        agg = O::apply(agg, (&warp_tot[0][0])[k]);
+      agg = warp_reduce<T, kMax>(agg);
+      if (tile == 0) {
+        if (lane == 0) {
+          store_word(st.word, agg, kInclusive);
+          s_prefix = O::identity();
+        }
+      } else {
+        if (lane == 0) store_word(st.word + tile, agg, kPartial);
+        const T prefix = look_back<T, kMax>(st, tile, lane);
+        if (lane == 0) {
+          store_word(st.word + tile, O::apply(prefix, agg), kInclusive);
+          s_prefix = prefix;
+        }
+      }
+    }
+    __syncthreads();
+    pre = s_prefix;
+  }
+  // the carry into each round of this thread: the tiles before, the
   // rounds before (all warps), the warps before in this round, the
   // lanes before in this warp
-  T pre = carry != nullptr ? carry[blockIdx.x] : O::identity();
 #pragma unroll
   for (int q = 0; q < kRounds; ++q) {
     const int r = kRev ? kRounds - 1 - q : q;
@@ -238,42 +333,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, bool kMax, bool kRev>
+template <typename T, bool kMax, bool kRev, int kTileN>
 cudaError_t run(const void* xv, void* yv, void* scratch, long long n,
                 cudaStream_t s) {
   const T* x = static_cast<const T*>(xv);
   T* y = static_cast<T*>(yv);
-  const int ntiles = static_cast<int>((n + kTile - 1) / kTile);
+  const long long ntiles = (n + kTileN - 1) / kTileN;
   const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(y) % 16 == 0);
-  const T* carry = nullptr;
+  Status st{};
   if (ntiles > 1) {
-    T* agg = static_cast<T*>(scratch);
-    T* c = agg + ntiles;
-    tile_reduce<T, kMax><<<ntiles, kThreads, 0, s>>>(x, agg, n, aligned);
-    carry_scan<T, kMax, kRev><<<1, kCarryThreads, 0, s>>>(agg, c, ntiles);
-    carry = c;
+    st = status_of(scratch);
+    const cudaError_t e =
+        cudaMemsetAsync(scratch, 0, scratch_bytes(ntiles), s);
+    if (e != cudaSuccess) return e;
   }
-  tile_scan<T, kMax, kRev><<<ntiles, kThreads, 0, s>>>(x, y, carry, n,
-                                                       aligned);
+  scan_kernel<T, kMax, kRev, kTileN>
+      <<<static_cast<unsigned>(ntiles), kThreads, 0, s>>>(x, y, n, ntiles, st,
+                                                          aligned);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Elements of scratch (of x's type) that tplc_running_scan needs for n
-// elements: two a tile, none for one tile.
-extern "C" int tplc_running_scan_scratch(int n) {
-  const int ntiles = (n + kTile - 1) / kTile;
-  return ntiles > 1 ? 2 * ntiles : 0;
-}
-
-// y = the inclusive running max (is_max) or min of x[0..n), from the left
-// or (reverse) from the right; elem_bytes 4 (int32) or 8 (int64); x and y
-// of n elements, scratch of tplc_running_scan_scratch(n)
-extern "C" int tplc_running_scan(const void* x, void* y, void* scratch, int n,
-                                 int elem_bytes, int is_max, int reverse,
-                                 void* stream) {
+template <int kTileN>
+int dispatch(const void* x, void* y, void* scratch, int n, int elem_bytes,
+             int is_max, int reverse, void* stream) {
   if (n < 0 || (elem_bytes != 4 && elem_bytes != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
@@ -281,14 +364,83 @@ extern "C" int tplc_running_scan(const void* x, void* y, void* scratch, int n,
   const int key = (elem_bytes == 8) * 4 + (is_max != 0) * 2 + (reverse != 0);
   cudaError_t e;
   switch (key) {
-    case 0: e = run<int32_t, false, false>(x, y, scratch, n, s); break;
-    case 1: e = run<int32_t, false, true>(x, y, scratch, n, s); break;
-    case 2: e = run<int32_t, true, false>(x, y, scratch, n, s); break;
-    case 3: e = run<int32_t, true, true>(x, y, scratch, n, s); break;
-    case 4: e = run<int64_t, false, false>(x, y, scratch, n, s); break;
-    case 5: e = run<int64_t, false, true>(x, y, scratch, n, s); break;
-    case 6: e = run<int64_t, true, false>(x, y, scratch, n, s); break;
-    default: e = run<int64_t, true, true>(x, y, scratch, n, s); break;
+    case 0: e = run<int32_t, false, false, kTileN>(x, y, scratch, n, s); break;
+    case 1: e = run<int32_t, false, true, kTileN>(x, y, scratch, n, s); break;
+    case 2: e = run<int32_t, true, false, kTileN>(x, y, scratch, n, s); break;
+    case 3: e = run<int32_t, true, true, kTileN>(x, y, scratch, n, s); break;
+    case 4: e = run<int64_t, false, false, kTileN>(x, y, scratch, n, s); break;
+    case 5: e = run<int64_t, false, true, kTileN>(x, y, scratch, n, s); break;
+    case 6: e = run<int64_t, true, false, kTileN>(x, y, scratch, n, s); break;
+    default: e = run<int64_t, true, true, kTileN>(x, y, scratch, n, s); break;
   }
   return static_cast<int>(e);
 }
+
+// the scan at `tile` elements a tile: one of kTiles, or (in the
+// comparison build) 4,096 or 16,384
+int scan_at(int tile, const void* x, void* y, void* scratch, int n,
+            int elem_bytes, int is_max, int reverse, void* stream) {
+  switch (tile) {
+    case kTiles[0]:
+      return dispatch<kTiles[0]>(x, y, scratch, n, elem_bytes, is_max,
+                                 reverse, stream);
+    case kTiles[1]:
+      return dispatch<kTiles[1]>(x, y, scratch, n, elem_bytes, is_max,
+                                 reverse, stream);
+#ifdef TPLC_SCAN_SWEEP
+    case 4096:
+      return dispatch<4096>(x, y, scratch, n, elem_bytes, is_max, reverse,
+                            stream);
+    case 16384:
+      return dispatch<16384>(x, y, scratch, n, elem_bytes, is_max, reverse,
+                             stream);
+#endif
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// Bytes of scratch that tplc_running_scan needs for n elements (enough
+// for the smallest tile, so for every tile): none for one tile.
+extern "C" int tplc_running_scan_scratch(int n) {
+  return static_cast<int>(scratch_bytes((n + kTiles[0] - 1LL) / kTiles[0]));
+}
+
+// The elements a tile that tplc_running_scan takes for n elements on the
+// current card (a negative cudaError if the card does not answer).
+extern "C" int tplc_running_scan_tile(int n) {
+  const int sms = sm_count();
+  if (sms < 0) return -static_cast<int>(cudaGetLastError());
+  int tile = kTiles[0];
+  for (int t : kTiles)
+    if (static_cast<long long>(n) / t >=
+        static_cast<long long>(kTilesPerSm) * sms)
+      tile = t;
+  return tile;
+}
+
+// y = the inclusive running max (is_max) or min of x[0..n), from the left
+// or (reverse) from the right; elem_bytes 4 (int32) or 8 (int64); x and y
+// of n elements, scratch of tplc_running_scan_scratch(n) bytes, 16-byte
+// aligned.  One kernel launch, and one cudaMemsetAsync past one tile.
+extern "C" int tplc_running_scan(const void* x, void* y, void* scratch, int n,
+                                 int elem_bytes, int is_max, int reverse,
+                                 void* stream) {
+  const int tile = tplc_running_scan_tile(n);
+  return tile < 0 ? -tile
+                  : scan_at(tile, x, y, scratch, n, elem_bytes, is_max,
+                            reverse, stream);
+}
+
+#ifdef TPLC_SCAN_SWEEP
+// chip_smoke.py's comparison builds, never on the wrappers' path: the
+// same scan at a tile of 2,048, 4,096, 8,192 or 16,384 elements (scratch
+// of tplc_running_scan_scratch(n) bytes).
+extern "C" int tplc_running_scan_sweep(const void* x, void* y, void* scratch,
+                                       int n, int elem_bytes, int is_max,
+                                       int reverse, int tile, void* stream) {
+  return scan_at(tile, x, y, scratch, n, elem_bytes, is_max, reverse, stream);
+}
+#endif

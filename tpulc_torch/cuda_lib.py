@@ -54,10 +54,12 @@ _SIGNATURES = {
     "tplc_abc_encode_lanes": [_I],
     "tplc_abc_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tplc_running_scan_scratch": [_I],
+    "tplc_running_scan_tile": [_I],
     "tplc_running_scan": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tplc_anchored_walk_lanes": [_I],
-    "tplc_anchored_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tplc_anchored_walk": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "tplc_pointer_chase": [_P, _I, _I, _P, _P],
+    "tplc_pointer_chase4": [_P, _I, _I, _P, _P],
 }
 
 _lib: types.SimpleNamespace | None = None

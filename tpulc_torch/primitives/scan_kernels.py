@@ -59,8 +59,9 @@ def _launch(x: torch.Tensor, is_max: bool, reverse: bool, name: str):
     n = x.shape[0]
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
+        # the look-back's counter, flags and tile values (bytes)
         scratch = torch.empty(lib.tplc_running_scan_scratch(n),
-                              dtype=x.dtype, device=x.device)
+                              dtype=torch.uint8, device=x.device)
         cuda_lib.check(lib.tplc_running_scan(
             x.data_ptr(), y.data_ptr(), scratch.data_ptr(), n,
             x.element_size(), int(is_max), int(reverse),
