@@ -19,7 +19,17 @@ with the tpulc_torch package under DIR (default: this checkout), e.g. a
 change, parent.  `--walks`: K3, K7 and K8 device ms and the decode-only
 GB/s of every decoder at the huffman path's full width.  `--mtf`: K1
 and the start tables as that tree's `mtf_encode` calls them, device ms
-at the bz and soup shapes, and the bz and bsc -e2 compress MB/s.
+and the host's microseconds a call at the bz shape, bzip2's last block,
+pg1661 x 6's 4 MiB bsc -e2 block, and an 8 MiB and a 25 MiB soup block, with, where the
+tree has them, the builds of mtf.cu's comparison library
+(-DTPLC_MTF_SWEEP: the start tables at every tile and split);
+the reverse-rANS emission (csrc/grc_rans.cu) on K5's output at pg1661 x
+6's 4 MiB bsc -e2 block and the soup's 4, 8, 16 and 25 MiB blocks:
+device ms, ms, the host's microseconds a call, K5 then the emission, the sha256 of
+its outputs, the longest lane's events and ns an event, the chain, and,
+where the tree has them, the builds of grc_rans.cu's comparison library
+(-DTPLC_GRC_RANS_SWEEP: its two designs); and the bz and bsc -e2
+compress MB/s.
 `--abc`: the adaptive coder's two walks on the arguments that tree's
 `-e2` path gives them at the three ST shapes (`ABC_SHAPES`): ms, device
 ms, the sha256 of their outputs, ns a step of the deepest lane,
@@ -68,7 +78,7 @@ Phases (any failure exits non-zero before the last line is printed):
    `mtf_decode` calls it (identity start without symbols; without the
    final table), K1 and the start tables at 8-, 16-, 32- and 64-chunk
    tiles (K1 with and without the maxima; the start tables from K1's
-   maxima and by their own three launches), K3 at 32-, 64- and
+   maxima and from their own), K3 at 32-, 64- and
    128-chunk tiles; the running max / min scans (csrc/scan.cu) on the
    four arrays the first block's RLE2 scans (`rle2_encode`'s three,
    `rle2_decode`'s one) and the anchored inverse-BWT walk
@@ -116,8 +126,8 @@ Phases (any failure exits non-zero before the last line is printed):
    and K1, the start tables, K2 and K4 at the soup shape (204,800
    chunks x 128 from that block's real BWT output; the plain K2 and K4
    once), with K2's walk and every K4, K1 and start-table build as in
-   phase 3 and the device time of each of the start tables' two
-   launches on K1's maxima;
+   phase 3 and the device time and count of each of the start tables'
+   launches on K1's maxima (the memset and the kernel);
 8. the bsc -e2 main path, counted as in phase 4: pg1661 x 6 at 4 MiB
    blocks (exact round trip, ratio 21.281, tpulc's sha256, K4
    launched, K1, the start tables, K2, K5, the emission and K6 once per
@@ -214,12 +224,13 @@ move (each input read once, each output written once) over 3.35 TB/s
 and its integer operations over 67 T op/s (the H100 SXM figures of
 NVIDIA's data sheet), and, where one PyTorch call computes the same
 function (K1's rows: `scatter_reduce_` "amax"), that call's time.  The
-serial coder walks' (coder 1's and the adaptive coder's) lines before
-the JSON also print `chain`: the fewest dependent integer operations
-the function needs on its longest lane (`*_CHAIN` a step, counted from
-the function; `abc_encode_chain` for the adaptive encode) times 4
-cycles over the card's maximum SM clock (nvidia-smi), a computed term
-kept out of the `kernels` line.  K1's
+serial coder walks' (coder 1's, the adaptive coder's and the
+reverse-rANS emission's) lines before the JSON also print `chain`: the
+fewest dependent integer operations the function needs on its longest
+lane (`*_CHAIN` a step, counted from the function; `abc_encode_chain`
+for the adaptive encode, `emission_chain` for the emission: its
+longest lane's events) times 4 cycles over the card's maximum SM clock
+(nvidia-smi), a computed term kept out of the `kernels` line.  K1's
 bytes include its tile maxima; the start tables' are the function's
 (K1's rows in, the tables out), whichever route feeds them.  The start
 tables' plain version is the chain of PyTorch calls the path ran
@@ -455,6 +466,10 @@ ABC_ADAPT_CHAIN = 5
 ABC_DEC_CHAIN = 6
 RANS_ENC_CHAIN = 6
 RANS_DEC_CHAIN = 5
+# the reverse-rANS emission's step, as the adaptive coder's rANS step:
+# the renormalisation compare and select, the quotient's multiply-high,
+# the remainder, its compare and select
+EMIT_CHAIN = 6
 CHAIN_CYCLES = 4
 # the adaptive coder's three shapes, ST_CELLS labels: 1,024 lanes
 # (pg1661 x 6), 25,600 and 51,200 (one 25 MiB soup block)
@@ -580,6 +595,16 @@ def abc_encode_chain(torch, grid, nbits, lanes: int = 4096) -> int:
         if ops.numel():
             best = max(best, int(ops.max()))
     return best
+
+
+def emission_chain(gmb, nsteps: int) -> int:
+    """The emission's longest chain of dependent operations: a lane
+    codes its events (gmb > 0 in rows < nsteps) one after another, each
+    a rANS step of EMIT_CHAIN, so the lane with the most events needs
+    that many times EMIT_CHAIN operations."""
+    if nsteps <= 0 or gmb.shape[1] == 0:
+        return 0
+    return EMIT_CHAIN * int((gmb[:nsteps] > 0).sum(dim=0).max())
 
 
 def nbytes(x) -> int:
@@ -783,11 +808,12 @@ def k2_walk(torch, cuda_lib, table0, syms, ms) -> dict:
 def start_tiles(torch, mk, cuda_lib, d, want, split: bool = False) -> dict:
     """K1 and the start tables at every tile, on K1's input `d`: K1's
     rows and tile maxima equal to the plain versions', the start tables
-    from K1's maxima (the forward MTF's two launches) and by their own
-    three launches each equal to `want`, the plain version's; device ms
-    of each (K1 also without the maxima), tiles and K1's registers;
-    with `split`, the device ms of each launch of the default tile's
-    two-launch route (`launch_split`)."""
+    from K1's maxima (the forward MTF's route) and from their own
+    maxima (one launch more) each equal to `want`, the plain version's;
+    device ms of each (K1 also without the maxima), tiles and K1's
+    registers; with `split`, the device ms of each launch (memset
+    included) of the default tile's route from K1's maxima
+    (`launch_split`)."""
     nchunks, C = d.shape
     rec_want = mk.mtf_recency_plain(d)
     out = {"shape": f"{nchunks}x{C}",
@@ -804,20 +830,21 @@ def start_tiles(torch, mk, cuda_lib, d, want, split: bool = False) -> dict:
                                                             tile)),
                 f"K1 at tile {tile} differs")
         fused = partial(mk.mtf_start_tables, rec, C, tile=tile, part=part)
-        three = partial(mk.mtf_start_tables, rec, C, tile=tile)
-        require(torch.equal(fused(), want) and torch.equal(three(), want),
+        own = partial(mk.mtf_start_tables, rec, C, tile=tile)
+        require(torch.equal(fused(), want) and torch.equal(own(), want),
                 f"start tables at tile {tile} differ")
         out["builds"][f"tile{tile}"] = {
             "k1_device_ms": device_ms(torch, k1),
             "k1_rows_only_device_ms": device_ms(
                 torch, partial(mk.mtf_recency, d, tile=tile)),
             "device_ms": device_ms(torch, fused),
-            "three_launches_device_ms": device_ms(torch, three),
+            "own_maxima_device_ms": device_ms(torch, own),
             "tiles": -(-nchunks // tile)}
     if split:
         rec, part, tile = mk.mtf_recency(d, partials=True)
         out["launches_device_ms"] = launch_split(
-            torch, lambda: mk.mtf_start_tables(rec, C, tile=tile, part=part))
+            torch, lambda: mk.mtf_start_tables(rec, C, tile=tile, part=part),
+            counts=True)
     return out
 
 
@@ -1189,7 +1216,8 @@ def main() -> int:
     ap.add_argument("--walks", action="store_true",
                     help="one turn of the huffman walks' comparison")
     ap.add_argument("--mtf", action="store_true",
-                    help="one turn of K1's and the start tables' comparison")
+                    help="one turn of K1's, the start tables' and the "
+                         "reverse-rANS emission's comparison")
     ap.add_argument("--abc", action="store_true",
                     help="one turn of the adaptive coder's walks' comparison")
     ap.add_argument("--rans", action="store_true",
@@ -1494,18 +1522,25 @@ def load_tree(root: str, fresh: str = "",
 
 
 def mtf_turn(torch, here: str, root: str) -> int:
-    """One turn of K1's and the start tables' parent/change comparison,
-    with the tpulc_torch package under `root`: device ms (`device_ms`)
-    of K1, of the start tables and of the pair as that tree's
-    `mtf_encode` calls them (K1 with its tile maxima and the start
-    tables from them, where the tree has them), and the sha256 of the
-    tables, on the bz block of phase 3 and the soup block of phase 7;
-    then the compress MB/s of bz on pg1661 x 6 and of bsc -e2 on pg1661
-    x 6 at 4 MiB and on the 100 MB soup at 25 MiB (host clock,
-    synchronised, median of 3 after a warm call)."""
+    """One turn of the forward MTF's and the emission's parent/change
+    comparison, with the tpulc_torch package under `root`: device ms
+    (`device_ms`) of K1, of the start tables and of the pair as that
+    tree's `mtf_encode` calls them (K1 with its tile maxima and the start
+    tables from them, where the tree has them), the sha256 of the tables
+    and the host's microseconds a start-table call (`host_us`), on the bz
+    block of phase 3, bzip2's last block, the bsc -e2 block of pg1661 x
+    6 at 4 MiB and the first soup blocks at 8 and 25 MiB, with the
+    comparison builds where the tree has them (`start_builds`); the
+    reverse-rANS emission on K5's output for pg1661 x 6's 4 MiB bsc -e2
+    block and the soup's first blocks at 4, 8, 16 and 25 MiB
+    (`emission_turn`); then the compress MB/s
+    of bz on pg1661 x 6 and of bsc -e2 on pg1661 x 6 at 4 MiB and on the
+    100 MB soup at 25 MiB (host clock, synchronised, median of 3 after a
+    warm call)."""
     import inspect
 
-    smi, build_s = load_tree(root)
+    smi, build_s = load_tree(root, before_build=lambda cl: [
+        sweep_start(root, cl, stem) for stem in ("grc_rans", "mtf")])
     from tpulc_torch.codecs.bsclike import driver as bsc
     from tpulc_torch.codecs.bwt import driver
     from tpulc_torch.primitives import mtf_kernels as mk
@@ -1514,15 +1549,33 @@ def mtf_turn(torch, here: str, root: str) -> int:
     dev = torch.device("cuda")
     fused = "partials" in inspect.signature(mk.mtf_recency).parameters
     pg6, big = corpus(here), soup(SOUP_SIZE)
-    ranks, _ = block_ranks(torch, bsc, big, SOUP_BLOCK, dev)
-    shapes = (("bz", bz_block_syms(torch, driver, pg6, dev)),
-              ("soup", mtf_decode(ranks.to(torch.uint8)).to(
-                  torch.int32).reshape(-1, 128).contiguous()))
-    del ranks
+
+    def bsc_syms(data, block):
+        ranks, _ = block_ranks(torch, bsc, data, block, dev)
+        return mtf_decode(ranks.to(torch.uint8)).to(torch.int32).reshape(
+            -1, 128).contiguous()
+
+    def bzip2_syms():
+        # the last block's symbols, as bzip2's compress hands them to K1
+        from tpulc_torch.pipeline.registry import get_codec
+        from tpulc_torch.primitives import mtf as mtf_mod
+
+        _, calls = spying([(mtf_mod, "mtf_encode_lockstep")], partial(
+            get_codec("bzip2").compress, pg6, level=BZIP2_LEVEL,
+            device="cuda"))
+        return calls["mtf_encode_lockstep"][1]
+
+    shapes = (("bz", lambda: bz_block_syms(torch, driver, pg6, dev)),
+              ("bzip2", bzip2_syms),
+              ("bsc_pg", lambda: bsc_syms(pg6, BSC_BLOCK)),
+              ("soup_8MiB", lambda: bsc_syms(big, 8 << 20)),
+              ("soup", lambda: bsc_syms(big, SOUP_BLOCK)))
+    builds = sweep(root, "mtf")
     out = {"root": root, "card": smi, "build_s": build_s,
            "k1_tile_maxima": fused, "device_ms": {}, "sha256": {},
-           "compress_MBps": {}}
-    for label, d in shapes:
+           "host_us": {}, "compress_MBps": {}, "start_builds": {}}
+    for label, make in shapes:
+        d = make()
         if fused:
             k1 = partial(mk.mtf_recency, d, partials=True)
             rec, part, tile = k1()
@@ -1543,6 +1596,12 @@ def mtf_turn(torch, here: str, root: str) -> int:
         for name, fn in (("k1", k1), ("start_tables", tables),
                          ("pair", pair)):
             out["device_ms"][f"{name}_{label}"] = device_ms(torch, fn)
+        out["host_us"][f"start_tables_{label}"] = host_us(torch, tables)
+        if builds is not None:
+            out["start_builds"][label] = start_builds(
+                torch, builds[0], mk, d, torch.from_numpy(got).to(dev))
+        del d
+    out["emission"] = emission_turn(torch, root, bsc, pg6, big)
     for label, data, fn in (
             ("bz_pg1661x6", pg6, partial(driver.compress, pg6,
                                          block_size=BLOCK)),
@@ -1558,6 +1617,123 @@ def mtf_turn(torch, here: str, root: str) -> int:
     print(smi)
     print(json.dumps({"mtf": out}), flush=True)
     return 0
+
+
+def start_builds(torch, lib, mk, d, want) -> dict:
+    """The start tables' comparison builds (-DTPLC_MTF_SWEEP) on K1's
+    output for `d`: at every tile, every split (1, 2, 4 or 8 warps a
+    tile), each equal to `want`; device ms of each C call on buffers
+    allocated once and of K1 with its maxima at each tile; the wrapper's
+    tile."""
+    from tpulc_torch import cuda_lib
+
+    nchunks = d.shape[0]
+    res = {"pick": cuda_lib.library().tplc_mtf_start_tile(nchunks, 0)}
+    out_t = torch.empty_like(want)
+    for tile in START_TILES:
+        k1 = partial(mk.mtf_recency, d, partials=True, tile=tile)
+        rec, part, _ = k1()
+        res[f"k1_t{tile}"] = device_ms(torch, k1)
+        ntiles = -(-nchunks // tile)
+        scratch = torch.empty(max(1, mk._start_scratch_words(ntiles, False)),
+                              dtype=torch.int32, device=rec.device)
+        for split in (1, 2, 4, 8):
+            def call(split=split):
+                cuda_lib.check(lib.tplc_mtf_start_tables_sweep(
+                    rec.data_ptr(), out_t.data_ptr(), part.data_ptr(),
+                    scratch.data_ptr(), nchunks, 128, tile, split,
+                    cuda_lib.stream_of(rec)), "mtf_start_tables_sweep")
+
+            out_t.fill_(-1)
+            call()
+            require(torch.equal(out_t, want),
+                    f"start tables at tile {tile}, split {split} differ")
+            res[f"t{tile}_s{split}"] = device_ms(torch, call)
+    return res
+
+
+def emission_turn(torch, root: str, bsc, pg6: bytes, big: bytes) -> dict:
+    """The reverse-rANS emission of the tree under `root` on K5's output
+    for the first block of pg1661 x 6 at 4 MiB and of the soup at 4, 8,
+    16 and 25 MiB (1,024, 4,096, 8,192, 16,384 and 25,600 lanes), as the
+    bsc -e2 path builds them (`grc_grid`): device ms, ms (host time
+    included), the host's microseconds a call, ms of K5 alone and of K5 then the
+    emission (host time included, as `grc_encode` queues them), the
+    sha256 of words, counts and states, the longest lane's events, ns an
+    event of that lane, the chain (`emission_chain`) and, where the
+    tree's grc_rans.cu has them, its comparison builds
+    (`emission_builds`)."""
+    from tpulc_torch import cuda_lib
+    from tpulc_torch.codecs.bsclike import grc_kernels as gk
+
+    dev = torch.device("cuda")
+    builds = sweep(root, "grc_rans")
+    out = {}
+    for label, data, block in (("pg1661x6_4MiB", pg6, BSC_BLOCK),
+                               ("soup_4MiB", big, 4 << 20),
+                               ("soup_8MiB", big, 8 << 20),
+                               ("soup_16MiB", big, 16 << 20),
+                               ("soup_25MiB", big, SOUP_BLOCK)):
+        gmb, init, cinit, nsteps, _, _ = grc_grid(torch, bsc, data, block,
+                                                  dev)
+        probs = gk.grc_walk_probs(gmb, init, cinit, nsteps)
+        fn = partial(gk.grc_reverse_rans, gmb, probs, nsteps)
+        got = fn()
+        chain = emission_chain(gmb, nsteps)
+        longest = chain // EMIT_CHAIN
+
+        def k5_then(gmb=gmb, init=init, cinit=cinit, nsteps=nsteps):
+            # as grc_encode calls them: the emission queued behind K5
+            p = gk.grc_walk_probs(gmb, init, cinit, nsteps)
+            return gk.grc_reverse_rans(gmb, p, nsteps)
+
+        row = {"shape": "x".join(map(str, gmb.shape)), "nsteps": nsteps,
+               "sha256": outputs_sha256([g.cpu() for g in got]),
+               "device_ms": device_ms(torch, fn), "ms": time_ms(torch, fn),
+               "host_us": host_us(torch, fn, reps=50),
+               "k5_and_emission_ms": time_ms(torch, k5_then),
+               "k5_ms": time_ms(torch, partial(gk.grc_walk_probs, gmb, init,
+                                               cinit, nsteps)),
+               "longest_lane_events": longest,
+               "chain_ms": chain_ms(chain) if chain else 0.0}
+        row["ns_per_event_longest"] = row["device_ms"] * 1e6 / max(1,
+                                                                  longest)
+        if builds is not None:
+            row["builds"] = emission_builds(torch, cuda_lib, builds[0], gmb,
+                                            probs, nsteps, got)
+        out[label] = row
+        del gmb, probs, got
+    return out
+
+
+def emission_builds(torch, cuda_lib, lib, gmb, probs, nsteps,
+                    want) -> dict:
+    """The emission's comparison builds (-DTPLC_GRC_RANS_SWEEP): both
+    designs (route 0, the shared-memory ring; 1, register batches after
+    a memset), each equal to `want` (the wrapper's outputs), device ms
+    of the C call alone on buffers allocated once; and the route the
+    wrapper's C entry picks."""
+    W, L = gmb.shape
+    dev = gmb.device
+    words = torch.empty((L, W + 2), dtype=torch.int32, device=dev)
+    counts = torch.empty(L, dtype=torch.int64, device=dev)
+    states = torch.empty(L, dtype=torch.int64, device=dev)
+    out = {"pick": cuda_lib.library().tplc_grc_reverse_rans_route(L)}
+    for route in (0, 1):
+        def call(route=route):
+            cuda_lib.check(lib.tplc_grc_reverse_rans_sweep(
+                gmb.data_ptr(), probs.data_ptr(), words.data_ptr(),
+                counts.data_ptr(), states.data_ptr(), W, L,
+                max(0, min(nsteps, W)), route, cuda_lib.stream_of(gmb)),
+                "grc_reverse_rans_sweep")
+
+        words.fill_(-1)
+        call()
+        require(all(torch.equal(a, b) for a, b in zip(
+            (words, counts, states), want)),
+            f"the emission's route {route} differs")
+        out[f"route{route}"] = device_ms(torch, call)
+    return out
 
 
 def ibwt_turn(torch, here: str, root: str) -> int:
@@ -1692,6 +1868,10 @@ SWEEPS = {
         "tplc_rans_decode_sweep": "p" * 7 + "i" * 7 + "pp"}),
     "scan": ("TPLC_SCAN_SWEEP", {
         "tplc_running_scan_sweep": "ppp" + "i" * 5 + "p"}),
+    "grc_rans": ("TPLC_GRC_RANS_SWEEP", {
+        "tplc_grc_reverse_rans_sweep": "p" * 5 + "i" * 4 + "p"}),
+    "mtf": ("TPLC_MTF_SWEEP", {
+        "tplc_mtf_start_tables_sweep": "p" * 4 + "i" * 4 + "p"}),
 }
 
 
@@ -2546,7 +2726,8 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
                  kern=gk.grc_reverse_rans, plain=gk.grc_reverse_rans_plain,
                  args=(gmb, probs, nsteps), shape=f"{W}x{L}",
                  bytes=8 * nsteps * L + 4 * L * (W + 2) + 16 * L,
-                 ops=EMIT_OPS * events, plain_reps=1),
+                 ops=EMIT_OPS * events, chain=emission_chain(gmb, nsteps),
+                 plain_reps=1),
             dict(name="grc_decode_walk", src="tpulc_torch/csrc/grc_decode.cu",
                  replaces="tpulc/codecs/bsclike/grc_pallas.py:438",
                  kern=gk.grc_decode_walk, plain=gk.grc_decode_walk_plain,

@@ -228,6 +228,64 @@ def test_start_tables_refuse_what_the_kernel_cannot_do(cuda):
     assert mk.mtf_start_tables.launches == n
 
 
+def _tile_rows(ntiles, tile, C, seed):
+    """K1's input for ntiles tiles of `tile` chunks (the last one cut by
+    half a tile) of C steps: each tile draws from its own 8 to 24
+    symbols, so that a symbol's last position lies tiles back and some
+    symbols stay unseen for many tiles."""
+    rng = np.random.default_rng([seed, ntiles, tile, C])
+    nchunks = max(1, ntiles * tile - tile // 2)
+    d = np.empty((nchunks, C), np.int32)
+    for t in range(ntiles):
+        alpha = rng.choice(256, size=int(rng.integers(8, 25)), replace=False)
+        rows = d[t * tile:(t + 1) * tile]
+        rows[:] = rng.choice(alpha, size=rows.shape)
+    return torch.from_numpy(d)
+
+
+@pytest.mark.parametrize("C", [1, 128, 4096])
+@pytest.mark.parametrize("tile", [0, *mk.START_TILES])
+def test_start_tables_across_the_prefix_scan(cuda, tile, C):
+    """The start tables at tile counts of 1 (no prefix), 31 to 65 (one
+    block scanning several symbol rows a warp), 256 and 257 (a scanning
+    warp's batch of 256 tiles, and one tile past it), 300 (every
+    scanning block, a row a warp), 528 and 529 (at 132 SMs the most
+    tiles that the pick splits between 2 warps, and one more), 1,100,
+    at every built tile and the pick, chunks of 1, 128 and 4,096 steps:
+    from K1's maxima (read and not written, one launch a call) and from
+    their own maxima, each equal to the plain version."""
+    for ntiles in ((1, 31, 33, 65) if C == 4096 else
+                   (1, 31, 32, 33, 65, 256, 257, 300, 528, 529, 1100)):
+        T = tile or mk.START_TILES[0]
+        d = _tile_rows(ntiles, T, C, 1).to(cuda)
+        rec, part, t = mk.mtf_recency(d, partials=True, tile=tile)
+        want = mk.mtf_start_tables_plain(rec.cpu(), C)
+        kept = part.clone()
+        n = mk.mtf_start_tables.launches
+        got = mk.mtf_start_tables(rec, C, tile=t, part=part)
+        torch.cuda.synchronize()
+        assert mk.mtf_start_tables.launches == n + 1
+        assert torch.equal(got.cpu(), want), (ntiles, t)
+        assert torch.equal(part, kept)
+        own = mk.mtf_start_tables(rec, C, tile=t)
+        torch.cuda.synchronize()
+        assert mk.mtf_start_tables.launches == n + 2
+        assert torch.equal(own.cpu(), want), (ntiles, t)
+
+
+def test_start_tables_called_50_times_equal_plain(cuda):
+    """Fifty calls in a row on one stream, each with the scratch the
+    caching allocator hands back (the last call's nodes and flags): the
+    memset clears every flag a call reads."""
+    d = _tile_rows(300, 8, 128, 2).to(cuda)
+    rec, part, t = mk.mtf_recency(d, partials=True, tile=8)
+    want = mk.mtf_start_tables_plain(rec.cpu(), 128).to(cuda)
+    outs = [mk.mtf_start_tables(rec, 128, tile=t, part=part)
+            for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+
+
 def test_mtf_encode_on_card_matches_cpu(cuda):
     """The forward path (K1, the start tables, K2) against the CPU's."""
     from tpulc_torch.primitives.mtf import mtf_encode
@@ -582,6 +640,112 @@ def test_k5_and_emission_on_odd_grids(cuda, case, lanes):
     torch.cuda.synchronize()
     for g, w in zip(got_e, want_e):
         assert torch.equal(g.cpu(), w)
+
+
+def _emission_grid(case, W=300, L=40):
+    """(gmb, probs, nsteps) for the emission's card cases: "full" puts
+    an event at every step of every other lane at p = 1 or 4,095 (the
+    most words a lane can emit, past the words a lane stages), with
+    empty lanes between; "odd_probs" also gives two stages
+    probabilities outside [0, 4,096] (the divide route); "ragged" has
+    lanes of any length up to W with holes, every seventh lane empty
+    (lane 0 never), and K5's probabilities."""
+    from tpulc_torch.codecs.bsclike import grc
+    from tpulc_torch.codecs.bsclike import grc_kernels as gk
+
+    rng = np.random.default_rng([11, L, W])
+    if case == "ragged":
+        g = rng.integers(1, 2 * grc.NM + 4, size=(W, L)).astype(np.int32)
+        length = rng.integers(1, W + 1, size=L)
+        length[np.arange(L) % 7 == 3] = 0
+        g[np.arange(W)[:, None] >= length[None, :]] = 0
+        g[rng.random((W, L)) < 0.3] = 0
+        init = rng.integers(8, 4089, size=grc.NM).astype(np.int32)
+        cinit = rng.integers(8, 4089, size=grc.NFAM).astype(np.int32)
+        g = torch.from_numpy(g)
+        return g, gk.grc_walk_probs_plain(g, torch.from_numpy(init),
+                                          torch.from_numpy(cinit), W), W
+    g = np.zeros((W, L), np.int32)
+    p = np.zeros((W, L), np.int32)
+    full = np.arange(L) % 2 == 0
+    g[:, full] = rng.choice([2, 3], size=(W, int(full.sum())))
+    p[:, full] = np.where(np.arange(L)[full] % 4 == 0, 1, 4095)
+    if case == "odd_probs":
+        p[17:40, 0] = -77777
+        p[100:103, L - 2] = 900_000
+    return torch.from_numpy(g), torch.from_numpy(p), W
+
+
+def _emission_c_call(g, p, n):
+    """The emission's C entry alone into a words buffer filled with
+    0x7f bytes: the kernel must write every entry."""
+    from tpulc_torch import cuda_lib
+
+    W, L = g.shape
+    words = torch.full((L, W + 2), 0x7F7F7F7F, dtype=torch.int32,
+                       device=g.device)
+    counts = torch.full((L,), -1, dtype=torch.int64, device=g.device)
+    states = torch.full((L,), -1, dtype=torch.int64, device=g.device)
+    cuda_lib.check(cuda_lib.library().tplc_grc_reverse_rans(
+        g.data_ptr(), p.data_ptr(), words.data_ptr(), counts.data_ptr(),
+        states.data_ptr(), W, L, max(0, min(n, W)), cuda_lib.stream_of(g)),
+        "grc_reverse_rans")
+    return words, counts, states
+
+
+@pytest.mark.parametrize("nsteps", ["all", 37, 0])
+@pytest.mark.parametrize("case,L", [("ragged", 1), ("ragged", 31),
+                                    ("ragged", 33), ("ragged", 1000),
+                                    ("full", 40), ("full", 33),
+                                    ("odd_probs", 40)])
+def test_emission_edges_equal_plain(cuda, case, L, nsteps):
+    """The emission at L = 1, 31, 33 and 1,000 lanes, with full lanes of
+    up to 1,500 words (past both word buffers) between empty ones, and
+    with probabilities outside [0, 4,096]; nsteps the grid's, 37 (no
+    multiple of a stage's 16 steps) and 0.  Through the wrapper (one
+    launch), and through the C entry into a buffer of 0x7f bytes, which
+    the kernel must overwrite entirely."""
+    from tpulc_torch.codecs.bsclike import grc_kernels as gk
+
+    W = 2000 if case == "full" else 300
+    gmb, probs, n = _emission_grid(case, W=W, L=L)
+    n = n if nsteps == "all" else nsteps
+    want = gk.grc_reverse_rans_plain(gmb, probs, n)
+    g, p = gmb.to(cuda), probs.to(cuda)
+    c = gk.grc_reverse_rans.launches
+    got = gk.grc_reverse_rans(g, p, n)
+    again = _emission_c_call(g, p, n)
+    torch.cuda.synchronize()
+    assert gk.grc_reverse_rans.launches == c + 1
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a.cpu(), w) and torch.equal(b.cpu(), w)
+
+
+@pytest.mark.parametrize("side", ["ring", "registers"])
+@pytest.mark.parametrize("case", ["full", "ragged"])
+def test_emission_at_the_route_edge(cuda, case, side):
+    """The C entry's two designs at its edge: 128 lanes an SM (16,896 on
+    an H100), the most the shared-memory ring takes, whose blocks then
+    all fit one wave, and one lane more, which runs the register design
+    after a memset of the words (a last warp of one lane).  Both equal
+    the plain version, full lanes of ~175 words and ragged ones alike,
+    through the wrapper and through the C entry into a buffer of 0x7f
+    bytes."""
+    from tpulc_torch import cuda_lib
+    from tpulc_torch.codecs.bsclike import grc_kernels as gk
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    L = 128 * sms + (side == "registers")
+    W = 400 if case == "full" else 200
+    gmb, probs, n = _emission_grid(case, W=W, L=L)
+    assert cuda_lib.library().tplc_grc_reverse_rans_route(L) == (
+        side == "registers")
+    want = gk.grc_reverse_rans_plain(gmb, probs, n)
+    got = gk.grc_reverse_rans(gmb.to(cuda), probs.to(cuda), n)
+    again = _emission_c_call(gmb.to(cuda), probs.to(cuda), n)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a.cpu(), w) and torch.equal(b.cpu(), w)
 
 
 _K6_WANT = {}

@@ -196,20 +196,54 @@ def test_decode_walk_clamps_reads_and_stops_at_nsteps():
     assert np.array_equal(ours.numpy().reshape(-1), xla)
 
 
+def _edge_grid(case):
+    """(gmb, probs, nsteps, W) of the emission's edge grids: "lanes33",
+    33 lanes of any length with holes and every seventh lane empty, and
+    K5's probabilities; "full_lanes", an event at every step of every
+    other lane at p = 1 or 4,095 (the most words a lane emits), empty
+    lanes between."""
+    rng = np.random.default_rng([23, len(case)])
+    if case == "lanes33":
+        W, L = 96, 33
+        g = rng.integers(1, 2 * pg.NM + 2, size=(W, L)).astype(np.int32)
+        length = rng.integers(1, W + 1, size=L)
+        length[np.arange(L) % 7 == 3] = 0
+        g[np.arange(W)[:, None] >= length[None, :]] = 0
+        g[rng.random((W, L)) < 0.3] = 0
+        init = torch.from_numpy(rng.integers(8, 4089, size=pg.NM).astype(
+            np.int32))
+        cinit = torch.from_numpy(rng.integers(8, 4089, size=pg.NFAM).astype(
+            np.int32))
+        gmb = torch.from_numpy(g)
+        return gmb, pk.grc_walk_probs(gmb, init, cinit, W), W, W
+    W, L = 160, 6
+    g = np.zeros((W, L), np.int32)
+    p = np.zeros((W, L), np.int32)
+    for lane, prob in ((0, 1), (2, 4095), (3, 1), (5, 4095)):
+        g[:, lane] = rng.choice([2, 3], size=W)
+        p[:, lane] = prob
+    return torch.from_numpy(g), torch.from_numpy(p), W, W
+
+
 @pytest.mark.parametrize("case", ["real", "empty_lane", "nsteps0",
-                                  "short"])
+                                  "short", "lanes33", "full_lanes"])
 def test_reverse_rans_equals_tpulc(case):
     """The emission's wrapper on CPU tensors (its plain version) against
     tpulc's `_reverse_rans_t` on the same grids: words, counts and
     states.  "empty_lane" zeroes one lane's events; "short" codes only
-    the first third of the rows (nsteps < W)."""
-    _, _, gmb, init, cinit, nsteps, W = _walk_inputs("mixed")
+    the first third of the rows (nsteps < W); "lanes33" and "full_lanes"
+    are `_edge_grid`'s: 33 ragged lanes with holes, and full lanes at p
+    = 1 and 4,095 between empty ones."""
+    if case in ("lanes33", "full_lanes"):
+        gmb, probs, nsteps, W = _edge_grid(case)
+    else:
+        _, _, gmb, init, cinit, nsteps, W = _walk_inputs("mixed")
+        if case == "empty_lane":
+            gmb = gmb.clone()
+            gmb[:, 1] = 0
+        nsteps = {"nsteps0": 0, "short": nsteps // 3}.get(case, nsteps)
+        probs = pk.grc_walk_probs(gmb, init, cinit, nsteps)
     L = gmb.shape[1]
-    if case == "empty_lane":
-        gmb = gmb.clone()
-        gmb[:, 1] = 0
-    nsteps = {"nsteps0": 0, "short": nsteps // 3}.get(case, nsteps)
-    probs = pk.grc_walk_probs(gmb, init, cinit, nsteps)
     words, counts, states = pk.grc_reverse_rans(gmb, probs, nsteps)
     tw, tc, ts = _t_reverse_rans(jnp.asarray(gmb.numpy()),
                                  jnp.asarray(probs.numpy()),
@@ -222,6 +256,8 @@ def test_reverse_rans_equals_tpulc(case):
         assert counts[1] == 0 and states[1] == pg.RANS_L
     if case == "nsteps0":
         assert not words.any() and not counts.any()
+    if case == "full_lanes":
+        assert int(counts.min()) == 0 and int(counts.max()) > W // 4
 
 
 @pytest.mark.parametrize("lanes", [0, -1, 95])

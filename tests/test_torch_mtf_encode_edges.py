@@ -11,6 +11,7 @@ On a duplicate entry tpulc's Pallas K2 and its XLA step disagree
 (ROADMAP F5): the port keeps the first match, and a test pins both
 answers.  Integers throughout: tolerance 0."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,6 +50,39 @@ def test_start_tables_plain_match_the_serial_mtf(name, nchunks):
                                         partials=True, tile=tile)
         assert torch.equal(rec_p, rec)
         assert torch.equal(mk.mtf_start_tables(rec, C, tile=t, part=part), got)
+
+
+def _tpulc_start_tables(rec, C):
+    """A transcription of tpulc's start-table stage, which tpulc writes
+    inline in `mtf_encode` (`tpulc/primitives/mtf.py:85-96`, its XLA
+    scan and argsort) and exports as no function: the same JAX
+    operations on K1's rows, the exclusive `associative_scan(maximum)`
+    of the recency over chunks, then the stable argsort of -key a row.
+    tpulc's own code is held to the port's by
+    `test_mtf_encode_matches_tpulc`."""
+    r = jnp.asarray(rec.numpy())
+    base = (jnp.arange(rec.shape[0], dtype=jnp.int32) * C)[:, None]
+    recency = jnp.where(r >= 0, r + base, -1)
+    incl = jax.lax.associative_scan(jnp.maximum, recency, axis=0)
+    before = jnp.concatenate(
+        [jnp.full((1, 256), -1, jnp.int32), incl[:-1]], axis=0)
+    syms = jnp.arange(256, dtype=jnp.int32)[None, :]
+    key = jnp.where(before >= 0, before, -2 - syms)
+    return np.asarray(jnp.argsort(-key, axis=1, stable=True))
+
+
+@pytest.mark.parametrize("nchunks", [1, 65, 259, 2101])
+@pytest.mark.parametrize("name", START_CASES)
+def test_start_tables_plain_equal_tpulcs_stage(name, nchunks):
+    """The plain start tables (the card's arbiter) against the
+    transcribed stage on the same K1 rows, at chunk counts across one, a
+    few and hundreds of the kernel's tiles (1 to 263 tiles of 8): one
+    tile, a prefix of a few tiles and one past the scanners' batch of
+    256 tiles."""
+    d, C = start_case(name, nchunks)
+    rec = mk.mtf_recency(torch.from_numpy(d.astype(np.int32)))
+    np.testing.assert_array_equal(mk.mtf_start_tables_plain(rec, C).numpy(),
+                                  _tpulc_start_tables(rec, C))
 
 
 @pytest.mark.parametrize("name", START_CASES)

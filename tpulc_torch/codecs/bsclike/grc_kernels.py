@@ -191,7 +191,8 @@ def grc_reverse_rans(gmb: torch.Tensor, probs: torch.Tensor, nsteps: int):
     if cuda_lib.device_of(gmb, probs).type == "cpu":
         return grc_reverse_rans_plain(gmb, probs, nsteps)
     lib = cuda_lib.library()
-    words = torch.zeros((L, W + 2), dtype=torch.int32, device=gmb.device)
+    # the kernel writes every entry of words, the zeros past counts too
+    words = torch.empty((L, W + 2), dtype=torch.int32, device=gmb.device)
     counts = torch.empty(L, dtype=torch.int64, device=gmb.device)
     states = torch.empty(L, dtype=torch.int64, device=gmb.device)
     with torch.cuda.device(gmb.device):

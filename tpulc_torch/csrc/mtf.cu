@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm_count.cuh"
+
 namespace {
 
 constexpr int kAlpha = 256;
@@ -460,39 +462,67 @@ __global__ void __launch_bounds__(kDecThreads)
 // exclusive torch.cummax over chunks and a stable argsort a row.
 //
 // Bound on the H100: bytes, K1's rows read once and the tables written
-// once (420 MB a 25 MiB block: 0.125 ms).  Design, three launches over
-// tiles of T chunks, two where K1 wrote the tile maxima (the forward
-// MTF's route):
-// (a) tile max: a block a tile, a thread a symbol, the max key of each
-//     symbol over the tile's T rows (coalesced 1 KB row loads); K1 with
-//     `part` computes the same in its own pass and (a) is skipped;
-// (b) an exclusive max-scan of those [ntiles] partials into the
-//     scratch, a block a symbol: the symbol's partials are a contiguous
-//     row (symbol-major), scanned by 1,024 threads with warp shuffles
-//     and a carry between segments;
-// (c) a walk of each tile's T chunks in order, a block a tile, a thread
-//     a symbol and a table position.  The tile's first table: each
-//     symbol's position is the count of keys above its own (ties to
-//     the lower symbol, as the stable sort) over the 256 keys in shared
-//     memory.  Chunk c+1's table from chunk c's and K1's row for c, with
-//     no sort: the symbols seen in c go to the front newest first (a
-//     symbol's place is the count of bits above its own step in the
-//     chunk's step mask, built with shared-memory atomicOr), and every
-//     other entry keeps its order, moved back by the seen entries before
-//     it (a block-wide ballot prefix count).  That equals the stable
-//     argsort: the keys of symbols seen in c lie in [c*C, c*C + C),
-//     above every other key, and the other keys do not change.  A
-//     chunk's step is short next to a load from device memory, so each
-//     thread keeps the next kStartAhead rows in flight (one row in
-//     flight took 0.39 ms at the soup shape, four 0.31: PERF.md).
+// once (420 MB a 25 MiB block: 0.125 ms; 14.4 MB a bz block: 4.3 us).
+// Design: one launch (after a 16-byte memset) over K1's tiles of T
+// chunks, a warp a tile, or half of one (split: small blocks, whose
+// tiles alone would leave most SMs idle, give each warp T / 2 chunks),
+// kStartWarps warps a block.  (The first
+// design scanned the maxima in a launch of its own and walked a
+// tile with the whole block, a thread a place and two barriers a chunk;
+// a Fenwick tree of the maxima built in one launch waited on chains of
+// nodes for 11-17 us at a bz block; a thread a symbol and one barrier a
+// chunk took ~500-750 ns a chunk.)
+// - The tiles' exclusive prefix, each symbol's last position before a
+//   tile: the blocks of the first kScanBlocks tickets (an atomic ticket,
+//   so that they run before anyone waits on them) scan K1's tile maxima
+//   `part` over tiles, a warp a symbol row, kScanBatch chunks of 32 in
+//   flight, into the prefix, symbol-major as `part` (a row contiguous,
+//   the scanners' stores coalesced; a tile-major prefix, a warp's keys
+//   one 1 KB row, took at the picked tile and split 0.0190 device ms
+//   against 0.0177-0.0179 at a bz block, 0.0730 against 0.0681-0.0685
+//   at an 8 MiB bucket, 0.2270 against 0.1888-0.1901 at a 25 MiB
+//   block); every block waits on a count of finished scanners.  The
+//   scanners scan before they fold (folding first held the prefix back
+//   by the longest fold: at a bz block it was done 7.5 us into the
+//   launch).
+// - The first table of a warp's chunks, by the warp: its keys are the
+//   tile's prefix, raised by the tile's chunks before the warp's part
+//   (a step there is above every earlier position; folded kFoldBatch
+//   rows at a time before the wait).  A seen symbol's place is the
+//   count of seen keys above its own over the compacted list of seen
+//   keys, counted as sign bits of differences (compares held up one
+//   predicate register ~10 cycles each, ~6 us at a bz tile); an unseen
+//   one's is nseen + its rank among the unseen (ballots).
+// - Chunk c+1's table from chunk c's, by the warp, with no sort: lane i
+//   holds places 32j + i (j < 8).  Each place's symbol reads its step in
+//   c from K1's row in shared memory; the seen symbols go to the front,
+//   newest first: each writes itself at its step in an inverse map of C
+//   entries, which the warp reads back from step C-1 down, 128 steps at
+//   once, compacting with ballots, and no further once every seen
+//   symbol is found (the entries below were never written); the unseen keep their order behind them, placed by
+//   ballot prefix counts; stores that a lane has no use for go to dummy
+//   entries rather than under a predicate.  That equals the stable
+//   argsort: the keys of symbols seen in c lie in [c*C, c*C + C), above
+//   every other key, and the other keys do not change.  No barrier but
+//   the warp's; the table leaves from registers, a coalesced 1 KB row.
+// - K1's rows arrive by cp.async in a ring of kStartAhead rows a warp,
+//   issued before the prefix is waited on.
 // Domain (the plain version's on K1's output): each row holds values in
-// [-1, C) and each step at most once, so every key is distinct.  Off
-// it the kernel reads and writes only inside its arrays.
+// [-1, C) and each step at most once, so every key is distinct.  Off it
+// the kernel reads and writes only inside its arrays.  Without K1's
+// maxima (part == nullptr) a first launch computes them into the
+// scratch (mtf_tile_max_kernel).
 // ---------------------------------------------------------------------
-constexpr int kScanThreads = 1024;
-constexpr int kMaxStartChunk = 4096;  // the step mask: 128 words
+constexpr int kMaxStartChunk = 4096;  // the inverse map's entries
 constexpr int kStartTiles[] = {8, 16, 32, 64};
-constexpr int kStartAhead = 4;  // K1 rows a thread of the walk keeps in flight
+constexpr int kStartWarps = 4;  // tiles a block, a warp each
+constexpr int kStartThreads = 32 * kStartWarps;
+constexpr int kStartAhead = 8;   // K1 rows a warp's ring holds
+constexpr int kScanBlocks = 64;  // the most blocks that scan the maxima
+constexpr int kScanBatch = 8;    // 32-tile chunks a scanning warp loads at once
+constexpr int kFoldBatch = 8;    // K1 rows a warp folds at once
+constexpr int kSplitWarps = 8;   // the most warps an SM that a split gives
+constexpr int kMinPart = 4;      // the fewest chunks a warp of a split tile
 
 bool known_tile(int tile) {
   for (int t : kStartTiles)
@@ -501,18 +531,38 @@ bool known_tile(int tile) {
 }
 
 // The tile for nchunks chunks: the largest of kStartTiles that still
-// leaves 3 tiles an SM, else the smallest.  It was the fastest at both of
-// chip_smoke.py's shapes on the H100's 132 SMs (16 at 7,032 chunks, 64
-// at 204,800: PERF.md).
+// leaves 1.5 tiles an SM, else the smallest (-1 if the card does not
+// answer).  On an H100, K1 and the start tables together at a bz block
+// (7,032 chunks): 0.0255 device ms at 32, 0.0288 at 16, 0.0301 at 64,
+// 0.0312 at 8; at a 25 MiB block (204,800): 0.3091 at 64, 0.3216 at 32.
 int start_tile(int nchunks) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = sm_count();
+  if (sms < 0) return -1;
   constexpr int n = sizeof(kStartTiles) / sizeof(kStartTiles[0]);
   for (int i = n - 1; i > 0; --i)
-    if ((nchunks + kStartTiles[i] - 1) / kStartTiles[i] >= 3 * sms)
+    if (2 * ((nchunks + kStartTiles[i] - 1) / kStartTiles[i]) >= 3 * sms)
       return kStartTiles[i];
   return kStartTiles[0];
+}
+
+// Warps a tile of T chunks: 2 where that keeps the warps at most
+// kSplitWarps an SM and leaves at least kMinPart chunks a warp, else 1:
+// a warp's first table costs about as much as a few chunks of its
+// walk, and a small block's tiles alone would leave most SMs idle (-1
+// if the card does not answer).  On an H100 (132 SMs), device ms at 1,
+// 2 and 4 warps a tile over three runs: a bz block (220 tiles of 32)
+// 0.0244-0.0260, 0.0177-0.0196, 0.0178-0.0192; bsc -e2's 1 MiB bucket
+// (256 tiles of 32) 0.0235-0.0249, 0.0189-0.0201, 0.0189-0.0199; an 8
+// MiB bucket (1,024 tiles of 64) 0.0679-0.0696, 0.0743-0.0774,
+// 0.0742-0.0805.  4 warps won only at bzip2's last block (213 tiles, one
+// run: 0.0182-0.0188 against 0.0191-0.0199).
+int start_split(int ntiles, int T) {
+  const int sms = sm_count();
+  if (sms < 0) return -1;
+  return T / 2 >= kMinPart && static_cast<long long>(ntiles) * 2 <=
+                                  static_cast<long long>(kSplitWarps) * sms
+             ? 2
+             : 1;
 }
 
 __global__ void __launch_bounds__(kAlpha)
@@ -531,126 +581,307 @@ __global__ void __launch_bounds__(kAlpha)
   part[static_cast<size_t>(s) * ntiles + blockIdx.x] = m;
 }
 
-// in and out may be one array: each element is read before it is
-// written, by the same thread
-__global__ void __launch_bounds__(kScanThreads)
-    mtf_tile_scan_kernel(const int32_t* part, int32_t* excl, int ntiles) {
-  __shared__ int32_t wtot[kScanThreads / 32];
-  const int32_t* row = part + static_cast<size_t>(blockIdx.x) * ntiles;
-  int32_t* xrow = excl + static_cast<size_t>(blockIdx.x) * ntiles;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int32_t carry = -1;
-  for (int i0 = 0; i0 < ntiles; i0 += kScanThreads) {
-    const int i = i0 + threadIdx.x;
-    int32_t v = i < ntiles ? row[i] : -1;
+// the scratch, int32 words: the ticket and the count of finished
+// scanners (4 words, cleared by the memset), the exclusive prefix over
+// tiles (256 * ntiles, symbol-major), and, when part == nullptr, K1's tile maxima (256 *
+// ntiles, symbol-major as K1 writes them)
+struct StartScratch {
+  uint32_t* ticket;
+  uint32_t* scanned;
+  int32_t* excl;
+};
+
+StartScratch start_scratch(void* scratch) {
+  auto* w = static_cast<uint32_t*>(scratch);
+  return {w, w + 1, reinterpret_cast<int32_t*>(w + 4)};
+}
+
+// a warp's shared memory: K1's ring, two tables of 256 entries and a
+// dummy a lane, the seen keys of the first table, and the inverse map:
+// C entries, a dummy a lane that stores go to, a dummy a lane that
+// reads from (always -1), int16
+constexpr int kTabEntries = kAlpha + 32;
+constexpr size_t kStartRingBytes = sizeof(int32_t) * kAlpha * kStartAhead;
+__host__ __device__ size_t start_warp_bytes(int C) {
+  return kStartRingBytes + sizeof(int32_t) * (2 * kTabEntries + kAlpha) +
+         (sizeof(int16_t) * (C + 64) + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ uint32_t ld_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// K1's row of chunk c into a ring slot, by the warp
+__device__ __forceinline__ void fetch_row(int32_t* slot,
+                                          const int32_t* __restrict__ rec,
+                                          int c, bool vec, int lane) {
+  const int32_t* src = rec + static_cast<size_t>(c) * kAlpha;
+  if (vec) {
+    cp_async16(slot + 4 * lane, src + 4 * lane);
+    cp_async16(slot + 128 + 4 * lane, src + 128 + 4 * lane);
+  } else {
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int32_t u = __shfl_up_sync(kFullMask, v, o);
-      if (lane >= o) v = max(v, u);
-    }
-    if (lane == 31) wtot[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-      int32_t x = wtot[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int32_t u = __shfl_up_sync(kFullMask, x, o);
-        if (lane >= o) x = max(x, u);
-      }
-      wtot[lane] = x;
-    }
-    __syncthreads();
-    int32_t ex = __shfl_up_sync(kFullMask, v, 1);
-    if (lane == 0) ex = -1;
-    if (warp > 0) ex = max(ex, wtot[warp - 1]);
-    if (i < ntiles) xrow[i] = max(ex, carry);
-    carry = max(carry, wtot[kScanThreads / 32 - 1]);
-    __syncthreads();
+    for (int j = 0; j < kAlpha / 32; ++j)
+      cp_async4(slot + 32 * j + lane, src + 32 * j + lane);
   }
 }
 
-__global__ void __launch_bounds__(kAlpha)
-    mtf_start_walk_kernel(const int32_t* __restrict__ rec,
-                          const int32_t* __restrict__ excl,
-                          int32_t* __restrict__ out, int nchunks, int C,
-                          int T, int ntiles) {
-  // K1's row, the step mask and the seen counts are double-buffered, so
-  // a chunk takes two barriers
-  __shared__ int64_t keys[kAlpha];
-  __shared__ int32_t recs[2][kAlpha];
-  __shared__ unsigned steps[2][kMaxStartChunk / 32];
-  __shared__ __align__(16) int seen_in[2][kAlpha / 32];
-  __shared__ int32_t tab[kAlpha];
-  const int p = threadIdx.x;  // a symbol, and a table position
-  const int lane = p & 31, warp = p >> 5;
-  const int nwords = (C + 31) >> 5;
-  const int c0 = blockIdx.x * T;
-  const int c1 = min(c0 + T, nchunks);
-  // symbol p's step in chunk c0 + i is row[i * 256]; the rows of the
-  // next kStartAhead chunks are in flight in `ahead`
-  const int32_t* row = rec + static_cast<size_t>(c0) * kAlpha + p;
-  int32_t r_own = c0 + 1 < c1 ? row[0] : -1;
-  int32_t ahead[kStartAhead];
+// the exclusive max-scan of one symbol's row of n tile maxima, by a
+// warp, into the prefix: tile t's key at x[t]
+__device__ __forceinline__ void scan_row(const int32_t* __restrict__ prow,
+                                         int32_t* __restrict__ x, int n,
+                                         int lane) {
+  int32_t carry = -1;
+  for (int b = 0; b < n; b += 32 * kScanBatch) {
+    int32_t v[kScanBatch];
 #pragma unroll
-  for (int k = 0; k < kStartAhead; ++k)
-    ahead[k] = c0 + k + 2 < c1 ? row[(k + 1) * kAlpha] : -1;
-  // the tile's first table: (key, -symbol) as one 64-bit key, so that
-  // ties go to the lower symbol as in the stable sort, and the
-  // positions are a permutation whatever the input
-  const int32_t b = excl[static_cast<size_t>(p) * ntiles + blockIdx.x];
-  const int64_t key = static_cast<int64_t>(b >= 0 ? b : -2 - p) * kAlpha +
-                      (kAlpha - 1 - p);
-  keys[p] = key;
-  recs[0][p] = r_own;
-  if (p < nwords) steps[0][p] = 0u;
-  __syncthreads();
-  int above = 0;
-#pragma unroll 16
-  for (int j = 0; j < kAlpha; ++j) above += keys[j] > key;
-  tab[above] = p;
-  for (int c = c0;; c += kStartAhead) {
+    for (int k = 0; k < kScanBatch; ++k) {
+      const int i = b + 32 * k + lane;
+      v[k] = i < n ? prow[i] : -1;
+    }
 #pragma unroll
-    for (int k = 0; k < kStartAhead; ++k) {
-      const int cc = c + k;
-      const int buf = k & 1;  // kStartAhead is even
-      __syncthreads();
-      const int32_t cur = tab[p];  // the symbol at position p of chunk cc
-      out[static_cast<size_t>(cc) * kAlpha + p] = cur;
-      if (cc + 1 >= c1) return;
-      if (r_own >= 0 && r_own < C)
-        atomicOr(&steps[buf][r_own >> 5], 1u << (r_own & 31));
-      const int32_t rc = recs[buf][cur];
-      const bool seen = rc >= 0;
-      const unsigned bal = __ballot_sync(kFullMask, seen);
-      if (lane == 0) seen_in[buf][warp] = __popc(bal);
-      __syncthreads();
-      const int4 lo = reinterpret_cast<const int4*>(seen_in[buf])[0];
-      const int4 hi = reinterpret_cast<const int4*>(seen_in[buf])[1];
-      const int n[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      int nseen = 0, before = __popc(bal & ((1u << lane) - 1u));
+    for (int k = 0; k < kScanBatch; ++k) {
+      int32_t a = v[k];
 #pragma unroll
-      for (int w = 0; w < kAlpha / 32; ++w) {
-        nseen += n[w];
-        before += w < warp ? n[w] : 0;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int32_t u = __shfl_up_sync(kFullMask, a, o);
+        if (lane >= o) a = max(a, u);
       }
-      int np = nseen + p - before;  // an unseen entry, moved back
-      if (seen) {                   // newest first: the seen steps above rc
-        const int s = min(rc, C - 1);
-        np = __popc(steps[buf][s >> 5] & ~((2u << (s & 31)) - 1u));
-        for (int w = (s >> 5) + 1; w < nwords; ++w)
-          np += __popc(steps[buf][w]);
-        np = min(np, kAlpha - 1);
-      }
-      tab[np] = cur;
-      recs[buf ^ 1][p] = ahead[k];
-      if (p < nwords) steps[buf ^ 1][p] = 0u;
-      r_own = ahead[k];
-      ahead[k] = cc + kStartAhead + 2 < c1
-                     ? row[static_cast<size_t>(cc - c0 + kStartAhead + 1) *
-                           kAlpha]
-                     : -1;
+      int32_t ex = __shfl_up_sync(kFullMask, a, 1);
+      const int i = b + 32 * k + lane;
+      if (i < n)
+        x[i] = max(carry, lane == 0 ? -1 : ex);
+      carry = max(carry, __shfl_sync(kFullMask, a, 31));
     }
   }
+}
+
+__global__ void __launch_bounds__(kStartThreads)
+    mtf_start_kernel(const int32_t* __restrict__ rec,
+                     const int32_t* __restrict__ part,
+                     int32_t* __restrict__ out, StartScratch st, int nchunks,
+                     int C, int T, int ntiles, int split, int nscan,
+                     bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_ticket;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned char* mine = smem + start_warp_bytes(C) * warp;
+  int32_t* ring = reinterpret_cast<int32_t*>(mine);
+  int32_t* tabs = reinterpret_cast<int32_t*>(mine + kStartRingBytes);
+  int32_t* keys = tabs + 2 * kTabEntries;
+  int16_t* inv = reinterpret_cast<int16_t*>(keys + kAlpha);
+  int tb = 0;
+  if (ntiles > 1) {
+    if (threadIdx.x == 0) s_ticket = static_cast<int>(atomicAdd(st.ticket, 1u));
+    __syncthreads();
+    tb = s_ticket;
+  }
+  // K1's tile `tile`, its part `sub` of T / split chunks
+  const int wid = tb * kStartWarps + warp;
+  const int tile = wid / split, sub = wid % split, tw = T / split;
+  const int c0 = tile * T + sub * tw;
+  const int c1 = min(c0 + tw, nchunks);
+  // the tile's first rows in flight while the prefix is scanned
+  if (c0 < c1) {
+#pragma unroll
+    for (int k = 0; k < kStartAhead - 1; ++k) {
+      if (c0 + k < c1) fetch_row(ring + k * kAlpha, rec, c0 + k, vec, lane);
+      cp_async_commit();
+    }
+  }
+  // the scanners first, so that the wait on them holds no fold up
+  if (ntiles > 1 && tb < nscan) {
+    const int per = (kAlpha + nscan - 1) / nscan;
+    const int r1 = min(kAlpha, (tb + 1) * per);
+    for (int r = tb * per + warp; r < r1; r += kStartWarps)
+      scan_row(part + static_cast<size_t>(r) * ntiles,
+               st.excl + static_cast<size_t>(r) * ntiles, ntiles, lane);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) atomicAdd(st.scanned, 1u);
+  }
+  // this part's keys from the tile's chunks before it, kFoldBatch rows
+  // in flight: a seen step's position is above every earlier one, and
+  // above the prefix
+  int32_t key[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) key[j] = -1;
+  if (c0 < c1) {
+    for (int c = tile * T; c < c0; c += kFoldBatch) {
+      int32_t r[kFoldBatch][8];
+#pragma unroll
+      for (int k = 0; k < kFoldBatch; ++k)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          r[k][j] = c + k < c0 ? rec[static_cast<size_t>(c + k) * kAlpha +
+                                     32 * j + lane]
+                               : -1;
+#pragma unroll
+      for (int k = 0; k < kFoldBatch; ++k)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (r[k][j] >= 0) key[j] = (c + k) * C + r[k][j];
+    }
+  }
+  if (ntiles > 1) {
+    if (threadIdx.x == 0)
+      while (ld_acquire(st.scanned) < static_cast<uint32_t>(nscan))
+        __nanosleep(64);  // off the L2 slice the scanners count on
+    __syncthreads();
+  }
+  if (c0 >= c1) return;  // the warp's tile is past the last
+  // the first table: symbol 32j + lane's key, then its place
+  if (ntiles > 1) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      key[j] = max(key[j],
+                   __ldcg(st.excl + tile +
+                          static_cast<size_t>(32 * j + lane) * ntiles));
+  }
+  unsigned bal[8];
+  int nseen = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    bal[j] = __ballot_sync(kFullMask, key[j] >= 0);
+    if (key[j] >= 0) keys[nseen + __popc(bal[j] & ((1u << lane) - 1u))] = key[j];
+    nseen += __popc(bal[j]);
+  }
+  for (int i = lane; i < C; i += 32) inv[i] = -1;
+  inv[C + 32 + lane] = -1;
+  const unsigned lt = (1u << lane) - 1u;
+  __syncwarp();
+  int pos[8], unseen = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const unsigned ub = ~bal[j];
+    pos[j] = nseen + unseen + __popc(ub & ((1u << lane) - 1u));
+    unseen += __popc(ub);
+  }
+  if (nseen > 0) {
+    // minus the count of seen keys above each key, as sign bits: keys
+    // and listed keys are in [-1, 2^31), so key - w does not overflow,
+    // and no compare ties up a predicate register
+    int above[8] = {};
+    int q = 0;
+    for (; q + 4 <= nseen; q += 4) {
+      const int4 w = *reinterpret_cast<const int4*>(keys + q);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        above[j] += ((key[j] - w.x) >> 31) + ((key[j] - w.y) >> 31) +
+                    ((key[j] - w.z) >> 31) + ((key[j] - w.w) >> 31);
+    }
+    for (; q < nseen; ++q) {
+      const int32_t w = keys[q];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) above[j] += (key[j] - w) >> 31;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (key[j] >= 0) pos[j] = min(-above[j], kAlpha - 1);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) tabs[pos[j]] = 32 * j + lane;
+  __syncwarp();
+  int32_t sym[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sym[j] = tabs[32 * j + lane] & (kAlpha - 1);
+  // the walk: chunk c0 + i's table in sym, its row in ring slot i % ring
+  for (int i = 0;; ++i) {
+    const int c = c0 + i;
+    int32_t* o = out + static_cast<size_t>(c) * kAlpha;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[32 * j + lane] = sym[j];
+    if (c + 1 >= c1) break;
+    cp_async_wait<kStartAhead - 2>();
+    __syncwarp();
+    const int32_t* row = ring + (i % kStartAhead) * kAlpha;
+    int32_t rc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) rc[j] = row[sym[j]];
+    // the slot of chunk i - 1, read in the last round
+    if (c + kStartAhead - 1 < c1)
+      fetch_row(ring + ((i + kStartAhead - 1) % kStartAhead) * kAlpha, rec,
+                c + kStartAhead - 1, vec, lane);
+    cp_async_commit();
+    int32_t* nt = tabs + (i & 1) * kTabEntries;
+    // unseen: -1 where the symbol has no step in chunk c, else 0.  A seen
+    // symbol writes itself at its step of the inverse map, an unseen one
+    // at a dummy entry past C; the stores carry no predicate.
+    int un[8], up[8], nun = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      un[j] = -static_cast<int>(static_cast<unsigned>(rc[j]) >=
+                                static_cast<unsigned>(C));
+      inv[rc[j] + (un[j] & (C + lane - rc[j]))] = static_cast<int16_t>(sym[j]);
+      const unsigned ub = __ballot_sync(kFullMask, un[j]);
+      up[j] = nun + __popc(ub & lt);
+      nun += __popc(ub);
+    }
+    __syncwarp();
+    // the seen symbols, newest step first, cleared behind; entries below
+    // step 0 read C + 32 + lane, which stays -1
+    int front = 0;
+    for (int t0 = C - 1; t0 >= 0; t0 -= 128) {
+      // 128 steps at once, their reads issued together
+      int v[4], ta[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int t = t0 - 32 * k - lane;
+        ta[k] = t >= 0 ? t : C + 32 + lane;
+        v[k] = inv[ta[k]];
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) inv[ta[k]] = -1;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const unsigned fb = __ballot_sync(kFullMask, v[k] >= 0);
+        const int at = front + __popc(fb & lt);
+        nt[at + ((v[k] >> 31) & (kAlpha + lane - at))] = v[k];
+        front += __popc(fb);
+      }
+      // every seen symbol found: the entries below were never written
+      if (front == kAlpha - nun) break;
+    }
+    // the unseen keep their order behind them; a seen one writes a dummy
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int at = kAlpha - nun + up[j];
+      nt[kAlpha + lane + (un[j] & (at - kAlpha - lane))] = sym[j];
+    }
+    __syncwarp();
+    // (a symbol whatever the input: off the domain a place may stay
+    // unwritten)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sym[j] = nt[32 * j + lane] & (kAlpha - 1);
+  }
+  cp_async_wait<0>();
 }
 
 }  // namespace
@@ -694,41 +925,96 @@ extern "C" int tplc_mtf_encode_lockstep(const void* table0, const void* syms,
 
 // The start tables' chunks a tile for nchunks chunks: `tile` if it is one
 // of kStartTiles (a hook for tests and chip_smoke.py's sweep), the
-// shape's pick (start_tile) if 0, else -1.  The caller sizes the scratch
-// of tplc_mtf_start_tables by it.
+// shape's pick (start_tile) if 0, else -1 (also when the card does not
+// answer).  The caller sizes K1's tile
+// maxima and the scratch of tplc_mtf_start_tables by it.
 extern "C" int tplc_mtf_start_tile(int nchunks, int tile) {
   if (tile == 0) return start_tile(nchunks);
   return known_tile(tile) ? tile : -1;
 }
 
+namespace {
+
+// The start tables with `split` warps a tile (1, 2, 4 or 8); the
+// arguments as tplc_mtf_start_tables's, checked there.
+int start_tables(const int32_t* r, const int32_t* p, int32_t* out,
+                 void* scratch, int nchunks, int C, int tile, int split,
+                 cudaStream_t s) {
+  const int ntiles = (nchunks + tile - 1) / tile;
+  const int nblk = (ntiles * split + kStartWarps - 1) / kStartWarps;
+  StartScratch st{};
+  int nscan = 0;
+  if (ntiles > 1) {
+    st = start_scratch(scratch);
+    if (p == nullptr) {
+      int32_t* own = st.excl + static_cast<size_t>(kAlpha) * ntiles;
+      mtf_tile_max_kernel<<<ntiles, kAlpha, 0, s>>>(r, own, nchunks, C,
+                                                   tile, ntiles);
+      p = own;
+    }
+    const cudaError_t e = cudaMemsetAsync(scratch, 0, 16, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    nscan = min(nblk, kScanBlocks);
+  }
+  const size_t smem = kStartWarps * start_warp_bytes(C);
+  const cudaError_t e = cudaFuncSetAttribute(
+      mtf_start_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  mtf_start_kernel<<<nblk, kStartThreads, smem, s>>>(
+      r, p, out, st, nchunks, C, tile, ntiles, split, nscan,
+      aligned16(r));
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool start_args_ok(int nchunks, int C, int tile) {
+  return known_tile(tile) && C >= 1 && C <= kMaxStartChunk &&
+         nchunks >= 0 && static_cast<long long>(nchunks) * C <= 0x7fffffffLL;
+}
+
+}  // namespace
+
 // part: K1's tile maxima at this tile (read, not written), or nullptr
-// to compute them here; scratch: int32[256 * ceil(nchunks / tile)];
-// tile one of kStartTiles; 1 <= C <= kMaxStartChunk (the walk's step
-// mask) and nchunks * C < 2^31
+// to compute them here first; tile one of kStartTiles; 1 <= C <=
+// kMaxStartChunk (the inverse map) and nchunks * C < 2^31.  scratch:
+// none for one tile, else int32 words: 4 (the ticket and the scanners'
+// count), 256 * ntiles (the prefix), and 256 * ntiles more when part ==
+// nullptr (the maxima), 16-byte aligned.  A 16-byte memset and one
+// kernel launch; a tile-max launch before them when part == nullptr.
 extern "C" int tplc_mtf_start_tables(const void* rec, void* out,
                                      const void* part, void* scratch,
                                      int nchunks, int C, int tile,
                                      void* stream) {
-  if (!known_tile(tile) || C < 1 || C > kMaxStartChunk || nchunks < 0 ||
-      static_cast<long long>(nchunks) * C > 0x7fffffffLL)
+  if (!start_args_ok(nchunks, C, tile))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (nchunks > 0) {
-    auto* s = static_cast<cudaStream_t>(stream);
-    const auto* r = static_cast<const int32_t*>(rec);
-    auto* excl = static_cast<int32_t*>(scratch);
-    const auto* p = static_cast<const int32_t*>(part);
-    const int ntiles = (nchunks + tile - 1) / tile;
-    if (p == nullptr) {
-      mtf_tile_max_kernel<<<ntiles, kAlpha, 0, s>>>(r, excl, nchunks, C, tile,
-                                                   ntiles);
-      p = excl;
-    }
-    mtf_tile_scan_kernel<<<kAlpha, kScanThreads, 0, s>>>(p, excl, ntiles);
-    mtf_start_walk_kernel<<<ntiles, kAlpha, 0, s>>>(
-        r, excl, static_cast<int32_t*>(out), nchunks, C, tile, ntiles);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (nchunks == 0) return static_cast<int>(cudaGetLastError());
+  const int ntiles = (nchunks + tile - 1) / tile;
+  const int split = start_split(ntiles, tile);
+  if (split < 0) return static_cast<int>(cudaGetLastError());
+  return start_tables(static_cast<const int32_t*>(rec),
+                      static_cast<const int32_t*>(part),
+                      static_cast<int32_t*>(out), scratch, nchunks, C, tile,
+                      split, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef TPLC_MTF_SWEEP
+// chip_smoke.py's comparison builds, never on the wrapper's path: the
+// start tables at any split (1, 2, 4 or 8 warps a tile), with the
+// wrapper's arguments otherwise.
+extern "C" int tplc_mtf_start_tables_sweep(const void* rec, void* out,
+                                           const void* part, void* scratch,
+                                           int nchunks, int C, int tile,
+                                           int split, void* stream) {
+  if (!start_args_ok(nchunks, C, tile) ||
+      (split != 1 && split != 2 && split != 4 && split != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nchunks == 0) return static_cast<int>(cudaGetLastError());
+  return start_tables(static_cast<const int32_t*>(rec),
+                      static_cast<const int32_t*>(part),
+                      static_cast<int32_t*>(out), scratch, nchunks, C, tile,
+                      split, static_cast<cudaStream_t>(stream));
+}
+#endif
 
 // table0 == nullptr starts every chunk from the identity; syms or
 // table_out == nullptr skips that output.  lanes = lanes a chunk (32, 16

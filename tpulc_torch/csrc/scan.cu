@@ -51,7 +51,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
+#include "sm_count.cuh"
 
 namespace {
 
@@ -131,21 +131,6 @@ struct Status {
   uint32_t* counter;
   Word* word;
 };
-
-// the current card's SM count, read once a device (-1 if the card does
-// not answer): the tile pick runs on every call, on the host
-int sm_count() {
-  static std::atomic<int> cached[64];   // 0: not read yet
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (dev < 64 && (sms = cached[dev].load(std::memory_order_relaxed)) > 0)
-    return sms;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-      cudaSuccess)
-    return -1;
-  if (dev < 64) cached[dev].store(sms, std::memory_order_relaxed);
-  return sms;
-}
 
 long long scratch_bytes(long long ntiles) {
   return ntiles > 1 ? 16 + 16 * ntiles : 0;

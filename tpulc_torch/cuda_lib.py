@@ -45,6 +45,7 @@ _SIGNATURES = {
                                _P],
     "tplc_grc_walk_probs": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tplc_grc_reverse_rans": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tplc_grc_reverse_rans_route": [_I],
     "tplc_grc_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tplc_rans_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tplc_rans_encode_lanes": [_I, _I, _I, _I],

@@ -7,8 +7,10 @@ Forward: the MTF table before chunk c is fixed by the last-occurrence
   in the same pass, the max of those positions over each tile of
   chunks; `mtf_start_tables` turns them into each chunk's start table
   (an exclusive max-scan over chunks and a sort by recency,
-  `mtf.py:85-96`; two launches on the card, a scan of the tile maxima
-  and a walk of each tile's chunks), and K2 (`mtf_encode_lockstep`)
+  `mtf.py:85-96`; on the card one launch after a 16-byte memset: the
+  blocks of the first tickets scan the tile maxima into each tile's
+  prefix while the others wait on a count of finished scanners, then a
+  warp walks a tile's chunks), and K2 (`mtf_encode_lockstep`)
   encodes all chunks in lockstep.
 
 Inverse: decoding a rank is a positional permutation of the table, and

@@ -139,6 +139,8 @@ def mtf_recency(syms: torch.Tensor, partials: bool = False, tile: int = 0):
     out = torch.empty((nchunks, ALPHA), dtype=torch.int32, device=syms.device)
     with torch.cuda.device(syms.device):
         tile = lib.tplc_mtf_start_tile(nchunks, tile)
+        if tile <= 0:
+            raise RuntimeError("mtf_recency: the card gave no tile")
         part = torch.empty((ALPHA, -(-nchunks // tile)), dtype=torch.int32,
                            device=syms.device) if partials else None
         if nchunks == 0:   # nothing to launch
@@ -174,6 +176,16 @@ def mtf_start_tables_plain(rec_rel: torch.Tensor, chunk: int) -> torch.Tensor:
     return torch.argsort(-key, dim=1, stable=True).to(torch.int32)
 
 
+def _start_scratch_words(ntiles: int, own_part: bool) -> int:
+    """int32 words of the start tables' scratch (csrc/mtf.cu
+    tplc_mtf_start_tables): none for one tile, else the ticket and the
+    scanners' count (4), the prefix over tiles (256 a tile) and, without
+    K1's maxima, the maxima (256 a tile)."""
+    if ntiles <= 1:
+        return 0
+    return 4 + ALPHA * ntiles * (2 if own_part else 1)
+
+
 def mtf_start_tables(rec_rel: torch.Tensor, chunk: int, tile: int = 0,
                      part: torch.Tensor | None = None) -> torch.Tensor:
     """Start-table wrapper (see `mtf_start_tables_plain`).  Its domain is
@@ -189,9 +201,11 @@ def mtf_start_tables(rec_rel: torch.Tensor, chunk: int, tile: int = 0,
     for tests and `chip_smoke.py`'s sweep, unused on the CPU); 0 lets
     the C entry point pick from the shape and the card.  It changes no
     output.  `part`: K1's tile maxima of these rows at `tile` (from
-    `mtf_recency(..., partials=True)`, which also gives the tile); the
-    kernel then skips its own first pass over the rows.  The CPU route
-    checks and ignores it.  0 chunks give 0 tables."""
+    `mtf_recency(..., partials=True)`, which also gives the tile), read
+    and never written; the kernel then takes them in place of its own
+    first launch over the rows (one memset and one kernel launch a
+    call).  The CPU route checks and ignores it.  0 chunks give 0
+    tables."""
     _check_i32("rec_rel", rec_rel, 2, ALPHA)
     nchunks = rec_rel.shape[0]
     _check_positions(nchunks, chunk)
@@ -211,10 +225,11 @@ def mtf_start_tables(rec_rel: torch.Tensor, chunk: int, tile: int = 0,
     out = torch.empty_like(rec_rel)
     with torch.cuda.device(rec_rel.device):
         tile = lib.tplc_mtf_start_tile(nchunks, tile)
-        if tile < 0:
+        if tile <= 0:
             raise ValueError("tile: not one the kernel is built for")
-        scratch = torch.empty(ALPHA * -(-nchunks // tile), dtype=torch.int32,
-                              device=rec_rel.device)
+        scratch = torch.empty(
+            max(1, _start_scratch_words(-(-nchunks // tile), part is None)),
+            dtype=torch.int32, device=rec_rel.device)
         cuda_lib.check(lib.tplc_mtf_start_tables(
             rec_rel.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(), scratch.data_ptr(),
