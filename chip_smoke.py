@@ -1429,7 +1429,7 @@ def main() -> int:
         }}))
     print(json.dumps({"bz_pg1661x6_profile": path_profile(
         torch, lambda: driver.compress(data, block_size=BLOCK, device="cuda"),
-        lambda c: driver.decompress(c, device="cuda"), len(data),
+        lambda c: driver.decompress(c, device="cuda"),
         forbid=NO_TORCH_SCANS)}), flush=True)
     huffman_phases(torch, here, dev, kernels)
     bsc_phases(torch, here, dev, kernels)
@@ -2523,7 +2523,7 @@ def huffman_phases(torch, here: str, dev, kernels: list) -> None:
     print(json.dumps({"huffman_100MB_profile": path_profile(
         torch,
         lambda: hdrv.compress(big, block_size=HUFF_BLOCK, device="cuda"),
-        lambda c: hdrv.decompress(c, device="cuda"), HUFF_SIZE)}),
+        lambda c: hdrv.decompress(c, device="cuda"))}),
         flush=True)
 
 
@@ -2840,7 +2840,7 @@ def warm_runs(torch, compress, decompress, data: bytes, reps: int) -> dict:
         c, tc = synced(torch, compress)
         back, td = synced(torch, lambda: decompress(c))
         if timer is not None:
-            stages = timer.report(total_bytes=len(data))
+            stages = timer.report()
             timing.disable()
         require(back == data, "warm round trip is not exact")
         cs.append(tc)
@@ -3148,7 +3148,7 @@ def st_phase(torch, here: str, kernels: list) -> None:
             [(ra, "abc_encode_walk"), (ra, "abc_decode_walk"),
              (mtf_mod, "mtf_encode_lockstep")],
             lambda: counted(torch, path, round_trip))
-        stages = timer.report(total_bytes=len(data))
+        stages = timer.report()
         timing.disable()
         peak = torch.cuda.max_memory_allocated()
         sha = hashlib.sha256(comp).hexdigest()
@@ -3272,7 +3272,7 @@ def lz_phase(torch, here: str, kernels: list) -> None:
     ((comp, back), dt, counts), calls = spying(
         [(mtf_mod, "mtf_encode_lockstep")],
         lambda: counted(torch, path, round_trip))
-    stages = timer.report(total_bytes=len(data))
+    stages = timer.report()
     timing.disable()
     peak = torch.cuda.max_memory_allocated()
     sha = hashlib.sha256(comp).hexdigest()
@@ -3336,7 +3336,7 @@ def lz_phase(torch, here: str, kernels: list) -> None:
     lzd.lzss_decode_device.synced_steps = 0
     back, td = synced(torch, lambda: decompress(comp))
     steps = lzd.lzss_decode_device.synced_steps
-    stages = timer.report(total_bytes=len(data))
+    stages = timer.report()
     timing.disable()
     peak = torch.cuda.max_memory_allocated()
     sha = hashlib.sha256(comp).hexdigest()
@@ -3447,7 +3447,7 @@ def culzss_phase(torch, here: str, kernels: list) -> None:
         core.culzss_decode_block.rounds = 0
         back, td, n_d = counted(torch, wrappers, lambda: decompress(comp))
         rounds = core.culzss_decode_block.rounds
-        stages = timer.report(total_bytes=len(data))
+        stages = timer.report()
         timing.disable()
         peak = torch.cuda.max_memory_allocated()
         sha = hashlib.sha256(comp).hexdigest()
@@ -3487,7 +3487,7 @@ def culzss_phase(torch, here: str, kernels: list) -> None:
     core.culzss_decode_block.rounds = 0
     back, td = synced(torch, lambda: decompress(comp))
     peak_d = torch.cuda.max_memory_allocated()
-    stages = timer.report(total_bytes=len(big))
+    stages = timer.report()
     timing.disable()
     require(back == big, "culzss 100 MB soup: round trip is not exact")
     packets = sum(-(-min(len(big) - s, CULZSS_BLOCK) // core.PCKT)
@@ -4115,8 +4115,7 @@ def traced(torch, fn, keep: list | None = None,
                     for k, (us, n) in top]}
 
 
-def path_profile(torch, compress, decompress, total_bytes: int,
-                 forbid: tuple = ()) -> dict:
+def path_profile(torch, compress, decompress, forbid: tuple = ()) -> dict:
     """Where a warm round trip's time goes: the codec's own stage
     timers over one compress() and one decompress(comp), then each
     under torch.profiler (`traced`, no op of `forbid` allowed)."""
@@ -4125,7 +4124,7 @@ def path_profile(torch, compress, decompress, total_bytes: int,
     timer = timing.enable()
     comp, _ = synced(torch, compress)
     synced(torch, lambda: decompress(comp))
-    stages = timer.report(total_bytes=total_bytes)
+    stages = timer.report()
     timing.disable()
     return {"stages": stages,
             "compress": traced(torch, compress, forbid=forbid),

@@ -72,7 +72,9 @@ def _parse(argv):
         q.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                        help="where the codec runs (cuda raises when absent)")
         q.add_argument("--timings", action="store_true",
-                       help="print per-stage timing JSON to stderr")
+                       help="print the seconds of each stage, then every "
+                       "span, the waits by site and their totals, as two "
+                       "JSON lines on stderr")
     n = sub.add_parser("info", help="inspect a container without decoding")
     n.add_argument("-i", "--input", required=True)
     return p.parse_args(argv)
@@ -169,7 +171,8 @@ def main(argv=None) -> int:
     with open(args.output, "wb") as f:
         f.write(out)
     if timer is not None:
-        print(timer.json(total_bytes=len(data)), file=sys.stderr)
+        print(timer.json(), file=sys.stderr)
+        print(json.dumps(timer.trace()), file=sys.stderr)
     return 0
 
 

@@ -345,7 +345,9 @@ def _ctx_stats(syms: torch.Tensor, m):
     ctx = ctx_of_stream(syms)
     valid = torch.arange(syms.shape[0], device=syms.device) < m
     key = torch.where(valid, ctx * ALPHABET + syms, NCTX * ALPHABET)
-    hists = torch.bincount(key, minlength=NCTX * ALPHABET + 1)
+    # bincount reads its input's min and max back to size its bins
+    hists = timing.wait(torch.bincount, key, None, NCTX * ALPHABET + 1,
+                        syncs=2, nbytes=2 * key.element_size())
     return hists[: NCTX * ALPHABET].reshape(NCTX, ALPHABET), ctx
 
 
@@ -355,8 +357,10 @@ def _meta(m, idx0, ok, anchors, hists, ctx) -> torch.Tensor:
     (lanes)]."""
     dev = hists.device
     return torch.cat([
-        torch.stack([torch.as_tensor(v, device=dev).to(torch.int64)
-                     for v in (m, idx0, ok)]),
+        torch.stack([
+            v.to(torch.int64) if isinstance(v, torch.Tensor)
+            else timing.upload(torch.tensor(v, dtype=torch.int64), dev)
+            for v in (m, idx0, ok)]),
         anchors.to(torch.int64), hists.reshape(-1),
         ctx.reshape(-1, CHUNK)[:, 0].to(torch.int64)])
 
@@ -367,8 +371,9 @@ def _fwd_packed(padded: torch.Tensor, n: int):
     coder."""
     syms, m, idx0, anchors, a_ok = forward_masked_anchored(
         padded, n, ANCHOR_STRIDE)
-    hists, ctx = _ctx_stats(syms, m)
-    return syms, ctx, _meta(m, idx0, int(a_ok), anchors, hists, ctx)
+    with timing.stage("bsc.stats"):
+        hists, ctx = _ctx_stats(syms, m)
+        return syms, ctx, _meta(m, idx0, int(a_ok), anchors, hists, ctx)
 
 
 def _rle_stats(last: torch.Tensor, n: int, idx0):
@@ -438,8 +443,9 @@ def _rans_payload(fq, used: int, counts_np, nwords: int, a_ok: bool,
 def _pull_words(words, counts, states):
     """One coder's lanes -> host (counts int64[L], states int64[L],
     words uint16, all lanes' streams back to back)."""
-    small = torch.cat([counts, states]).cpu().numpy()
-    flat = compact_words(words, counts).cpu().numpy().view("<u2")
+    small = timing.wait(torch.Tensor.cpu, torch.cat([counts, states])).numpy()
+    flat = timing.wait(torch.Tensor.cpu,
+                       compact_words(words, counts)).numpy().view("<u2")
     return small[: counts.shape[0]], small[counts.shape[0]:], flat
 
 
@@ -448,8 +454,8 @@ def _encode_rans(syms2, gctx2, ms, fqs: np.ndarray, dev):
     B = fqs.shape[0]
     fq = fqs.reshape(B * NCTX, ALPHABET)
     return _pull_words(*rans_encode_ctx_batch(
-        syms2, gctx2, ms, torch.from_numpy(fq).to(dev),
-        torch.from_numpy(_cum_of(fq)).to(dev)))
+        syms2, gctx2, ms, timing.upload(fq, dev),
+        timing.upload(_cum_of(fq), dev)))
 
 
 def _stored(block: np.ndarray, coder: int) -> bytes:
@@ -547,11 +553,17 @@ def _compress_batched(blocks: list[np.ndarray], block_cap: int,
            else partial(_fwd_packed_st, k=k_sort) if k_sort else _fwd_packed)
     with timing.stage("bsc.transform"):
         devs = []
-        for _, stage in stages:
-            padded = np.zeros(tcap, np.uint8)
-            padded[: stage.shape[0]] = stage
-            devs.append(fwd(torch.from_numpy(padded).to(dev), stage.shape[0]))
-        metas = torch.stack([d[2] for d in devs]).cpu().numpy()  # one pull
+        for b, (_, stage) in enumerate(stages):
+            timing.next_block(b)
+            with timing.stage("bsc.block"):
+                with timing.stage("bsc.upload"):
+                    padded = np.zeros(tcap, np.uint8)
+                    padded[: stage.shape[0]] = stage
+                    block_t = timing.upload(padded, dev)
+                devs.append(fwd(block_t, stage.shape[0]))
+        with timing.stage("bsc.meta"):  # one pull
+            metas = timing.wait(torch.Tensor.cpu,
+                                torch.stack([d[2] for d in devs])).numpy()
     ms = metas[:, 0]
     heads = [(st.shape[0], int(ms[b]), int(metas[b, 1]), flags_l[b])
              for b, (_, st) in enumerate(stages)]
@@ -562,33 +574,35 @@ def _compress_batched(blocks: list[np.ndarray], block_cap: int,
         del devs
         return _finish_blocks_abc(syms2, ms, stages, heads, fbs, oks,
                                   anchors, aw, dev)
-    hists = metas[:, 3 + r_cap: 3 + r_cap + NCTX * ALPHABET].reshape(
-        -1, NCTX, ALPHABET)
-    fqs = np.stack([normalize_freqs_ctx(h) for h in hists])
+    with timing.stage("bsc.freqs"):
+        hists = metas[:, 3 + r_cap: 3 + r_cap + NCTX * ALPHABET].reshape(
+            -1, NCTX, ALPHABET)
+        fqs = np.stack([normalize_freqs_ctx(h) for h in hists])
     lcap = max(1, scap // CHUNK)
     with timing.stage("bsc.rans"):
         offs = (torch.arange(len(blocks), device=dev) * NCTX)[:, None]
         counts_np, states_np, flat = _encode_rans(
             syms2, torch.stack([d[1] for d in devs]) + offs, ms, fqs, dev)
         del devs, syms2
-    lane_offs = np.concatenate([[0], np.cumsum(counts_np)])
-    payloads = []
-    for b, (orig, stage) in enumerate(stages):
-        used = max(1, -(-int(ms[b]) // CHUNK))
-        lane0 = b * lcap
-        cnts = counts_np[lane0: lane0 + used]
-        nwords = int(cnts.sum())
-        payload = _rans_payload(
-            fqs[b], used, cnts, nwords, bool(oks[b]),
-            max(1, -(-stage.shape[0] // ANCHOR_STRIDE)), aw, orig.shape[0],
-            heads[b], fbs[b], anchors[b],
-            metas[b, 3 + r_cap + NCTX * ALPHABET:],
-            states_np[lane0: lane0 + used],
-            flat[lane_offs[lane0]: lane_offs[lane0] + nwords])
-        # tpulc stores with the `coder` argument here (`:1140`), which
-        # is CODER_RANS on every call that reaches this path
-        payloads.append(payload if payload is not None
-                        else _stored(orig, CODER_RANS))
+    with timing.stage("bsc.payload"):
+        lane_offs = np.concatenate([[0], np.cumsum(counts_np)])
+        payloads = []
+        for b, (orig, stage) in enumerate(stages):
+            used = max(1, -(-int(ms[b]) // CHUNK))
+            lane0 = b * lcap
+            cnts = counts_np[lane0: lane0 + used]
+            nwords = int(cnts.sum())
+            payload = _rans_payload(
+                fqs[b], used, cnts, nwords, bool(oks[b]),
+                max(1, -(-stage.shape[0] // ANCHOR_STRIDE)), aw, orig.shape[0],
+                heads[b], fbs[b], anchors[b],
+                metas[b, 3 + r_cap + NCTX * ALPHABET:],
+                states_np[lane0: lane0 + used],
+                flat[lane_offs[lane0]: lane_offs[lane0] + nwords])
+            # tpulc stores with the `coder` argument here (`:1140`), which
+            # is CODER_RANS on every call that reaches this path
+            payloads.append(payload if payload is not None
+                            else _stored(orig, CODER_RANS))
     return payloads
 
 
@@ -659,29 +673,38 @@ def compress(data: bytes | np.ndarray, block_size: int = DEFAULT_BLOCK,
     if coder not in (CODER_RANS, CODER_ABC):
         raise ValueError(f"bsc compress takes coder 1 or 2, not {coder}")
     k_sort, wired = _sorter_k(sorter)
-    dev = resolve(device)
-    arr = np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray)) \
-        else np.asarray(data, np.uint8)
-    starts = range(0, max(arr.shape[0], 1), block_size)
-    blocks = [arr[s: s + block_size] for s in starts]
-    segs = [detect_segments_gated(b) if filter_mode == "auto" else None
-            for b in blocks]
-    if any(sl is not None and len(sl) > 1 for sl in segs) or wired \
-            or (coder == CODER_ABC and not k_sort):
-        # a segmented input, st8w or the group-rank coder: block by block
-        payloads = [compress_block(b, block_size, use_lzp, sorter,
-                                   filter_mode, coder, _segments=sl,
-                                   device=dev)
-                    for b, sl in zip(blocks, segs)]
-    else:
-        payloads = _compress_batched(blocks, block_size, use_lzp,
-                                     filter_mode, dev, sorter, coder)
-    c = Container(
-        codec_id=CODEC_BSC, flags=0, orig_len=arr.shape[0],
-        block_size=block_size, comp_sizes=[len(p) for p in payloads],
-        payloads=payloads, data_adler=adler32_np(arr),
-    )
-    return c.to_bytes()
+    with timing.stage("bsc.compress"):
+        dev = resolve(device)
+        arr = np.frombuffer(data, np.uint8) \
+            if isinstance(data, (bytes, bytearray)) \
+            else np.asarray(data, np.uint8)
+        starts = range(0, max(arr.shape[0], 1), block_size)
+        blocks = [arr[s: s + block_size] for s in starts]
+        with timing.stage("bsc.detect"):
+            segs = [detect_segments_gated(b) if filter_mode == "auto"
+                    else None for b in blocks]
+        if any(sl is not None and len(sl) > 1 for sl in segs) or wired \
+                or (coder == CODER_ABC and not k_sort):
+            # a segmented input, st8w or the group-rank coder: block by
+            # block
+            payloads = []
+            for i, (b, sl) in enumerate(zip(blocks, segs)):
+                timing.next_block(i)
+                with timing.stage("bsc.block"):
+                    payloads.append(compress_block(
+                        b, block_size, use_lzp, sorter, filter_mode, coder,
+                        _segments=sl, device=dev))
+        else:
+            payloads = _compress_batched(blocks, block_size, use_lzp,
+                                         filter_mode, dev, sorter, coder)
+        with timing.stage("bsc.adler32"):
+            adler = adler32_np(arr)
+        with timing.stage("bsc.container"):
+            return Container(
+                codec_id=CODEC_BSC, flags=0, orig_len=arr.shape[0],
+                block_size=block_size, comp_sizes=[len(p) for p in payloads],
+                payloads=payloads, data_adler=adler,
+            ).to_bytes()
 
 
 # ---------------------------------------------------------- decompress
@@ -862,20 +885,21 @@ def _syms_rans(blocks: list[tuple], dcap: int, dev) -> torch.Tensor:
     context -> syms int32[B, dcap]."""
     B = len(blocks)
     lcap = max(1, dcap // CHUNK)
-    counts, states, flat = _lane_rows(blocks, lcap)
-    fctx = np.repeat(np.arange(B, dtype=np.int64) * NCTX, lcap)
-    fq = np.zeros((B * NCTX, ALPHABET), np.int32)
-    for j, b in enumerate(blocks):
-        fctx[j * lcap: j * lcap + b[8].shape[0]] += b[8]
-        fq[j * NCTX: (j + 1) * NCTX] = b[7]
+    with timing.stage("bsc.lanes"):
+        counts, states, flat = _lane_rows(blocks, lcap)
+        fctx = np.repeat(np.arange(B, dtype=np.int64) * NCTX, lcap)
+        fq = np.zeros((B * NCTX, ALPHABET), np.int32)
+        for j, b in enumerate(blocks):
+            fctx[j * lcap: j * lcap + b[8].shape[0]] += b[8]
+            fq[j * NCTX: (j + 1) * NCTX] = b[7]
     with timing.stage("bsc.rans.decode"):
-        freq_d = torch.from_numpy(fq).to(dev)
-        cum_d = torch.from_numpy(_cum_of(fq)).to(dev)
-        counts_d = torch.from_numpy(counts).to(dev)
+        freq_d = timing.upload(fq, dev)
+        cum_d = timing.upload(_cum_of(fq), dev)
+        counts_d = timing.upload(counts, dev)
         return rans_decode_ctx_batch(
-            expand_words(torch.from_numpy(flat).to(dev), counts_d),
-            counts_d, torch.from_numpy(states).to(dev),
-            torch.from_numpy(fctx).to(dev), [b[2] for b in blocks], freq_d,
+            expand_words(timing.upload(flat, dev), counts_d),
+            counts_d, timing.upload(states, dev),
+            timing.upload(fctx, dev), [b[2] for b in blocks], freq_d,
             cum_d, slot_table(freq_d, cum_d), B)
 
 
@@ -914,12 +938,15 @@ def _inverse(syms: torch.Tensor, blk: tuple, dev) -> np.ndarray:
             if anchors is None:
                 stage = inverse_masked(syms, m, m_lzp, idx0)
             else:
-                anch_p = np.full(-(-dcap // ANCHOR_STRIDE), idx0, np.int32)
-                anch_p[: anchors.shape[0]] = anchors
-                stage = inverse_masked_anchored(
-                    syms, m, m_lzp, torch.from_numpy(anch_p).to(dev),
-                    ANCHOR_STRIDE)
-            return stage[:m_lzp].cpu().numpy()
+                with timing.stage("bsc.upload"):
+                    anch_p = np.full(-(-dcap // ANCHOR_STRIDE), idx0,
+                                     np.int32)
+                    anch_p[: anchors.shape[0]] = anchors
+                    anch_t = timing.upload(anch_p, dev)
+                stage = inverse_masked_anchored(syms, m, m_lzp, anch_t,
+                                                ANCHOR_STRIDE)
+            with timing.stage("bsc.pull"):
+                return timing.wait(torch.Tensor.cpu, stage[:m_lzp]).numpy()
         last = mtf_decode(rle2_decode(syms, m)[0])
     with timing.stage("bsc.unsort"):
         if not wired:
@@ -932,14 +959,21 @@ def _inverse(syms: torch.Tensor, blk: tuple, dev) -> np.ndarray:
         return stage[:m_lzp].cpu().numpy()
 
 
-def _decode_blocks(blocks: list[tuple], cap: int, dev,
+def _decode_blocks(blocks: dict[int, tuple], cap: int, dev,
                    coder: int) -> list[np.ndarray]:
-    """Coder-1 or adaptive-coder blocks (their `*_block_args`) -> each
-    block's LZP-stage bytes: one batched decode, then each inverse."""
-    dcap = _dcap_all(blocks, cap)
+    """Coder-1 or adaptive-coder blocks (their `*_block_args`, by block
+    index) -> each block's LZP-stage bytes: one batched decode, then
+    each inverse."""
+    rows = list(blocks.values())
+    dcap = _dcap_all(rows, cap)
     syms2 = (_syms_rans if coder == CODER_RANS else _syms_abc)(
-        blocks, dcap, dev)
-    return [_inverse(syms2[j], b, dev) for j, b in enumerate(blocks)]
+        rows, dcap, dev)
+    stages = []
+    for j, (i, b) in enumerate(blocks.items()):
+        timing.next_block(i)
+        with timing.stage("bsc.block"):
+            stages.append(_inverse(syms2[j], b, dev))
+    return stages
 
 
 def _unstage(stage: np.ndarray, n: int, flags: int, filt: int) -> np.ndarray:
@@ -984,7 +1018,7 @@ def decompress_block(payload: bytes, block_cap: int,
         return np.concatenate(parts)
     if coder in _BLOCK_ARGS:
         blk = _BLOCK_ARGS[coder](payload, block_cap)
-        (stage,) = _decode_blocks([blk], _cap_for(block_cap), dev, coder)
+        (stage,) = _decode_blocks({0: blk}, _cap_for(block_cap), dev, coder)
         return _unstage(stage, n, flags, blk[5])
     if coder != CODER_GRC:
         raise ValueError(f"bad bsc payload: unknown coder {coder}")
@@ -1010,27 +1044,40 @@ def decompress(buf: bytes, device: str | None = None) -> bytes:
     batched decode and adaptive-coder blocks another (tpulc's "block"
     and "ablock" batches); stored, segmented, group-rank and st8w
     payloads go block by block."""
-    dev = resolve(device)
-    c = Container.from_bytes(buf)
-    if c.codec_id != CODEC_BSC:
-        raise ValueError(f"not a bsc container (codec {c.codec_id})")
-    batches = {CODER_RANS: {}, CODER_ABC: {}}
-    for i, p in enumerate(c.payloads):
-        flags, coder = _HEAD.unpack(p[: _HEAD.size])[5:]
-        if coder in batches and not flags & FLAG_STORED \
-                and not _sorter_k_of_flags(flags)[1]:
-            batches[coder][i] = _BLOCK_ARGS[coder](p, c.block_size)
-    outs = {}
-    for coder, batch in batches.items():
-        if not batch:
-            continue
-        stages = _decode_blocks(list(batch.values()), _cap_for(c.block_size),
-                                dev, coder)
-        for (i, blk), stage in zip(batch.items(), stages):
-            outs[i] = _unstage(stage, blk[0], blk[4], blk[5])
-    parts = [outs[i] if i in outs else decompress_block(p, c.block_size, dev)
-             for i, p in enumerate(c.payloads)]
-    out = b"".join(x.tobytes() for x in parts)[: c.orig_len]
-    if not c.verify_data(np.frombuffer(out, np.uint8)):
-        raise ValueError("data checksum mismatch after decompress")
-    return out
+    with timing.stage("bsc.decompress"):
+        dev = resolve(device)
+        with timing.stage("bsc.container"):
+            c = Container.from_bytes(buf)
+        if c.codec_id != CODEC_BSC:
+            raise ValueError(f"not a bsc container (codec {c.codec_id})")
+        batches = {CODER_RANS: {}, CODER_ABC: {}}
+        with timing.stage("bsc.parse"):
+            for i, p in enumerate(c.payloads):
+                flags, coder = _HEAD.unpack(p[: _HEAD.size])[5:]
+                if coder in batches and not flags & FLAG_STORED \
+                        and not _sorter_k_of_flags(flags)[1]:
+                    batches[coder][i] = _BLOCK_ARGS[coder](p, c.block_size)
+        outs = {}
+        for coder, batch in batches.items():
+            if not batch:
+                continue
+            stages = _decode_blocks(batch, _cap_for(c.block_size), dev,
+                                    coder)
+            for (i, blk), stage in zip(batch.items(), stages):
+                timing.next_block(i)
+                with timing.stage("bsc.block"):
+                    outs[i] = _unstage(stage, blk[0], blk[4], blk[5])
+        parts = []
+        for i, p in enumerate(c.payloads):
+            if i not in outs:
+                timing.next_block(i)
+                with timing.stage("bsc.block"):
+                    outs[i] = decompress_block(p, c.block_size, dev)
+            parts.append(outs[i])
+        with timing.stage("bsc.join"):
+            out = b"".join(x.tobytes() for x in parts)[: c.orig_len]
+        with timing.stage("bsc.adler32"):
+            ok = c.verify_data(np.frombuffer(out, np.uint8))
+        if not ok:
+            raise ValueError("data checksum mismatch after decompress")
+        return out

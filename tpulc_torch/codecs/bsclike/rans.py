@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from tpulc_torch import cuda_lib
+from tpulc_torch.utils import timing
 
 # 14-bit quantisation: each present symbol of the 257-symbol alphabet
 # takes at least one slot
@@ -162,7 +163,7 @@ _RCP: dict = {}
 def _rcp(dev: torch.device) -> torch.Tensor:
     """`rcp_table` as int32 on dev, made once a device."""
     if dev not in _RCP:
-        _RCP[dev] = torch.from_numpy(rcp_table().view(np.int32)).to(dev)
+        _RCP[dev] = timing.upload(rcp_table().view(np.int32), dev)
     return _RCP[dev]
 
 
@@ -175,7 +176,8 @@ def _lane_counts(ms, B: int, nlanes: int, chunk: int,
                  dev: torch.device) -> torch.Tensor:
     """Valid symbols of each lane (block-major) -> int32[B * nlanes]: a
     block's position p is valid while p < ms[block]."""
-    ms_t = torch.as_tensor(ms, dtype=torch.int64, device=dev).reshape(B, 1)
+    ms_t = timing.upload(torch.as_tensor(ms, dtype=torch.int64),
+                         dev).reshape(B, 1)
     pos0 = torch.arange(nlanes, device=dev) * chunk
     return (ms_t - pos0).clamp(0, chunk).reshape(-1).to(torch.int32)
 
@@ -421,7 +423,8 @@ def compact_words(words: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     concatenation of each row's first counts[l] words."""
     W = words.shape[1]
     valid = torch.arange(W, device=words.device)[None, :] < counts[:, None]
-    return words[valid]
+    # a mask select reads its count back to size the output
+    return timing.wait(torch.Tensor.__getitem__, words, valid, nbytes=8)
 
 
 def expand_words(flat: torch.Tensor, counts: torch.Tensor,

@@ -131,8 +131,12 @@ def _forward(block: torch.Tensor):
     without its histogram): anchored BWT -> MTF (K1, the start tables,
     K2) -> RLE2 -> (syms int32[cap], m int64 0-dim, idx0 int, anchors
     int32[R], ok bool)."""
-    last, idx0, anchors, ok = bwt_encode_anchored(block, ANCHOR_STRIDE)
-    syms, m = rle2_encode(mtf_encode(last))
+    with timing.stage("bz.bwt"):
+        last, idx0, anchors, ok = bwt_encode_anchored(block, ANCHOR_STRIDE)
+    with timing.stage("bz.mtf"):
+        ranks = mtf_encode(last)
+    with timing.stage("bz.rle2"):
+        syms, m = rle2_encode(ranks)
     return syms, m, idx0, anchors, ok
 
 
@@ -147,33 +151,39 @@ def _compress_block(block: torch.Tensor, n: int) -> bytes:
 
     with timing.stage("bz.transform"):
         syms, m_t, idx0, anchors, ok = _forward(block)
-        m = int(m_t)
+        with timing.stage("bz.rle2.count"):
+            m = timing.wait(int, m_t)
     with timing.stage("bz.tables"):
-        sel, clhist = refine_tables(syms, m, CHUNK_SYMS, K)
-        hist_all = clhist.sum(dim=0)
-        lens_all = package_merge_lengths_device(
-            torch.cat([clhist, hist_all[None]]), MAX_LEN).to(torch.int64)
-        lens_mt, lens_single = lens_all[:K], lens_all[K]
-        used_chunks = max(1, -(-m // CHUNK_SYMS))
-        live = (torch.arange(nchunks, device=dev) * CHUNK_SYMS) < m
-        tab_used = torch.zeros(K, dtype=torch.int64, device=dev).scatter_reduce(
-            0, torch.where(live, sel[:nchunks], 0), live.to(torch.int64),
-            "amax")
-        n_used, tb_mt, tb_single = torch.stack([
-            tab_used.sum(), (clhist * lens_mt).sum(),
-            (hist_all * lens_single).sum()]).tolist()
-        # exact host pricing: K byte + extra length tables + selectors
-        extra_bits = 8 * (1 + (n_used - 1) * _NIBBLES
-                          + (used_chunks * SEL_BITS + 7) // 8)
-        use_mt = ok and n_used >= 2 and tb_mt + extra_bits < tb_single
-        if use_mt:
-            lens_eff, sel_eff = lens_mt, sel[:nchunks]
-        else:
-            lens_eff = torch.zeros((K, ALPHABET), dtype=torch.int64,
-                                   device=dev)
-            lens_eff[0] = lens_single
-            sel_eff = torch.zeros(nchunks, dtype=torch.int64, device=dev)
-        codes_eff, _ = canonical_codes_device(lens_eff, MAX_LEN)
+        with timing.stage("bz.tables.refine"):
+            sel, clhist = refine_tables(syms, m, CHUNK_SYMS, K)
+        with timing.stage("bz.tables.lengths"):
+            hist_all = clhist.sum(dim=0)
+            lens_all = package_merge_lengths_device(
+                torch.cat([clhist, hist_all[None]]), MAX_LEN).to(torch.int64)
+            lens_mt, lens_single = lens_all[:K], lens_all[K]
+        with timing.stage("bz.tables.price"):
+            used_chunks = max(1, -(-m // CHUNK_SYMS))
+            live = (torch.arange(nchunks, device=dev) * CHUNK_SYMS) < m
+            tab_used = torch.zeros(K, dtype=torch.int64,
+                                   device=dev).scatter_reduce(
+                0, torch.where(live, sel[:nchunks], 0), live.to(torch.int64),
+                "amax")
+            n_used, tb_mt, tb_single = timing.wait(
+                torch.Tensor.tolist, torch.stack([
+                    tab_used.sum(), (clhist * lens_mt).sum(),
+                    (hist_all * lens_single).sum()]))
+            # exact host pricing: K byte + extra length tables + selectors
+            extra_bits = 8 * (1 + (n_used - 1) * _NIBBLES
+                              + (used_chunks * SEL_BITS + 7) // 8)
+            use_mt = ok and n_used >= 2 and tb_mt + extra_bits < tb_single
+            if use_mt:
+                lens_eff, sel_eff = lens_mt, sel[:nchunks]
+            else:
+                lens_eff = torch.zeros((K, ALPHABET), dtype=torch.int64,
+                                       device=dev)
+                lens_eff[0] = lens_single
+                sel_eff = torch.zeros(nchunks, dtype=torch.int64, device=dev)
+            codes_eff, _ = canonical_codes_device(lens_eff, MAX_LEN)
     with timing.stage("bz.entropy"):
         valid = torch.arange(cap, device=dev) < m
         ctx = torch.repeat_interleave(sel_eff, CHUNK_SYMS)[:cap]
@@ -186,70 +196,78 @@ def _compress_block(block: torch.Tensor, n: int) -> bytes:
         chunk_offsets = off.reshape(-1, CHUNK_SYMS)[:nchunks, 0]
         chunk_offsets = torch.where(live, chunk_offsets, total_bits)
     with timing.stage("bz.pull"):
-        meta = torch.cat([total_bits.reshape(1), lens_eff.reshape(-1),
-                          anchors.to(torch.int64), sel_eff,
-                          chunk_offsets]).cpu().numpy()
+        meta = timing.wait(torch.Tensor.cpu, torch.cat([
+            total_bits.reshape(1), lens_eff.reshape(-1),
+            anchors.to(torch.int64), sel_eff, chunk_offsets])).numpy()
         tb = int(meta[0])
         nw = -(-tb // 32)
-        ent = words[:nw].cpu().numpy().astype("<u4")
-    o = 1
-    lens_eff_np = meta[o: o + K * ALPHABET].reshape(K, ALPHABET)
-    o += K * ALPHABET
-    anchors_np = meta[o: o + R]
-    o += R
-    sels = meta[o: o + nchunks].astype(np.uint8)
-    o += nchunks
-    offs = meta[o: o + nchunks][:used_chunks]
+        ent = timing.wait(torch.Tensor.cpu, words[:nw]).numpy().astype("<u4")
+    with timing.stage("bz.payload"):
+        o = 1
+        lens_eff_np = meta[o: o + K * ALPHABET].reshape(K, ALPHABET)
+        o += K * ALPHABET
+        anchors_np = meta[o: o + R]
+        o += R
+        sels = meta[o: o + nchunks].astype(np.uint8)
+        o += nchunks
+        offs = meta[o: o + nchunks][:used_chunks]
 
-    if use_mt:
-        used_tabs = np.unique(sels[:used_chunks])
-        remap = np.zeros(K, np.uint8)
-        remap[used_tabs] = np.arange(len(used_tabs), dtype=np.uint8)
-        lens = lens_eff_np[used_tabs]
-    else:
-        lens = lens_eff_np[:1]
-    # anchors pay off only when they are a sliver of the payload
-    anchored = ok and (use_mt or _anchor_bytes(R) * 20 < nw * 4)
-    mode = (1 if anchored else 0) | (2 if use_mt else 0)
-    payload = _BLOCK_HEAD.pack(n, m, idx0, tb, mode)
-    if use_mt:
-        payload += bytes([len(lens)])
-    payload += b"".join(_nibbles(lk) for lk in lens)
-    payload += struct.pack("<I", used_chunks)
-    payload += struct.pack("<I", int(offs[0]))
-    payload += pack_fields_np(np.diff(offs), DELTA_BITS)
-    if use_mt:
-        payload += pack_fields_np(
-            remap[sels[:used_chunks]].astype(np.uint32), SEL_BITS)
-    if mode & 1:
-        a = anchors_np.astype(np.uint32)
-        payload += struct.pack("<I", a.shape[0]) + _pack_anchors(a)
-    payload += ent.tobytes()
-    return payload
+        if use_mt:
+            used_tabs = np.unique(sels[:used_chunks])
+            remap = np.zeros(K, np.uint8)
+            remap[used_tabs] = np.arange(len(used_tabs), dtype=np.uint8)
+            lens = lens_eff_np[used_tabs]
+        else:
+            lens = lens_eff_np[:1]
+        # anchors pay off only when they are a sliver of the payload
+        anchored = ok and (use_mt or _anchor_bytes(R) * 20 < nw * 4)
+        mode = (1 if anchored else 0) | (2 if use_mt else 0)
+        payload = _BLOCK_HEAD.pack(n, m, idx0, tb, mode)
+        if use_mt:
+            payload += bytes([len(lens)])
+        payload += b"".join(_nibbles(lk) for lk in lens)
+        payload += struct.pack("<I", used_chunks)
+        payload += struct.pack("<I", int(offs[0]))
+        payload += pack_fields_np(np.diff(offs), DELTA_BITS)
+        if use_mt:
+            payload += pack_fields_np(
+                remap[sels[:used_chunks]].astype(np.uint32), SEL_BITS)
+        if mode & 1:
+            a = anchors_np.astype(np.uint32)
+            payload += struct.pack("<I", a.shape[0]) + _pack_anchors(a)
+        payload += ent.tobytes()
+        return payload
 
 
 def compress(data: bytes | np.ndarray, block_size: int = 900_000,
              device: str | None = None) -> bytes:
     """bytes -> bz container, every block transformed on `device`
     (default "cuda"; raises when CUDA is absent)."""
-    dev = resolve(device)
-    arr = np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray)) \
-        else np.asarray(data, np.uint8)
-    n = arr.shape[0]
-    cap = _cap_for(block_size)
-    payloads = []
-    for s in range(0, max(n, 1), block_size):
-        chunk = arr[s: s + block_size]
-        block = np.zeros(cap, np.uint8)
-        block[: chunk.shape[0]] = chunk
-        payloads.append(_compress_block(
-            torch.from_numpy(block).to(dev), chunk.shape[0]))
-    c = Container(
-        codec_id=CODEC_BZ, flags=0, orig_len=n, block_size=block_size,
-        comp_sizes=[len(p) for p in payloads], payloads=payloads,
-        data_adler=adler32_np(arr),
-    )
-    return c.to_bytes()
+    with timing.stage("bz.compress"):
+        dev = resolve(device)
+        arr = np.frombuffer(data, np.uint8) \
+            if isinstance(data, (bytes, bytearray)) \
+            else np.asarray(data, np.uint8)
+        n = arr.shape[0]
+        cap = _cap_for(block_size)
+        payloads = []
+        for i, s in enumerate(range(0, max(n, 1), block_size)):
+            timing.next_block(i)
+            with timing.stage("bz.block"):
+                with timing.stage("bz.upload"):
+                    chunk = arr[s: s + block_size]
+                    block = np.zeros(cap, np.uint8)
+                    block[: chunk.shape[0]] = chunk
+                    block_t = timing.upload(block, dev)
+                payloads.append(_compress_block(block_t, chunk.shape[0]))
+        with timing.stage("bz.adler32"):
+            adler = adler32_np(arr)
+        with timing.stage("bz.container"):
+            return Container(
+                codec_id=CODEC_BZ, flags=0, orig_len=n,
+                block_size=block_size, comp_sizes=[len(p) for p in payloads],
+                payloads=payloads, data_adler=adler,
+            ).to_bytes()
 
 
 # ---------------------------------------------------------- decompress
@@ -321,50 +339,65 @@ def walk_args(payload: bytes, cap: int, dev: torch.device):
     if anchors is not None and anchors.shape[0] != -(-cap // ANCHOR_STRIDE):
         raise ValueError("bz block anchor count does not match its cap")
     lim, base, ss = canonical_decode_params(
-        torch.from_numpy(lengths).to(dev), MAX_LEN)
+        timing.upload(lengths, dev), MAX_LEN)
     sel_p = np.zeros(ccap, np.int64)
     if sel is not None:
         sel_p[: sel.shape[0]] = sel
     offs_p = np.full(ccap, tb, np.int32)
     offs_p[: bit_offsets.shape[0]] = bit_offsets
-    sel_t = torch.from_numpy(sel_p).to(dev)
-    args = (torch.from_numpy(words.view(np.int32).copy()).to(dev)[None],
-            torch.tensor([tb], dtype=torch.int32, device=dev),
-            torch.from_numpy(offs_p).to(dev), lim, base,
-            sel_t.to(torch.int32), CHUNK_SYMS, MAX_LEN)
+    sel_t = timing.upload(sel_p, dev)
+    args = (timing.upload(words.view(np.int32).copy(), dev)[None],
+            timing.upload(torch.tensor([tb], dtype=torch.int32), dev),
+            timing.upload(offs_p, dev),
+            lim, base, sel_t.to(torch.int32), CHUNK_SYMS, MAX_LEN)
     return parsed, args, sel_t, ss
 
 
 def _decompress_block(payload: bytes, cap: int, dev: torch.device):
     with timing.stage("bz.walk"):
-        parsed, args, sel_t, ss = walk_args(payload, cap, dev)
-        n, m, idx0, _, _, _, _, anchors, _ = parsed
-        ci = huffman_walk(*args)
-        flat = ci.reshape(-1)[:cap].clamp(0, ALPHABET - 1).to(torch.int64)
-        ctx = torch.repeat_interleave(sel_t, CHUNK_SYMS)[:cap]
-        syms = ss.reshape(-1)[ctx * ALPHABET + flat]
+        with timing.stage("bz.parse"):
+            parsed, args, sel_t, ss = walk_args(payload, cap, dev)
+            n, m, idx0, _, _, _, _, anchors, _ = parsed
+        with timing.stage("bz.huffman"):
+            ci = huffman_walk(*args)
+            flat = ci.reshape(-1)[:cap].clamp(0, ALPHABET - 1).to(torch.int64)
+            ctx = torch.repeat_interleave(sel_t, CHUNK_SYMS)[:cap]
+            syms = ss.reshape(-1)[ctx * ALPHABET + flat]
     with timing.stage("bz.inverse"):
-        ranks, _ = rle2_decode(syms, m)
-        last = mtf_decode(ranks)
-        if anchors is not None:
-            out = bwt_decode_anchored(
-                last, torch.from_numpy(anchors).to(dev), ANCHOR_STRIDE)
-        else:
-            out = bwt_decode(last, idx0)
+        with timing.stage("bz.rle2.decode"):
+            ranks, _ = rle2_decode(syms, m)
+        with timing.stage("bz.mtf.decode"):
+            last = mtf_decode(ranks)
+        with timing.stage("bz.ibwt"):
+            if anchors is not None:
+                out = bwt_decode_anchored(
+                    last, timing.upload(anchors, dev),
+                    ANCHOR_STRIDE)
+            else:
+                out = bwt_decode(last, idx0)
     with timing.stage("bz.pull"):
-        return out[:n].cpu().numpy()
+        return timing.wait(torch.Tensor.cpu, out[:n]).numpy()
 
 
 def decompress(buf: bytes, device: str | None = None) -> bytes:
     """bz container -> bytes, every block decoded on `device` (default
     "cuda"; raises when CUDA is absent)."""
-    dev = resolve(device)
-    c = Container.from_bytes(buf)
-    if c.codec_id != CODEC_BZ:
-        raise ValueError(f"not a bz container (codec {c.codec_id})")
-    cap = _cap_for(c.block_size)
-    parts = [_decompress_block(p, cap, dev) for p in c.payloads]
-    out = b"".join(x.tobytes() for x in parts)[: c.orig_len]
-    if not c.verify_data(np.frombuffer(out, np.uint8)):
-        raise ValueError("data checksum mismatch after decompress")
-    return out
+    with timing.stage("bz.decompress"):
+        dev = resolve(device)
+        with timing.stage("bz.container"):
+            c = Container.from_bytes(buf)
+        if c.codec_id != CODEC_BZ:
+            raise ValueError(f"not a bz container (codec {c.codec_id})")
+        cap = _cap_for(c.block_size)
+        parts = []
+        for i, p in enumerate(c.payloads):
+            timing.next_block(i)
+            with timing.stage("bz.block"):
+                parts.append(_decompress_block(p, cap, dev))
+        with timing.stage("bz.join"):
+            out = b"".join(x.tobytes() for x in parts)[: c.orig_len]
+        with timing.stage("bz.adler32"):
+            ok = c.verify_data(np.frombuffer(out, np.uint8))
+        if not ok:
+            raise ValueError("data checksum mismatch after decompress")
+        return out

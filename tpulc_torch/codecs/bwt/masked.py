@@ -31,6 +31,7 @@ from tpulc_torch.codecs.bwt.rotsort import (
 from tpulc_torch.codecs.bwt.rle import ALPHABET, rle2_decode, rle2_encode
 from tpulc_torch.primitives.histogram import prefix_hist
 from tpulc_torch.primitives.mtf import mtf_decode, mtf_encode
+from tpulc_torch.utils import timing
 
 ANCHOR_STRIDE = 512
 
@@ -45,10 +46,10 @@ def _zero_run_mask_masked(data, idx, n: int):
     0); ties inside it are benign (see rotsort._zero_run_mask)."""
     real = idx < n
     nz = real & (data != 0)
-    if not bool(nz.any()):
+    if not timing.wait(bool, nz.any()):
         return torch.zeros_like(real)
-    first_nz = int(torch.argmax(nz.to(torch.int8)))
-    last_nz = int(torch.where(nz, idx, -1).max())
+    first_nz = timing.wait(int, torch.argmax(nz.to(torch.int8)))
+    last_nz = timing.wait(int, torch.where(nz, idx, -1).max())
     return real & ((idx > last_nz) | (idx < first_nz))
 
 
@@ -79,16 +80,18 @@ def _refine_ranks_masked(data: torch.Tensor, idx: torch.Tensor, n: int,
     zero = torch.zeros(1, dtype=torch.int64, device=data.device)
     rank = _scatter_perm(order, torch.cumsum(
         torch.cat([zero, diff.to(torch.int64)]), 0))
-    done = not bool((_tied_rows(diff) & ~run[order]).any())
+    done = not timing.wait(bool, (_tied_rows(diff) & ~run[order]).any())
 
     k = 8
     while k < n and not done:
-        keys = [rank] + [_wrapped(rank, idx, (j * k) % n, n)
-                         for j in range(1, _FAN)]
-        order, diff = _stable_multikey_order(keys, [cap - 1] * _FAN)
-        rank = _scatter_perm(order, torch.cumsum(
-            torch.cat([zero, diff.to(torch.int64)]), 0))
-        done = not bool((_tied_rows(diff) & ~run[order]).any())
+        with timing.stage("bwt.round"):
+            keys = [rank] + [_wrapped(rank, idx, (j * k) % n, n)
+                             for j in range(1, _FAN)]
+            order, diff = _stable_multikey_order(keys, [cap - 1] * _FAN)
+            rank = _scatter_perm(order, torch.cumsum(
+                torch.cat([zero, diff.to(torch.int64)]), 0))
+            done = not timing.wait(bool,
+                                   (_tied_rows(diff) & ~run[order]).any())
         k *= _FAN
     return rank, done
 
@@ -110,7 +113,7 @@ def bwt_encode_masked(data: torch.Tensor, n: int):
     real = idx < n
     prev = data[torch.where(real, (idx - 1) % max(n, 1), idx)]
     last = torch.where(real, prev[order], 0).to(torch.uint8)
-    idx0 = int(torch.argmax(((order == 0) & real).to(torch.int8)))
+    idx0 = timing.wait(int, torch.argmax(((order == 0) & real).to(torch.int8)))
     return last, idx0
 
 
@@ -130,7 +133,7 @@ def bwt_encode_masked_anchored(data: torch.Tensor, n: int,
     real = idx < n
     prev = data[torch.where(real, (idx - 1) % max(n, 1), idx)]
     last = torch.where(real, prev[order], 0).to(torch.uint8)
-    idx0 = int(torch.argmax(((order == 0) & real).to(torch.int8)))
+    idx0 = timing.wait(int, torch.argmax(((order == 0) & real).to(torch.int8)))
     rank_final = _scatter_perm(order, idx)
     j = torch.arange(R, device=dev)
     pos = (max(n, 1) - j * S) % max(n, 1)
@@ -177,7 +180,7 @@ def bwt_decode_masked(last: torch.Tensor, n: int, idx0: int):
         ptr = torch.where(live, nptr, ptr)
         d = torch.where(live, nd, d)
     in_cycle = (ptr == idx0) & real
-    p = max(int(d[idx0]), 1)
+    p = max(timing.wait(int, d[idx0]), 1)
     slot = torch.where(in_cycle, (p - d) % p, cap)
     cyc = torch.zeros(cap + 1, dtype=torch.uint8, device=dev)
     cyc[slot] = last
@@ -203,11 +206,14 @@ def forward_masked_anchored(block: torch.Tensor, n: int,
     are MTF rank 255, each one literal symbol, so m = m_all - (cap - n).
     MTF runs K1, the start tables and K2."""
     cap = block.shape[0]
-    last, idx0, anchors, ok = bwt_encode_masked_anchored(
-        block, n, anchor_stride)
-    idx = torch.arange(cap, device=block.device)
-    ranks = torch.where(idx < n, mtf_encode(last), 255).to(torch.uint8)
-    syms, m_all = rle2_encode(ranks)
+    with timing.stage("bsc.bwt"):
+        last, idx0, anchors, ok = bwt_encode_masked_anchored(
+            block, n, anchor_stride)
+    with timing.stage("bsc.mtf"):
+        idx = torch.arange(cap, device=block.device)
+        ranks = torch.where(idx < n, mtf_encode(last), 255).to(torch.uint8)
+    with timing.stage("bsc.rle"):
+        syms, m_all = rle2_encode(ranks)
     return syms, m_all - (cap - n), idx0, anchors, ok
 
 
@@ -229,9 +235,12 @@ def inverse_masked_anchored(syms: torch.Tensor, m: int, n: int,
                             anchors: torch.Tensor,
                             anchor_stride: int = ANCHOR_STRIDE):
     """Anchored inverse pipeline: RLE2 -> MTF (K4) -> anchored IBWT."""
-    ranks, _ = rle2_decode(syms, m)
-    return bwt_decode_masked_anchored(mtf_decode(ranks), n, anchors,
-                                      anchor_stride)
+    with timing.stage("bsc.rle.decode"):
+        ranks, _ = rle2_decode(syms, m)
+    with timing.stage("bsc.mtf.decode"):
+        last = mtf_decode(ranks)
+    with timing.stage("bsc.ibwt"):
+        return bwt_decode_masked_anchored(last, n, anchors, anchor_stride)
 
 
 def inverse_ranks_anchored(ranks: torch.Tensor, n: int,

@@ -22,6 +22,7 @@ import torch
 
 from tpulc_torch.codecs.bwt.ibwt_kernels import anchored_walk
 from tpulc_torch.primitives.scan_kernels import running_min
+from tpulc_torch.utils import timing
 
 _FAN = 8  # ranks composed per refinement round (depth 8 -> 64 -> 512)
 
@@ -63,11 +64,12 @@ def _zero_run_mask(data: torch.Tensor, idx: torch.Tensor, n: int):
     (rotations inside it are ordered by ascending position; see
     tpulc's `_zero_run_mask`)."""
     nz = data != 0
-    any_nz = bool(nz.any())
+    any_nz = timing.wait(bool, nz.any())
     if not any_nz:
         return torch.zeros(n, dtype=torch.bool, device=data.device)
-    first_nz = int(torch.argmax(nz.to(torch.int8)))
-    last_nz = n - 1 - int(torch.argmax(torch.flip(nz, (0,)).to(torch.int8)))
+    first_nz = timing.wait(int, torch.argmax(nz.to(torch.int8)))
+    last_nz = n - 1 - timing.wait(
+        int, torch.argmax(torch.flip(nz, (0,)).to(torch.int8)))
     return (idx > last_nz) | (idx < first_nz)
 
 
@@ -98,7 +100,7 @@ def _pair_resolve(data, rank, pf_rot, ps_rot, P: int, n: int):
     enc = torch.where(cmp2 != 0, (idx2 << 2) | (cmp2 + 1), sent)
     fnz = running_min(enc, reverse=True)[:n]
     v = torch.where(fnz >= sent, 0, (fnz & 3) - 1)
-    ok = not bool((pf_rot & (v == 0)).any())
+    ok = not timing.wait(bool, (pf_rot & (v == 0)).any())
     vP = torch.roll(v, P)  # v[(x - P) mod n]
     loser = (pf_rot & (v > 0)) | (ps_rot & (vP < 0))
     return rank * 2 + loser.to(rank.dtype), ok
@@ -121,42 +123,45 @@ def _refine_ranks(data: torch.Tensor, idx: torch.Tensor, n: int):
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
     rank = _scatter_perm(order, torch.cumsum(torch.cat(
         [zero, diff.to(torch.int64)]), 0))
-    done = not bool((_tied_rows(diff) & ~run[order]).any())
+    done = not timing.wait(bool, (_tied_rows(diff) & ~run[order]).any())
 
     k = 8
     t1 = torch.ones(1, dtype=torch.bool, device=dev)
     while k < n and not done:
-        keys = [rank] + [torch.roll(rank, -((k * j) % n))
-                         for j in range(1, _FAN)]
-        order, diff = _stable_multikey_order(keys, [n - 1] * _FAN)
-        newgrp = torch.cat([zero, diff.to(torch.int64)])
-        tied = _tied_rows(diff) & ~run[order]
-        # row-space pair shape: a group of exactly 2 rows
-        new_grp = torch.cat([t1, diff])
-        last_grp = torch.cat([diff, t1])
-        succ_last = torch.cat([last_grp[1:], t1])
-        pf_row = tied & new_grp & ~last_grp & succ_last
-        ps_row = torch.cat([~t1, pf_row[:-1]])
-        all_pairs = ~(tied & ~(pf_row | ps_row)).any()
-        d = torch.roll(order, -1) - order
-        big = 1 << 29
-        dmin = torch.where(pf_row, d, big).min()
-        dmax = torch.where(pf_row, d, -big).max()
-        done_t = ~tied.any()
-        flags = torch.stack([done_t.to(torch.int64), all_pairs.to(torch.int64),
-                             dmin, dmax]).tolist()  # one host sync a round
-        done = bool(flags[0])
-        dmin_i, dmax_i = int(flags[2]), int(flags[3])
-        trigger = (not done and bool(flags[1]) and dmin_i == dmax_i
-                   and 0 < dmin_i < n)
-        rank = _scatter_perm(order, torch.cumsum(newgrp, 0))
-        if trigger:
-            pf_rot = _scatter_perm(order, pf_row)
-            ps_rot = _scatter_perm(order, ps_row)
-            rank2, resolved = _pair_resolve(data, rank, pf_rot, ps_rot,
-                                            dmin_i, n)
-            if resolved:
-                rank, done = rank2, True
+        with timing.stage("bwt.round"):
+            keys = [rank] + [torch.roll(rank, -((k * j) % n))
+                             for j in range(1, _FAN)]
+            order, diff = _stable_multikey_order(keys, [n - 1] * _FAN)
+            newgrp = torch.cat([zero, diff.to(torch.int64)])
+            tied = _tied_rows(diff) & ~run[order]
+            # row-space pair shape: a group of exactly 2 rows
+            new_grp = torch.cat([t1, diff])
+            last_grp = torch.cat([diff, t1])
+            succ_last = torch.cat([last_grp[1:], t1])
+            pf_row = tied & new_grp & ~last_grp & succ_last
+            ps_row = torch.cat([~t1, pf_row[:-1]])
+            all_pairs = ~(tied & ~(pf_row | ps_row)).any()
+            d = torch.roll(order, -1) - order
+            big = 1 << 29
+            dmin = torch.where(pf_row, d, big).min()
+            dmax = torch.where(pf_row, d, -big).max()
+            done_t = ~tied.any()
+            flags = timing.wait(  # one host sync a round
+                torch.Tensor.tolist, torch.stack([
+                    done_t.to(torch.int64), all_pairs.to(torch.int64), dmin,
+                    dmax]))
+            done = bool(flags[0])
+            dmin_i, dmax_i = int(flags[2]), int(flags[3])
+            trigger = (not done and bool(flags[1]) and dmin_i == dmax_i
+                       and 0 < dmin_i < n)
+            rank = _scatter_perm(order, torch.cumsum(newgrp, 0))
+            if trigger:
+                pf_rot = _scatter_perm(order, pf_row)
+                ps_rot = _scatter_perm(order, ps_row)
+                rank2, resolved = _pair_resolve(data, rank, pf_rot, ps_rot,
+                                                dmin_i, n)
+                if resolved:
+                    rank, done = rank2, True
         k *= _FAN
     return rank, done
 
@@ -176,7 +181,7 @@ def bwt_encode_anchored(data: torch.Tensor, anchor_stride: int = 1024):
     rank, ok = _refine_ranks(data, idx, n)
     order = torch.sort(rank, stable=True).indices
     last = torch.roll(data, 1)[order]
-    idx0 = int(torch.argmax((order == 0).to(torch.int8)))
+    idx0 = timing.wait(int, torch.argmax((order == 0).to(torch.int8)))
     rank_final = _scatter_perm(order, idx)
     j = torch.arange(R, device=dev)
     anchors = rank_final[(n - j * S) % n].to(torch.int32)
@@ -217,7 +222,8 @@ def bwt_decode(last: torch.Tensor, idx0: int) -> torch.Tensor:
         ptr = torch.where(live, nptr, ptr)
         d = torch.where(live, nd, d)
     in_cycle = ptr == idx0
-    p = int(d[idx0])  # cycle length through idx0 (== n unless periodic)
+    # cycle length through idx0 (== n unless periodic)
+    p = timing.wait(int, d[idx0])
     # out[n-1-k] = L[T^k(idx0)], node i visited at k = (p - d[i]) mod p
     slot = torch.where(in_cycle, (p - d) % p, n)
     order = torch.sort(slot).indices
