@@ -14,7 +14,8 @@
  * offsets are stored — that is the entire point of LZP.
  *
  * tpulc_torch's copy of tpulc/gold/csrc/lzp.c (the same bytes on the
- * wire); built by tpulc_torch/gold/lzp.py at first use.
+ * wire; its decoder keeps the context in a register); built by
+ * tpulc_torch/gold/lzp.py at first use.
  */
 
 #include <stdint.h>
@@ -24,10 +25,25 @@
 #define LZP_ESC 0xF2
 #define CTX_BYTES 8
 
-static inline uint32_t ctx_hash(const uint8_t *p, int hash_bits) {
+static inline uint32_t ctx_mix(uint64_t x, int hash_bits) {
+    return (uint32_t)((x * 0x9E3779B97F4A7C15ull) >> (64 - hash_bits));
+}
+
+static inline uint64_t ctx_load(const uint8_t *p) {
     uint64_t x;
     memcpy(&x, p - CTX_BYTES, 8);
-    return (uint32_t)((x * 0x9E3779B97F4A7C15ull) >> (64 - hash_bits));
+    return x;
+}
+
+static inline uint32_t ctx_hash(const uint8_t *p, int hash_bits) {
+    return ctx_mix(ctx_load(p), hash_bits);
+}
+
+/* The context after byte c is appended: on a little-endian host, the
+ * value ctx_load reads one byte further on, without reading the bytes
+ * just stored. */
+static inline uint64_t ctx_push(uint64_t ctx, uint8_t c) {
+    return (ctx >> 8) | ((uint64_t)c << 56);
 }
 
 long lzp_gold_encode(const uint8_t *in, long n, uint8_t *out, long cap,
@@ -96,8 +112,12 @@ long lzp_gold_decode(const uint8_t *in, long m, uint8_t *out, long cap,
         if (p >= cap) goto fail;
         out[p++] = in[i++];
     }
+    /* The context lives in a register: an 8-byte load across the last
+     * eight 1-byte stores would wait for them at every byte, since
+     * store-to-load forwarding cannot join several stores. */
+    uint64_t ctx = ctx_load(out + p);
     while (i < m) {
-        uint32_t h = ctx_hash(out + p, hash_bits);
+        uint32_t h = ctx_mix(ctx, hash_bits);
         long q = table[h];
         table[h] = (int32_t)p;
         uint8_t c = in[i++];
@@ -107,6 +127,7 @@ long lzp_gold_decode(const uint8_t *in, long m, uint8_t *out, long cap,
             if (b == 0x00) {
                 if (p >= cap) goto fail;
                 out[p++] = LZP_ESC;
+                ctx = ctx_push(ctx, LZP_ESC);
                 continue;
             }
             long v = 0;
@@ -120,12 +141,15 @@ long lzp_gold_decode(const uint8_t *in, long m, uint8_t *out, long cap,
             v |= (long)b << shift;
             long l = v - 1 + min_len;
             if (p + l > cap) goto fail;
+            /* byte by byte: the source may overlap the destination */
             for (long k = 0; k < l; k++) out[p + k] = out[q + k];
             p += l;
+            if (i < m) ctx = ctx_load(out + p);  /* only a next step reads it */
             continue;
         }
         if (p >= cap) goto fail;
         out[p++] = c;
+        ctx = ctx_push(ctx, c);
     }
     free(table);
     return p;
