@@ -12,6 +12,7 @@
     python3 chip_smoke.py --lz
     python3 chip_smoke.py --dist
     python3 chip_smoke.py --prim
+    python3 chip_smoke.py --huff
 
 The second to sixth forms run one turn of a parent/change comparison
 with the tpulc_torch package under DIR (default: this checkout), e.g. a
@@ -1237,6 +1238,9 @@ def main() -> int:
     ap.add_argument("--prim", action="store_true",
                     help="phase 14 alone (the primitive layer and the "
                          "golds)")
+    ap.add_argument("--huff", action="store_true",
+                    help="phases 5 and 6 alone (the huffman walks and the "
+                         "100 MB huffman round trip)")
     ap.add_argument("--root", default=None,
                     help="with --walks, --mtf, --abc, --rans or --ibwt: "
                          "the checkout whose tpulc_torch runs")
@@ -1271,9 +1275,9 @@ def main() -> int:
     # 2. build (with abc.cu's comparison builds where phase 10 runs and
     # rans_ctx.cu's where phase 9 does)
     t0 = time.perf_counter()
-    if not (opts.e1 or opts.lz or opts.dist or opts.prim):
+    if not (opts.e1 or opts.lz or opts.dist or opts.prim or opts.huff):
         sweep_start(here, cuda_lib, "abc")
-    if not (opts.st or opts.lz or opts.dist or opts.prim):
+    if not (opts.st or opts.lz or opts.dist or opts.prim or opts.huff):
         sweep_start(here, cuda_lib, "rans_ctx")
         sweep_start(here, cuda_lib, "scan")
     cuda_lib.library()
@@ -1284,11 +1288,14 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas {src}: {line.strip()}")
 
-    if opts.e1 or opts.st or opts.lz or opts.dist or opts.prim:
+    if opts.e1 or opts.st or opts.lz or opts.dist or opts.prim or opts.huff:
         kernels = []
         phases = ([bsc_e1_phase] if opts.e1 else [st_phase] if opts.st
                   else [lz_phase, culzss_phase] if opts.lz
-                  else [dist_phase] if opts.dist else [prim_phase])
+                  else [dist_phase] if opts.dist
+                  else [lambda t, h, k: huffman_phases(
+                      t, h, t.device("cuda"), k)]
+                  if opts.huff else [prim_phase])
         for phase in phases:
             phase(torch, here, kernels)
         print(f"total: {time.perf_counter() - t_start:.1f} s")

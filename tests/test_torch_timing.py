@@ -3,7 +3,8 @@ nest under each call's root with their call and block ids, the coarse
 stages keep their names and are the only spans that synchronise, the
 timer off records nothing, the profiler's `stage:` ranges are the
 record, the waits of an input are fixed, and the benchmark's traced
-run reads the six metrics the tracer feeds."""
+run reads the six metrics the tracer feeds (and, in the huffman cell,
+the four of the huffman stages)."""
 
 import json
 import os
@@ -22,19 +23,26 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 with open("tests/data/pg1661.txt", "rb") as _f:
-    DATA = _f.read()[:60_000] * 3          # 3 blocks of either codec
+    DATA = _f.read()[:60_000] * 3          # 3 blocks of bz or bsc
 CODECS = {
     "bz": {"block_size": 65536},
     "bsc": {"block_size": 65536, "coder": 1, "filter_mode": "none"},
+    "huffman": {"block_size": 1024},       # 176 blocks: 2 groups
 }
+# the span of a block (huffman: of a group, indexed by its first block)
+# and the block indices a round trip of DATA gives it
+BLOCK_SPANS = {"bz": ("bz.block", [0, 1, 2]), "bsc": ("bsc.block", [0, 1, 2]),
+               "huffman": ("huffman.group", [0, 128])}
 TODAY = {
     "bz": {"bz.transform", "bz.tables", "bz.entropy", "bz.pull", "bz.walk",
            "bz.inverse"},
     "bsc": {"bsc.lzp", "bsc.transform", "bsc.rans", "bsc.rans.decode",
             "bsc.inverse", "bsc.lzp.decode"},
+    "huffman": {"huffman.encode", "huffman.pull", "huffman.parse",
+                "huffman.decode"},
 }
 # the waits of DATA's round trip, (compress, decompress)
-WAITS = {"bz": (35, 21), "bsc": (40, 13)}
+WAITS = {"bz": (35, 21), "bsc": (40, 13), "huffman": (8, 10)}
 
 
 def round_trip(name, timer_on=True):
@@ -68,22 +76,84 @@ def test_spans_nest_under_each_call_with_block_ids(name):
         up = spans[s.parent]
         assert up.index < s.index and up.call == s.call
         assert up.start <= s.start <= s.end <= up.end
+    block_span, block_ids = BLOCK_SPANS[name]
     for root in roots:
         mine = [s for s in spans if s.call == root.call]
-        blocks = [s for s in mine if s.name == f"{name}.block"]
-        assert sorted({s.block for s in blocks}) == [0, 1, 2]
+        blocks = [s for s in mine if s.name == block_span]
+        assert sorted({s.block for s in blocks}) == block_ids
         for s in mine:
             # a span carries the block of the nearest block span above
             # it, and no block outside one
             up, want = s, None
             while up.parent >= 0:
                 up = spans[up.parent]
-                if up.name == f"{name}.block":
+                if up.name == block_span:
                     want = up.block
                     break
-            if s.name == f"{name}.block":
+            if s.name == block_span:
                 want = s.block
             assert s.block == want, (s.name, s.block, want)
+
+
+# each huffman span's parent in a round trip (`huffman/driver.py`,
+# `huffman/decode.py`): the sub-spans sit inside their coarse stage
+HUFFMAN_PARENTS = {
+    "compress": {
+        "huffman.group": "huffman.compress",
+        "huffman.encode": "huffman.group",
+        "huffman.upload": "huffman.encode",
+        "huffman.histogram": "huffman.encode",
+        "huffman.lengths": "huffman.encode",
+        "huffman.codes": "huffman.encode",
+        "huffman.pack": "huffman.encode",
+        "huffman.pull": "huffman.group",
+        "huffman.payload": "huffman.group",
+        "huffman.adler32": "huffman.compress",
+        "huffman.container": "huffman.compress",
+    },
+    "decompress": {
+        "huffman.container": "huffman.decompress",
+        "huffman.group": "huffman.decompress",
+        "huffman.parse": "huffman.group",
+        "huffman.upload": "huffman.parse",
+        "huffman.decode": "huffman.group",
+        "huffman.tables": "huffman.decode",
+        "huffman.walk": "huffman.decode",
+        "huffman.symbols": "huffman.decode",
+        "huffman.pull": "huffman.group",
+        "huffman.join": "huffman.decompress",
+        "huffman.adler32": "huffman.decompress",
+    },
+}
+
+
+def test_huffman_spans_sit_inside_their_coarse_stages():
+    timer, _ = round_trip("huffman")
+    spans = timer.spans
+    roots = [s for s in records(timer) if s.parent < 0]
+    assert [s.name for s in roots] == ["huffman.compress",
+                                       "huffman.decompress"]
+    for root, direction in zip(roots, ("compress", "decompress")):
+        mine = [s for s in records(timer)
+                if s.call == root.call and s is not root]
+        parents = {}
+        for s in mine:
+            parents.setdefault(s.name, set()).add(spans[s.parent].name)
+        assert parents == {k: {v} for k, v in
+                           HUFFMAN_PARENTS[direction].items()}
+        groups = [s for s in mine if s.name == "huffman.group"]
+        assert [g.block for g in groups] == [0, 128]
+        for s in mine:
+            if s.name in HUFFMAN_PARENTS[direction] and \
+                    spans[s.parent].name != root.name:
+                assert s.block in (0, 128)
+    assert timer.counts["huffman.encode"] == timer.counts["huffman.decode"] \
+        == 2
+    # timed at the coarse stages' edges only: a sub-span's seconds lie
+    # inside its stage's
+    for sub, stage in (("huffman.walk", "huffman.decode"),
+                       ("huffman.pack", "huffman.encode")):
+        assert timer.stages[sub] <= timer.stages[stage]
 
 
 @pytest.mark.parametrize("name", sorted(CODECS))
@@ -174,10 +244,15 @@ SMALL = {
                      "traffic": {"size": 100_000, "objects": 2}},
     "bsc-e1.words-25m": {"compress": {"block_size": 32_768},
                          "traffic": {"size": 50_000, "objects": 2}},
+    "huffman-1m.words-100m": {"compress": {"block_size": 65_536},
+                              "traffic": {"size": 200_000, "objects": 2}},
 }
 NEW_METRICS = [f"{m}.{d}" for m in ("host_waits_per_MB", "host_wait_s_per_GB",
                                     "entry_s_per_GB")
                for d in ("compress", "decompress")]
+CELL_METRICS = {"huffman-1m.words-100m": [
+    "huffman_encode_s_per_GB.compress", "huffman_parse_s_per_GB.decompress",
+    "huffman_decode_s_per_GB.decompress", "huffman_pull_s_per_GB.decompress"]}
 
 
 TRACED_RUN = """
@@ -200,7 +275,7 @@ def test_a_traced_cpu_run_reads_the_new_metrics(cell):
     assert p.returncode == 0, p.stderr[-2000:]
     out = json.loads(p.stdout.strip().splitlines()[-1])
     assert out["code"] == 0 and out["result"]["correct"]
-    for m in NEW_METRICS:
+    for m in NEW_METRICS + CELL_METRICS.get(cell, []):
         assert out["result"]["metrics"][m]["value"] > 0, m
 
 

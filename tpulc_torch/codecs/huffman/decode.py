@@ -38,6 +38,7 @@ import torch
 from tpulc_torch.codecs.huffman import decode_kernels as dk
 from tpulc_torch.codecs.huffman.device_tables import canonical_decode_params
 from tpulc_torch.primitives.bits import M32, peek_bits
+from tpulc_torch.utils import timing
 
 DEFAULT_SUB_BITS = 512  # 16 x 32-bit units per subsequence
 
@@ -58,7 +59,7 @@ def _decode_maps(words, total_bits: int, lut_len, max_len: int,
     cnt = torch.zeros((nsub, L), dtype=torch.int64, device=dev)
     while True:
         active = (pos < end) & (pos < total_bits)
-        if not bool(active.any()):
+        if not timing.wait(bool, active.any()):
             break
         step = lut_len[peek_bits(words, pos, L)]
         # a zero-length LUT entry means a corrupt stream; advance one bit
@@ -113,7 +114,7 @@ def huffman_decode(words: torch.Tensor, total_bits: int, n_out: int,
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
     entry = torch.cat([zero, incl_next[:-1, 0]])
     offset = torch.cat([zero, incl_cnt[:-1, 0]])
-    n_valid = int(incl_cnt[-1, 0])
+    n_valid = timing.wait(int, incl_cnt[-1, 0])
     sub_start = torch.arange(nsub, device=dev) * sub_bits
     ends = torch.clamp(sub_start + sub_bits, max=int(total_bits))
     out = _decode_write(w, sub_start + entry, ends, offset, n_out, lut_sym,
@@ -132,7 +133,7 @@ def _decode_write(words, pos, ends, oidx, n_out: int, lut_sym, lut_len,
     out = torch.zeros(n_out + 1, dtype=out_dtype, device=dev)  # +1: drop slot
     while True:
         active = pos < ends
-        if not bool(active.any()):
+        if not timing.wait(bool, active.any()):
             break
         win = peek_bits(words, pos, max_len)
         step = lut_len[win]
@@ -295,10 +296,13 @@ def huffman_decode_pallas_batch(words, total_bits, lengths,
                                 chunk_bit_offsets, chunk_syms: int,
                                 max_len: int) -> torch.Tensor:
     """The `v1` decode: K7 over the whole group -> uint8 [B, ccap*C]."""
-    args, ss = walk_args(words, total_bits, lengths, chunk_bit_offsets,
-                         chunk_syms, max_len)
-    ci = dk.huffman_walk_v1(*args)
-    return _ranks_to_symbols(ci.clamp(0, 255), ss, words.shape[0])
+    with timing.stage("huffman.tables"):
+        args, ss = walk_args(words, total_bits, lengths, chunk_bit_offsets,
+                             chunk_syms, max_len)
+    with timing.stage("huffman.walk"):
+        ci = dk.huffman_walk_v1(*args)
+    with timing.stage("huffman.symbols"):
+        return _ranks_to_symbols(ci.clamp(0, 255), ss, words.shape[0])
 
 
 def huffman_decode_buffered_batch(words, total_bits, lengths,
@@ -306,10 +310,14 @@ def huffman_decode_buffered_batch(words, total_bits, lengths,
                                   max_len: int) -> torch.Tensor:
     """The `buffered` decode (the default): K3 packed over the whole group
     -> uint8 [B, ccap*C]."""
-    args, ss = walk_args(words, total_bits, lengths, chunk_bit_offsets,
-                         chunk_syms, max_len)
-    packed = dk.huffman_walk(*args, packed=True)
-    return _ranks_to_symbols(packed.view(torch.uint8), ss, words.shape[0])
+    with timing.stage("huffman.tables"):
+        args, ss = walk_args(words, total_bits, lengths, chunk_bit_offsets,
+                             chunk_syms, max_len)
+    with timing.stage("huffman.walk"):
+        packed = dk.huffman_walk(*args, packed=True)
+    with timing.stage("huffman.symbols"):
+        return _ranks_to_symbols(packed.view(torch.uint8), ss,
+                                 words.shape[0])
 
 
 def huffman_decode_flat_batch(words, total_bits, lengths, chunk_bit_offsets,
@@ -317,8 +325,11 @@ def huffman_decode_flat_batch(words, total_bits, lengths, chunk_bit_offsets,
     """The `flat` decode: K8 over the whole group -> uint8 [B, ccap*C]."""
     B = words.shape[0]
     ccap = chunk_bit_offsets.shape[1]
-    args, ss = flat_args(words, total_bits, lengths, chunk_bit_offsets,
-                         chunk_syms, max_len)
-    packed = dk.huffman_walk_flat(*args)
-    ranks = packed.view(torch.uint8).reshape(B, -1)
-    return _ranks_to_symbols(ranks[:, : ccap * chunk_syms], ss, B)
+    with timing.stage("huffman.tables"):
+        args, ss = flat_args(words, total_bits, lengths, chunk_bit_offsets,
+                             chunk_syms, max_len)
+    with timing.stage("huffman.walk"):
+        packed = dk.huffman_walk_flat(*args)
+    with timing.stage("huffman.symbols"):
+        ranks = packed.view(torch.uint8).reshape(B, -1)
+        return _ranks_to_symbols(ranks[:, : ccap * chunk_syms], ss, B)

@@ -27,6 +27,18 @@ tpulc pads batches to compile-cache buckets (power-of-two block counts,
 `w_pad` word buckets, a backend-dependent MAX_BATCH); the port decodes
 exactly the blocks of a group, with GROUP = 128 on every device.  The
 container bytes do not depend on it.
+
+Spans (`utils/timing.py`): the roots `huffman.compress` and
+`huffman.decompress`; `huffman.group` a group (block index: its first
+block); the coarse stages `huffman.encode`, `huffman.pull`,
+`huffman.parse` and `huffman.decode`, with `huffman.upload`,
+`huffman.histogram`, `huffman.lengths`, `huffman.codes` and
+`huffman.pack` inside `huffman.encode`, `huffman.upload` inside
+`huffman.parse`, and `huffman.tables`, `huffman.walk` and
+`huffman.symbols` inside `huffman.decode` (`decode.py`'s K3, K7 and K8
+decoders); host work in `huffman.payload`, `huffman.container`,
+`huffman.join` and `huffman.adler32`.  Every blocking read of the card
+goes through `timing.wait` or `timing.upload`.
 """
 
 from __future__ import annotations
@@ -82,24 +94,30 @@ def _encode_batch(blocks: torch.Tensor, ns: torch.Tensor, out_words: int,
     int64[B], chunk_offsets int64[B, nchunks], lengths int32[B, 256])."""
     B, cap = blocks.shape
     dev = blocks.device
-    idx = blocks.to(torch.int64)
-    valid = torch.arange(cap, device=dev)[None, :] < ns[:, None]
-    freqs = torch.zeros((B, 257), dtype=torch.int64, device=dev)
-    freqs.scatter_add_(1, torch.where(valid, idx, 256), torch.ones_like(idx))
-    lens = package_merge_lengths_device(freqs[:, :256], max_len)
-    codes, lens = canonical_codes_device(lens, max_len)
-    # one packed (code << 5 | len) table -> one per-symbol gather
-    table = (codes.to(torch.int64) << 5) | lens.to(torch.int64)
-    packed = torch.where(valid, torch.gather(table, 1, idx), 0)
-    del idx
-    sym_lens = packed & 31
-    words, total_bits = pack_bits(packed >> 5, sym_lens, out_words)
-    del packed
-    off = torch.cumsum(sym_lens, 1) - sym_lens
-    chunk_offsets = off[:, ::chunk_syms][:, :nchunks]
-    chunk_valid = (torch.arange(nchunks, device=dev)[None, :] * chunk_syms
-                   < ns[:, None])
-    chunk_offsets = torch.where(chunk_valid, chunk_offsets, total_bits[:, None])
+    with timing.stage("huffman.histogram"):
+        idx = blocks.to(torch.int64)
+        valid = torch.arange(cap, device=dev)[None, :] < ns[:, None]
+        freqs = torch.zeros((B, 257), dtype=torch.int64, device=dev)
+        freqs.scatter_add_(1, torch.where(valid, idx, 256),
+                           torch.ones_like(idx))
+    with timing.stage("huffman.lengths"):
+        lens = package_merge_lengths_device(freqs[:, :256], max_len)
+    with timing.stage("huffman.codes"):
+        codes, lens = canonical_codes_device(lens, max_len)
+        # one packed (code << 5 | len) table -> one per-symbol gather
+        table = (codes.to(torch.int64) << 5) | lens.to(torch.int64)
+        packed = torch.where(valid, torch.gather(table, 1, idx), 0)
+        del idx
+    with timing.stage("huffman.pack"):
+        sym_lens = packed & 31
+        words, total_bits = pack_bits(packed >> 5, sym_lens, out_words)
+        del packed
+        off = torch.cumsum(sym_lens, 1) - sym_lens
+        chunk_offsets = off[:, ::chunk_syms][:, :nchunks]
+        chunk_valid = (torch.arange(nchunks, device=dev)[None, :] * chunk_syms
+                       < ns[:, None])
+        chunk_offsets = torch.where(chunk_valid, chunk_offsets,
+                                    total_bits[:, None])
     return words, total_bits, chunk_offsets, lens
 
 
@@ -138,19 +156,22 @@ def _encode_payloads(blocks: np.ndarray, ns: list[int], dev: torch.device,
     out_words = -(-cap * max_len // 32)
     nchunks = max(1, -(-cap // chunk_syms))
     with timing.stage("huffman.encode"):
+        with timing.stage("huffman.upload"):
+            blocks_t = timing.upload(blocks, dev)
+            ns_t = timing.upload(np.asarray(ns, np.int64), dev)
         words, tbits, offs, lens = _encode_batch(
-            torch.from_numpy(blocks).to(dev),
-            torch.tensor(ns, dtype=torch.int64, device=dev),
-            out_words, nchunks, chunk_syms, max_len)
+            blocks_t, ns_t, out_words, nchunks, chunk_syms, max_len)
+        del blocks_t
     with timing.stage("huffman.pull"):
-        meta = torch.cat([tbits[:, None], offs, lens.to(torch.int64)],
-                         1).cpu().numpy()
+        meta = timing.wait(torch.Tensor.cpu, torch.cat(
+            [tbits[:, None], offs, lens.to(torch.int64)], 1)).numpy()
         take = min(out_words, max(1, -(-int(meta[:, 0].max()) // 32)))
-        words_np = words[:, :take].cpu().numpy()
-    return [_payload_from(ns[j], int(meta[j, 0]), meta[j, 1 + nchunks:],
-                          meta[j, 1: 1 + nchunks], words_np[j], aligned,
-                          chunk_syms)
-            for j in range(B)]
+        words_np = timing.wait(torch.Tensor.cpu, words[:, :take]).numpy()
+    with timing.stage("huffman.payload"):
+        return [_payload_from(ns[j], int(meta[j, 0]), meta[j, 1 + nchunks:],
+                              meta[j, 1: 1 + nchunks], words_np[j], aligned,
+                              chunk_syms)
+                for j in range(B)]
 
 
 def compress_block(block: np.ndarray, max_len: int = DEFAULT_MAX_LEN,
@@ -179,30 +200,36 @@ def compress(data: bytes | np.ndarray, block_size: int = 1 << 20,
              device: str | None = None) -> bytes:
     """bytes -> huffman container, GROUP blocks per device program on
     `device` (default "cuda"; raises when CUDA is absent)."""
-    dev = resolve(device)
-    _check_chunking(aligned, chunk_syms, max_len)
-    arr = np.frombuffer(data, np.uint8) \
-        if isinstance(data, (bytes, bytearray)) \
-        else np.asarray(data, np.uint8)
-    n = arr.shape[0]
-    nblocks = max(1, -(-n // block_size))
-    payloads = []
-    for g in range(0, nblocks, GROUP):
-        B = min(GROUP, nblocks - g)
-        seg = arr[g * block_size: (g + B) * block_size]
-        blocks = np.zeros(B * block_size, np.uint8)
-        blocks[: seg.shape[0]] = seg
-        ns = [min(block_size, max(0, seg.shape[0] - j * block_size))
-              for j in range(B)]
-        payloads += _encode_payloads(blocks.reshape(B, block_size), ns, dev,
-                                     max_len, aligned, chunk_syms)
-    c = Container(
-        codec_id=CODEC_HUFFMAN, flags=FLAG_ALIGNED if aligned else 0,
-        orig_len=n, block_size=block_size,
-        comp_sizes=[len(p) for p in payloads], payloads=payloads,
-        data_adler=adler32_np(arr),
-    )
-    return c.to_bytes()
+    with timing.stage("huffman.compress"):
+        dev = resolve(device)
+        _check_chunking(aligned, chunk_syms, max_len)
+        arr = np.frombuffer(data, np.uint8) \
+            if isinstance(data, (bytes, bytearray)) \
+            else np.asarray(data, np.uint8)
+        n = arr.shape[0]
+        nblocks = max(1, -(-n // block_size))
+        payloads = []
+        for g in range(0, nblocks, GROUP):
+            timing.next_block(g)
+            with timing.stage("huffman.group"):
+                B = min(GROUP, nblocks - g)
+                seg = arr[g * block_size: (g + B) * block_size]
+                blocks = np.zeros(B * block_size, np.uint8)
+                blocks[: seg.shape[0]] = seg
+                ns = [min(block_size, max(0, seg.shape[0] - j * block_size))
+                      for j in range(B)]
+                payloads += _encode_payloads(
+                    blocks.reshape(B, block_size), ns, dev, max_len, aligned,
+                    chunk_syms)
+        with timing.stage("huffman.adler32"):
+            adler = adler32_np(arr)
+        with timing.stage("huffman.container"):
+            return Container(
+                codec_id=CODEC_HUFFMAN, flags=FLAG_ALIGNED if aligned else 0,
+                orig_len=n, block_size=block_size,
+                comp_sizes=[len(p) for p in payloads], payloads=payloads,
+                data_adler=adler,
+            ).to_bytes()
 
 
 # ---------------------------------------------------------- decompress
@@ -325,9 +352,9 @@ def decode_batch_device(words: torch.Tensor, tbits: torch.Tensor,
 
 
 def _to_device(words, tbits, lens, offs, dev):
-    return (torch.from_numpy(words.view(np.int32)).to(dev),
-            torch.from_numpy(tbits).to(dev), torch.from_numpy(lens).to(dev),
-            torch.from_numpy(offs.view(np.int32)).to(dev))
+    return (timing.upload(words.view(np.int32), dev),
+            timing.upload(tbits, dev), timing.upload(lens, dev),
+            timing.upload(offs.view(np.int32), dev))
 
 
 def _decompress_batch_aligned(group: list[bytes], cap: int, max_len: int,
@@ -340,11 +367,12 @@ def _decompress_batch_aligned(group: list[bytes], cap: int, max_len: int,
         if prep is None:
             return None
         words, tbits, lens, offs, ns, chunk = prep
-        args = _to_device(words, tbits, lens, offs, dev)
+        with timing.stage("huffman.upload"):
+            args = _to_device(words, tbits, lens, offs, dev)
     with timing.stage("huffman.decode"):
         syms = decode_batch_device(*args, chunk, max_len, kernel)
     with timing.stage("huffman.pull"):
-        pulled = syms.cpu().numpy()
+        pulled = timing.wait(torch.Tensor.cpu, syms).numpy()
     return [pulled[j, : ns[j]] for j in range(len(ns))]
 
 
@@ -361,18 +389,19 @@ def decompress_block(payload: bytes, max_len: int = DEFAULT_MAX_LEN,
     if bit_offsets is not None:
         args = _to_device(*_batch_arrays([parsed], cap), dev)
         syms = decode_batch_device(*args, chunk_syms, max_len, kernel)
-        return syms[0, :n].cpu().numpy()
+        return timing.wait(torch.Tensor.cpu, syms[0, :n]).numpy()
     if n > cap:
         raise ValueError("huffman block exceeds the container's block size")
     table = HuffmanTable.from_lengths(lengths, max_len)
     sub_bits = optimal_sub_bits(total_bits, n, max_len)
     out, n_valid = hdec.huffman_decode(
-        torch.from_numpy(words.astype(np.int64)).to(dev), total_bits, cap,
-        torch.from_numpy(table.lut_sym.astype(np.int64)),
-        torch.from_numpy(table.lut_len.astype(np.int64)), max_len, sub_bits)
+        timing.upload(words.astype(np.int64), dev), total_bits, cap,
+        timing.upload(table.lut_sym.astype(np.int64), dev),
+        timing.upload(table.lut_len.astype(np.int64), dev), max_len,
+        sub_bits)
     if n_valid < n:
         raise ValueError(f"self-sync decode found {n_valid} of {n} symbols")
-    return out[:n].cpu().numpy()
+    return timing.wait(torch.Tensor.cpu, out[:n]).numpy()
 
 
 def decompress(buf: bytes, max_len: int = DEFAULT_MAX_LEN,
@@ -380,21 +409,28 @@ def decompress(buf: bytes, max_len: int = DEFAULT_MAX_LEN,
     """huffman container -> bytes, decoded on `device` (default "cuda";
     raises when CUDA is absent) with the decoder `kernel` picks (see
     `decode_batch_device`)."""
-    dev = resolve(device)
-    c = Container.from_bytes(buf)
-    if c.codec_id != CODEC_HUFFMAN:
-        raise ValueError(f"not a huffman container (codec {c.codec_id})")
-    parts = []
-    for i in range(0, len(c.payloads), GROUP):
-        group = c.payloads[i: i + GROUP]
-        fast = _decompress_batch_aligned(group, c.block_size, max_len, dev,
-                                         kernel)
-        if fast is not None:
-            parts.extend(fast)
-        else:
-            parts.extend(decompress_block(p, max_len, c.block_size, dev,
-                                          kernel) for p in group)
-    out = b"".join(x.tobytes() for x in parts)[: c.orig_len]
-    if not c.verify_data(np.frombuffer(out, np.uint8)):
-        raise ValueError("data checksum mismatch after decompress")
-    return out
+    with timing.stage("huffman.decompress"):
+        dev = resolve(device)
+        with timing.stage("huffman.container"):
+            c = Container.from_bytes(buf)
+        if c.codec_id != CODEC_HUFFMAN:
+            raise ValueError(f"not a huffman container (codec {c.codec_id})")
+        parts = []
+        for i in range(0, len(c.payloads), GROUP):
+            timing.next_block(i)
+            with timing.stage("huffman.group"):
+                group = c.payloads[i: i + GROUP]
+                fast = _decompress_batch_aligned(group, c.block_size, max_len,
+                                                 dev, kernel)
+                if fast is not None:
+                    parts.extend(fast)
+                else:
+                    parts.extend(decompress_block(p, max_len, c.block_size,
+                                                  dev, kernel) for p in group)
+        with timing.stage("huffman.join"):
+            out = b"".join(x.tobytes() for x in parts)[: c.orig_len]
+        with timing.stage("huffman.adler32"):
+            ok = c.verify_data(np.frombuffer(out, np.uint8))
+        if not ok:
+            raise ValueError("data checksum mismatch after decompress")
+        return out
