@@ -7,7 +7,9 @@ TPULC_HUFF_KERNEL override) gives the same bytes; and the port's
 payload parser refuses what tpulc would silently misdecode (ROADMAP F2).
 """
 
+import contextlib
 import struct
+import tracemalloc
 
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ from tpulc.codecs.huffman import driver as jdrv
 from tpulc_torch.codecs.huffman import driver
 from tpulc_torch.pipeline.container import Container
 from tpulc_torch.pipeline.registry import get_codec
+from tpulc_torch.primitives.checksum import adler32_np
+from tpulc_torch.utils import timing
 
 torch.set_num_threads(1)
 
@@ -97,23 +101,121 @@ def test_env_override_and_bad_choice(containers, monkeypatch):
         driver.decompress(ours, device="cpu", kernel="mxu")
 
 
-def test_mixed_chunking_falls_back_per_block():
-    """A group whose blocks use v1 and v2 chunking decodes block by block
-    (tpulc `driver.py:269-272`)."""
-    data = _pg(100000)
-    bs = 1 << 15
+def _container(payloads: list[bytes], data: bytes, bs: int) -> bytes:
+    return Container(codec_id=1, flags=driver.FLAG_ALIGNED,
+                     orig_len=len(data), block_size=bs,
+                     comp_sizes=[len(p) for p in payloads], payloads=payloads,
+                     data_adler=adler32_np(data)).to_bytes()
+
+
+def _mixed(data: bytes, bs: int, v1_blocks) -> bytes:
+    """`data`'s container with the blocks `v1_blocks` in v1 chunking and
+    the rest in v2, so that a group holding both falls back."""
     a = Container.from_bytes(driver.compress(data, block_size=bs,
                                              device="cpu"))
     b = Container.from_bytes(driver.compress(data, block_size=bs,
                                              chunk_syms=256, device="cpu"))
-    payloads = [a.payloads[0], b.payloads[1], a.payloads[2], b.payloads[3]]
-    mixed = Container(codec_id=a.codec_id, flags=a.flags, orig_len=a.orig_len,
-                      block_size=bs, comp_sizes=[len(p) for p in payloads],
-                      payloads=payloads, data_adler=a.data_adler).to_bytes()
-    assert driver._parse_aligned_group(payloads, bs) is None
+    payloads = [(b if j in v1_blocks else a).payloads[j]
+                for j in range(len(a.payloads))]
+    return _container(payloads, data, bs)
+
+
+def test_mixed_chunking_falls_back_per_block():
+    """A group whose blocks use v1 and v2 chunking decodes block by block
+    (tpulc `driver.py:269-272`), first group or after an aligned one."""
+    data = _pg(100000)
+    bs = 1 << 15
+    mixed = _mixed(data, bs, {1, 3})
+    assert driver._parse_aligned_group(Container.from_bytes(mixed).payloads,
+                                       bs) is None
     for kernel in KERNELS:
         assert driver.decompress(mixed, device="cpu", kernel=kernel) == data
     assert jdrv.decompress(mixed) == data
+    groups = Container.from_bytes(_one_buffer_case("mixed_chunking")[1]
+                                  ).payloads
+    assert driver._parse_aligned_group(groups[:128], 512) is not None
+    assert driver._parse_aligned_group(groups[128:], 512) is None
+
+
+def _short_middle_block() -> tuple[bytes, bytes]:
+    """Three blocks of 1,024, 500 and 1,024 symbols under block_size
+    1,024: a group whose blocks are not a prefix of its rows."""
+    pg = _pg(2548)
+    blocks = [pg[:1024], pg[1024:1524], pg[1524:]]
+    payloads = [driver.compress_block(np.frombuffer(b, np.uint8),
+                                      block_cap=1024, device="cpu")
+                for b in blocks]
+    return pg, _container(payloads, pg, 1024)
+
+
+def _one_buffer_case(name):
+    """-> (data, container) for `test_decompress_fills_one_buffer`."""
+    if name == "short_middle_block":
+        return _short_middle_block()
+    if name == "mixed_chunking":      # 132 blocks: group 2 falls back
+        data = _pg(512 * 131 + 100)
+        return data, _mixed(data, 512, {129})
+    data, bs = {
+        "empty": (b"", 1 << 16),
+        "partial_block": (_pg(40000), 1 << 16),
+        "full_block": (_pg(1 << 16), 1 << 16),
+        "two_groups": (_pg(512 * 131 + 100), 512),       # 132 blocks
+        "ragged_tail": (_pg(150000), 1 << 16),           # 65,536 x 2 + 18,928
+        "block_not_chunked": (_pg(3500), 1000),          # rows of 1,024
+    }[name]
+    return data, driver.compress(data, block_size=bs, device="cpu")
+
+
+@pytest.mark.parametrize("name", [
+    "empty", "partial_block", "full_block", "two_groups", "ragged_tail",
+    "block_not_chunked", "short_middle_block", "mixed_chunking"])
+def test_decompress_fills_one_buffer(name):
+    """Every way the groups' symbols land in the one output array: a
+    prefix of the rows, rows narrowed on the device, rows gathered one
+    by one, blocks decoded one at a time, two groups in one array."""
+    data, blob = _one_buffer_case(name)
+    out = driver.decompress(blob, device="cpu")
+    assert type(out) is bytes
+    assert out == data
+    assert jdrv.decompress(blob) == data
+
+
+def test_decompress_copies_the_output_once(monkeypatch):
+    """The decoded bytes are copied into `bytes` once (`huffman.join`)
+    and checksummed in place (`huffman.adler32`): per-block copies and
+    a join, or a copy for the checksum, would grow the traced heap by a
+    second or a first copy of the output."""
+    pg = _pg(-1)
+    data = (pg * (-(-(4 << 20) // len(pg))))[: 4 << 20]
+    blob = driver.compress(data, block_size=1 << 20, device="cpu")
+    grown, peaks = {}, []
+    real = timing.stage
+
+    @contextlib.contextmanager
+    def stage(name):
+        if name not in ("huffman.join", "huffman.adler32"):
+            with real(name):
+                yield
+            return
+        start, peak = tracemalloc.get_traced_memory()
+        peaks.append(peak)
+        tracemalloc.reset_peak()
+        with real(name):
+            yield
+        grown[name] = tracemalloc.get_traced_memory()[1] - start
+
+    monkeypatch.setattr(timing, "stage", stage)
+    tracemalloc.start()
+    try:
+        out = driver.decompress(blob, device="cpu")
+        peaks.append(tracemalloc.get_traced_memory()[1])
+    finally:
+        tracemalloc.stop()
+    n = len(data)
+    assert out == data
+    assert grown["huffman.join"] < 1.25 * n
+    assert grown["huffman.adler32"] < 0.05 * n
+    assert max(peaks) < 2.25 * n + len(blob)
 
 
 def test_compress_and_decompress_block_match_the_batch():

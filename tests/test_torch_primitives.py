@@ -1,7 +1,11 @@
 """The port's primitive layer (`primitives/{parallel,suffix,dc3,
 dc3_device,histogram}.py`) against tpulc's (through JAX on the CPU) on
 the same seeded numpy inputs: integer results bit-identical, float
-scans within rtol 1e-5, atol 1e-6 (the two summation trees differ)."""
+scans within rtol 1e-5, atol 1e-6 (the two summation trees differ);
+`checksum.adler32_np` against zlib, read in place."""
+
+import tracemalloc
+import zlib
 
 import numpy as np
 import jax.numpy as jnp
@@ -15,6 +19,7 @@ from tpulc.primitives import parallel as tpar
 from tpulc.primitives import suffix as tpulc_suffix
 from tpulc.primitives.dc3_device import suffix_array_dc3 as tpulc_sa_dc3
 from tpulc_torch.primitives import dc3, histogram
+from tpulc_torch.primitives.checksum import adler32_np
 from tpulc_torch.primitives import parallel as par
 from tpulc_torch.primitives.dc3_device import suffix_array_dc3
 from tpulc_torch.primitives.suffix import (
@@ -277,3 +282,37 @@ def test_histograms_equal_tpulc(bins):
           histogram.byte_histogram(torch.from_numpy(data.copy()), bins))
     _same(tpulc_hist.batched_byte_histogram(jnp.asarray(blocks), bins),
           histogram.batched_byte_histogram(torch.from_numpy(blocks), bins))
+
+
+def _adler_input(kind):
+    """-> (the argument, the bytes it holds, the start value)."""
+    raw = _pg(70000)
+    arr = np.frombuffer(raw, np.uint8)
+    words = arr[:69996].view("<u4").reshape(-1, 3)
+    return {
+        "bytes": (raw, raw, 1),
+        "bytearray": (bytearray(raw), raw, 1),
+        "memoryview": (memoryview(raw)[5:60005], raw[5:60005], 1),
+        "ndarray": (words, raw[:69996], 1),
+        "strided": (words[::3, 1:], words[::3, 1:].tobytes(), 1),
+        "value": (arr, raw, zlib.adler32(b"running")),
+    }[kind]
+
+
+@pytest.mark.parametrize("kind", ["bytes", "bytearray", "memoryview",
+                                  "ndarray", "strided", "value"])
+def test_adler32_equals_zlib(kind):
+    data, raw, value = _adler_input(kind)
+    assert adler32_np(data, value) == zlib.adler32(raw, value) & 0xFFFFFFFF
+
+
+def test_adler32_reads_a_contiguous_array_in_place():
+    arr = np.resize(np.frombuffer(_pg(), np.uint8), 1 << 20)
+    tracemalloc.start()
+    try:
+        adler32_np(arr)
+        adler32_np(arr.view("<u4").reshape(64, -1))
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak < arr.nbytes // 16

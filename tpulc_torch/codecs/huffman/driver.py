@@ -22,6 +22,8 @@ words and writes the payloads.  Decompress parses a group of aligned
 blocks into one batch and decodes it with one of four decoders
 (`decode_batch_device`); a group with a block lacking the aligned
 table, or with mixed chunk sizes, falls back to one block at a time.
+Every group's symbols are copied from the device into one host array,
+which the checksum reads in place and `bytes` copies once.
 
 tpulc pads batches to compile-cache buckets (power-of-two block counts,
 `w_pad` word buckets, a backend-dependent MAX_BATCH); the port decodes
@@ -241,12 +243,14 @@ def _parse_payload(payload: bytes):
     Raises ValueError on a payload that does not hold together: a v2
     `chunk_log` whose chunk is not a multiple of 8 symbols, a chunk count
     that disagrees with n, or fields past the payload's end (tpulc
-    decodes such payloads to wrong output)."""
+    decodes such payloads to wrong output).  The chunk table and the
+    words are views of the payload's memory."""
     head = _BLOCK_HEAD.size + 128
     if len(payload) < head:
         raise ValueError("truncated huffman block header")
-    n, total_bits, mode = _BLOCK_HEAD.unpack(payload[: _BLOCK_HEAD.size])
-    nib = np.frombuffer(payload[_BLOCK_HEAD.size: head], np.uint8)
+    view = memoryview(payload)
+    n, total_bits, mode = _BLOCK_HEAD.unpack_from(view)
+    nib = np.frombuffer(view[_BLOCK_HEAD.size: head], np.uint8)
     lengths = np.zeros(256, np.int32)
     lengths[0::2] = nib & 0xF
     lengths[1::2] = nib >> 4
@@ -256,7 +260,7 @@ def _parse_payload(payload: bytes):
         if mode & FLAG_ALIGNED2:
             if len(payload) < off + 5:
                 raise ValueError("truncated huffman chunk table")
-            chunk_log, nchunks = struct.unpack("<BI", payload[off: off + 5])
+            chunk_log, nchunks = struct.unpack_from("<BI", view, off)
             off += 5
             chunk_syms = 1 << chunk_log
             if chunk_syms % 8 != 0:
@@ -267,7 +271,7 @@ def _parse_payload(payload: bytes):
         else:
             if len(payload) < off + 4:
                 raise ValueError("truncated huffman chunk table")
-            (nchunks,) = struct.unpack("<I", payload[off: off + 4])
+            (nchunks,) = struct.unpack_from("<I", view, off)
             off += 4
             chunk_syms = CHUNK_SYMS
             width = 4
@@ -276,7 +280,7 @@ def _parse_payload(payload: bytes):
                              f"in chunks of {chunk_syms}")
         if len(payload) < off + width * nchunks:
             raise ValueError("truncated huffman chunk table")
-        raw = np.frombuffer(payload[off: off + width * nchunks],
+        raw = np.frombuffer(view[off: off + width * nchunks],
                             "<u2" if width == 2 else "<u4")
         off += width * nchunks
         if width == 2:
@@ -285,7 +289,7 @@ def _parse_payload(payload: bytes):
     nw = -(-total_bits // 32)
     if len(payload) < off + 4 * nw:
         raise ValueError("truncated huffman codeword stream")
-    words = np.frombuffer(payload[off: off + 4 * nw], "<u4")
+    words = np.frombuffer(view[off: off + 4 * nw], "<u4")
     return n, total_bits, lengths, bit_offsets, chunk_syms, words
 
 
@@ -357,11 +361,37 @@ def _to_device(words, tbits, lens, offs, dev):
             timing.upload(offs.view(np.int32), dev))
 
 
+def _pull_into(out: np.ndarray, syms: torch.Tensor) -> int:
+    """Copy the 1-D uint8 `syms` into the front of the host array `out`,
+    as far as `out` reaches: one copy from the device, a wait (none for
+    no bytes: an empty copy does not synchronise).  -> the bytes
+    written."""
+    n = min(syms.shape[0], out.shape[0])
+    if n:
+        timing.wait(torch.Tensor.copy_, torch.from_numpy(out[:n]), syms[:n])
+    return n
+
+
+def _valid_symbols(syms: torch.Tensor, ns: list[int]) -> torch.Tensor:
+    """uint8 [B, width] decoded rows -> each row's first ns[j] symbols,
+    one block after another, as one 1-D tensor on the rows' device.
+    Where every block but the last holds ns[0] symbols (any container's
+    group), that is a prefix of the rows cut to ns[0]: a view when ns[0]
+    is the row width (1 MiB blocks of 128-symbol chunks), else one
+    narrowing copy on the device."""
+    width = ns[0]
+    if all(n == width for n in ns[:-1]) and ns[-1] <= width:
+        return syms[:, :width].reshape(-1)[: sum(ns)]
+    return torch.cat([syms[j, :n] for j, n in enumerate(ns)])
+
+
 def _decompress_batch_aligned(group: list[bytes], cap: int, max_len: int,
-                              dev: torch.device,
-                              kernel: str | None) -> list | None:
-    """All-aligned fast path: the whole group decodes in one batch.
-    Returns None when the group must fall back to one block at a time."""
+                              dev: torch.device, kernel: str | None,
+                              out: np.ndarray) -> int | None:
+    """All-aligned fast path: the whole group decodes in one batch, and
+    its blocks' symbols land one after another at the front of `out` (as
+    far as it reaches).  Returns the bytes written, or None when the
+    group must fall back to one block at a time."""
     with timing.stage("huffman.parse"):
         prep = _parse_aligned_group(group, cap)
         if prep is None:
@@ -372,24 +402,20 @@ def _decompress_batch_aligned(group: list[bytes], cap: int, max_len: int,
     with timing.stage("huffman.decode"):
         syms = decode_batch_device(*args, chunk, max_len, kernel)
     with timing.stage("huffman.pull"):
-        pulled = timing.wait(torch.Tensor.cpu, syms).numpy()
-    return [pulled[j, : ns[j]] for j in range(len(ns))]
+        return _pull_into(out, _valid_symbols(syms, ns))
 
 
-def decompress_block(payload: bytes, max_len: int = DEFAULT_MAX_LEN,
-                     block_cap: int | None = None, device: str | None = None,
-                     kernel: str | None = None) -> np.ndarray:
-    """One payload -> uint8 symbols: aligned blocks through
+def _decode_block(payload: bytes, max_len: int, block_cap: int | None,
+                  dev: torch.device, kernel: str | None) -> torch.Tensor:
+    """One payload -> its uint8 symbols on `dev`: aligned blocks through
     `decode_batch_device` as a batch of one, others through the
     self-synchronising decoder."""
-    dev = resolve(device)
     parsed = _parse_payload(payload)
     n, total_bits, lengths, bit_offsets, chunk_syms, words = parsed
     cap = block_cap or n
     if bit_offsets is not None:
         args = _to_device(*_batch_arrays([parsed], cap), dev)
-        syms = decode_batch_device(*args, chunk_syms, max_len, kernel)
-        return timing.wait(torch.Tensor.cpu, syms[0, :n]).numpy()
+        return decode_batch_device(*args, chunk_syms, max_len, kernel)[0, :n]
     if n > cap:
         raise ValueError("huffman block exceeds the container's block size")
     table = HuffmanTable.from_lengths(lengths, max_len)
@@ -401,7 +427,17 @@ def decompress_block(payload: bytes, max_len: int = DEFAULT_MAX_LEN,
         sub_bits)
     if n_valid < n:
         raise ValueError(f"self-sync decode found {n_valid} of {n} symbols")
-    return timing.wait(torch.Tensor.cpu, out[:n]).numpy()
+    return out[:n]
+
+
+def decompress_block(payload: bytes, max_len: int = DEFAULT_MAX_LEN,
+                     block_cap: int | None = None, device: str | None = None,
+                     kernel: str | None = None) -> np.ndarray:
+    """One payload -> uint8 symbols (see `_decode_block`)."""
+    syms = _decode_block(payload, max_len, block_cap, resolve(device), kernel)
+    out = np.empty(syms.shape[0], np.uint8)
+    _pull_into(out, syms)
+    return out
 
 
 def decompress(buf: bytes, max_len: int = DEFAULT_MAX_LEN,
@@ -415,22 +451,24 @@ def decompress(buf: bytes, max_len: int = DEFAULT_MAX_LEN,
             c = Container.from_bytes(buf)
         if c.codec_id != CODEC_HUFFMAN:
             raise ValueError(f"not a huffman container (codec {c.codec_id})")
-        parts = []
+        out = np.empty(c.orig_len, np.uint8)
+        pos = 0
         for i in range(0, len(c.payloads), GROUP):
             timing.next_block(i)
             with timing.stage("huffman.group"):
                 group = c.payloads[i: i + GROUP]
-                fast = _decompress_batch_aligned(group, c.block_size, max_len,
-                                                 dev, kernel)
-                if fast is not None:
-                    parts.extend(fast)
-                else:
-                    parts.extend(decompress_block(p, max_len, c.block_size,
-                                                  dev, kernel) for p in group)
+                got = _decompress_batch_aligned(group, c.block_size, max_len,
+                                                dev, kernel, out[pos:])
+                if got is None:
+                    got = 0
+                    for p in group:
+                        got += _pull_into(out[pos + got:], _decode_block(
+                            p, max_len, c.block_size, dev, kernel))
+                pos += got
         with timing.stage("huffman.join"):
-            out = b"".join(x.tobytes() for x in parts)[: c.orig_len]
+            out = out[:pos].tobytes()
         with timing.stage("huffman.adler32"):
-            ok = c.verify_data(np.frombuffer(out, np.uint8))
+            ok = c.verify_data(out)
         if not ok:
             raise ValueError("data checksum mismatch after decompress")
         return out

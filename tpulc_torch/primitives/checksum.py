@@ -21,9 +21,11 @@ _BITREV8 = np.array(
 
 
 def adler32_np(data: bytes | np.ndarray, value: int = 1) -> int:
-    """Host adler32 (zlib-compatible)."""
-    buf = data.tobytes() if isinstance(data, np.ndarray) else data
-    return zlib.adler32(buf, value) & 0xFFFFFFFF
+    """Host adler32 (zlib-compatible) of any buffer: a C-contiguous
+    ndarray is read in place, any other is made contiguous first."""
+    if isinstance(data, np.ndarray):
+        data = np.ascontiguousarray(data)
+    return zlib.adler32(data, value) & 0xFFFFFFFF
 
 
 def crc32_bzip2_np(data: bytes | np.ndarray) -> int:
