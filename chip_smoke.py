@@ -2,11 +2,6 @@
 """Prove the PyTorch/CUDA port (tpulc_torch) runs on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --walks [--root DIR]
-    python3 chip_smoke.py --mtf [--root DIR]
-    python3 chip_smoke.py --abc [--root DIR]
-    python3 chip_smoke.py --rans [--root DIR]
-    python3 chip_smoke.py --ibwt [--root DIR]
     python3 chip_smoke.py --e1
     python3 chip_smoke.py --st
     python3 chip_smoke.py --lz
@@ -14,54 +9,10 @@
     python3 chip_smoke.py --prim
     python3 chip_smoke.py --huff
 
-The second to sixth forms run one turn of a parent/change comparison
-with the tpulc_torch package under DIR (default: this checkout), e.g. a
-`git archive` of the parent commit; run them in turns, parent, change,
-change, parent.  `--walks`: K3, K7 and K8 device ms and the decode-only
-GB/s of every decoder at the huffman path's full width.  `--mtf`: K1
-and the start tables as that tree's `mtf_encode` calls them, device ms
-and the host's microseconds a call at the bz shape, bzip2's last block,
-pg1661 x 6's 4 MiB bsc -e2 block, and an 8 MiB and a 25 MiB soup block, with, where the
-tree has them, the builds of mtf.cu's comparison library
-(-DTPLC_MTF_SWEEP: the start tables at every tile and split);
-the reverse-rANS emission (csrc/grc_rans.cu) on K5's output at pg1661 x
-6's 4 MiB bsc -e2 block and the soup's 4, 8, 16 and 25 MiB blocks:
-device ms, ms, the host's microseconds a call, K5 then the emission, the sha256 of
-its outputs, the longest lane's events and ns an event, the chain, and,
-where the tree has them, the builds of grc_rans.cu's comparison library
-(-DTPLC_GRC_RANS_SWEEP: its two designs); and the bz and bsc -e2
-compress MB/s.
-`--abc`: the adaptive coder's two walks on the arguments that tree's
-`-e2` path gives them at the three ST shapes (`ABC_SHAPES`): ms, device
-ms, the sha256 of their outputs, ns a step of the deepest lane,
-registers and waves, the parent's zero-fill of the encode words alone,
-the chain bound, and, where the tree's abc.cu has them, every build of
-its comparison library (`-DTPLC_ABC_SWEEP`: lanes a block, the decode's
-16-byte word chunks).
-`--rans`: coder 1's two walks on the arguments that tree's `-e1` path
-gives them on pg1661 x 6 at 4 MiB and on the 100 MB soup at 25 MiB
-(`rans_turn`): ms, device ms, the sha256 of their outputs, the working
-lanes, ns a step of the deepest lane, registers and waves, the chain
-bound, the same call with every nsym 0 and on the working lanes alone,
-the parent's zero-fill of the encode words and a zero-filled decode
-output alone, every build of the tree's comparison library
-(`-DTPLC_RANS_SWEEP`: lanes a block, encode's register batches, the
-decode's word reads and its fused global table, with each block's
-phase clocks), and the compiled loops of both walks.
-`--ibwt`: the running max / min scans on the four arrays RLE2 scans and
-the anchored inverse BWT (LF map and walk, through that tree's
-`bwt_decode_anchored` / `bwt_decode_masked_anchored`, and the walk's
-wrapper alone) on the first bz block of pg1661 x 6, on pg1661 x 6 as
-one 4 MiB bsc -e1 block and on the first 25 MiB soup block under bsc
--e1 (`ibwt_turn`): device ms, ms (host time included), the host's
-microseconds a call, the sha256 of each
-output, the pointer chase's ns a load over the walk's table at 8-byte
-entries and, where the tree has it, at 4-byte ones, and, where the
-tree has them, the walk at every lanes a warp and the scans at every
-tile of scan.cu's comparison build (`-DTPLC_SCAN_SWEEP`).
 `--e1`: the card, the build and phase 9 alone; `--st`: the same for
 phase 10; `--lz`: the same for phases 11 and 12; `--dist`: the same for
-phase 13; `--prim`: the same for phase 14.
+phase 13; `--prim`: the same for phase 14; `--huff`: the same for
+phases 5 and 6.
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -84,13 +35,9 @@ Phases (any failure exits non-zero before the last line is printed):
    four arrays the first block's RLE2 scans (`rle2_encode`'s three,
    `rle2_decode`'s one) and the anchored inverse-BWT walk
    (csrc/ibwt.cu) on its real last column and anchors, each against its
-   plain version, the scans beside torch.cummax / cummin, the walk
-   beside its chain: S dependent loads, each priced by the faster of
-   two one-thread pointer chases over a random cycle of the walk's
-   table size, of 8-byte entries (the walk's first design) and of
-   4-byte ones (its own); then the walk at every lanes a warp, the
-   scans at every tile of scan.cu's comparison build, and each
-   wrapper's device time and CUDA launches a call (torch.profiler);
+   plain version, the scans beside torch.cummax / cummin; then the walk
+   at every lanes a warp, and each wrapper's device time and CUDA
+   launches a call (torch.profiler);
 4. the bz main path: bz compress + decompress of pg1661 x 6 (3,569,598
    B, 900,000 B blocks) through the codec entry points on the card, with
    every kernel's launch count reset before and read after; exact round
@@ -122,8 +69,8 @@ Phases (any failure exits non-zero before the last line is printed):
    versions on real grids at both bsc shapes: pg1661 x 6 at 4 MiB
    blocks (1,024 lanes after LZP) and the first 25 MiB block of 100 MB
    of word soup (25,600 lanes); bit-identical, timed as in phase 3 (the
-   plain versions once: they take seconds); then K5 and K6 at 32, 64
-   and 94 lanes a block (each output equal), with ns a step and waves;
+   plain versions once: they take seconds); then K5 and K6 at 32 and
+   64 lanes a block, each output equal to the default 94's;
    and K1, the start tables, K2 and K4 at the soup shape (204,800
    chunks x 128 from that block's real BWT output; the plain K2 and K4
    once), with K2's walk and every K4, K1 and start-table build as in
@@ -143,9 +90,7 @@ Phases (any failure exits non-zero before the last line is printed):
 9. the bsc -e1 main path (tpulc's default coder, through
    get_codec("bsc") with tpulc's defaults): first coder 1's encode and
    decode walks (csrc/rans_ctx.cu) against their plain versions on the
-   arguments each cell's path gives them, timed as in phase 3, and every
-   build of rans_ctx.cu's comparison library (-DTPLC_RANS_SWEEP) equal
-   to the wrappers (device ms, registers, waves, phase clocks); then,
+   arguments each cell's path gives them, timed as in phase 3; then,
    counted as in phase 4, pg1661 x 6 at 4 MiB blocks (exact round trip,
    177,610 B, ratio 20.098, tpulc's sha256, K1, the start tables and K2
    once a block, K4 twice, each walk once a call, the card's container
@@ -163,9 +108,8 @@ Phases (any failure exits non-zero before the last line is printed):
    block, each coder walk once a call, the host inverse-ST walk once a
    hybrid block; the adaptive coder's encode and decode walks
    (csrc/abc.cu) against their plain versions on the arguments each
-   -e2 cell's run gave them, each at 32, 64 and 128 lanes a block (equal
-   outputs; device ms, ns a step, registers, waves), and K1, the start
-   tables, K2 and K4 at st8w's 409,600 chunks; stage times (the host walk's seconds a
+   -e2 cell's run gave them, and K1, the start tables, K2 and K4 at
+   st8w's 409,600 chunks; stage times (the host walk's seconds a
    block), peak device memory, MB/s (the hybrid soup cell decodes once,
    under the profiler) and the soup cells' traces;
 11. bzip2 at level 9 and lzss at 1 MiB blocks on pg1661 x 6 through
@@ -239,13 +183,10 @@ before they had a kernel (`cummax`, `cat`, a stable `argsort`); no one
 call computes them.  The scans' library time is torch.cummax /
 cummin (a reverse scan's on the flipped input); their bytes are x read
 and y written once.  The walk's bytes are its n table reads as 32-byte
-sectors and its n output bytes; its `chain` is measured (S dependent
-loads times one load's latency from the faster of two one-thread
-pointer chases, of 8- and of 4-byte entries, over a random cycle of the
-table's size), not computed; no one PyTorch call computes it.  `ms` is the
-wrapper's call between two CUDA events; `device_ms` is the kernel
-alone, from a CUDA graph of 5 calls replayed, because the wrapper's
-host time exceeds a kernel of some tens of microseconds.
+sectors and its n output bytes; no one PyTorch call computes it.  `ms`
+is the wrapper's call between two CUDA events; `device_ms` is the
+kernel alone, from a CUDA graph of 5 calls replayed, because the
+wrapper's host time exceeds a kernel of some tens of microseconds.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -407,14 +348,11 @@ RLE_MOD = "tpulc_torch.codecs.bwt.rle"
 # what the path must not run any more: torch's 1-D scans
 NO_TORCH_SCANS = ("aten::cummax", "aten::cummin")
 # the walk's integer operations a step (the mask of the successor, the
-# byte's shift and or into its word); the pointer chase's steps
+# byte's shift and or into its word)
 WALK_OPS = 3
-CHASE_STEPS = 1 << 13
 # the walk's lanes a warp (csrc/ibwt.cu picks one from the lanes and the
-# SM count), swept; the scans' tiles (csrc/scan.cu's comparison build)
+# SM count), swept
 WALK_LANES_PER_WARP = (1, 2, 4, 8, 16, 32)
-SCAN_TILES = (2048, 4096, 8192, 16384)
-HOST_REPS = 21   # calls a median of `time_ms` in --ibwt
 SOUP_WORDS = [
     b"the", b"of", b"and", b"compression", b"lossless", b"entropy",
     b"transform", b"block", b"sorting", b"data", b"parallel", b"encode",
@@ -472,9 +410,6 @@ RANS_DEC_CHAIN = 5
 # the remainder, its compare and select
 EMIT_CHAIN = 6
 CHAIN_CYCLES = 4
-# the adaptive coder's three shapes, ST_CELLS labels: 1,024 lanes
-# (pg1661 x 6), 25,600 and 51,200 (one 25 MiB soup block)
-ABC_SHAPES = ("st8_e2", "soup25_st8_e2", "soup25_st8w_e2")
 # phase 14, the primitive layer at the sizes its users run (PERF.md §4):
 # one libbsc default block of bench.py's soup for the suffix arrays; 2^26
 # int32 for the scans and sorts; 2^24 list nodes; 2^26 random words; a
@@ -662,8 +597,7 @@ def check_kernels(torch, checks: list[dict]) -> list[dict]:
     output written once; `library` is one PyTorch
     call computing the same function, timed beside the kernel; `chain`,
     the dependent operations of the longest lane, prints `chain_ms`
-    beside the bound (not in the entry: it is computed, not measured);
-    `chain_ms` with `chain_note` prints a chain measured elsewhere.
+    beside the bound (not in the entry: it is computed, not measured).
     Launches are filled in from the main path's run later."""
     kernels = []
     for c in checks:
@@ -685,9 +619,7 @@ def check_kernels(torch, checks: list[dict]) -> list[dict]:
             library_ms = time_ms(torch, c["library"])
         b = bound(moved, c["ops"])
         chain = (f" chain {chain_ms(c['chain'])} ms ({c['chain']} dependent "
-                 f"ops)" if "chain" in c else
-                 f" chain {c['chain_ms']} ms ({c['chain_note']})"
-                 if "chain_ms" in c else "")
+                 f"ops)" if "chain" in c else "")
         print(f"kernel {c['name']}: shape {c['shape']} max_abs_err {err} "
               f"kernel {ms:.4f} ms (on the device {dev_ms:.4f}) plain "
               f"{plain_ms:.4f} ms library "
@@ -960,69 +892,6 @@ def require_stage_launches(label: str, counts: dict, calls: dict,
         f"not {walks if walks is not None else 'at least once'}")
 
 
-def chase_ns(torch, cuda_lib, entries: int, reps: int = 5,
-             width: int = 8) -> float:
-    """ns of one dependent load of a `width`-byte entry (8: the walk's
-    first design's T | last << 32, `tplc_pointer_chase`; 4: its uint32
-    successor, `tplc_pointer_chase4`): one thread follows CHASE_STEPS
-    steps of a random cycle through `entries` entries (the walk's table
-    size), each run from a fresh start after a pass that reads the whole
-    table (so that a table that fits is in L2, as the walk finds its
-    freshly written one); median of `reps`."""
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(PRIM_SEED)
-    perm = torch.randperm(entries, device=dev, generator=g)
-    nxt = torch.empty(entries, dtype=torch.int64 if width == 8
-                      else torch.int32, device=dev)
-    nxt[perm] = torch.roll(perm, -1).to(nxt.dtype)
-    sink = torch.empty(1, dtype=torch.int64, device=dev)
-    lib = cuda_lib.library()
-    starts = perm[::max(1, entries // (reps + 1))][: reps + 1].tolist()
-    times = []
-    for k, start in enumerate(starts):
-        nxt.max()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        chase = (lib.tplc_pointer_chase if width == 8
-                 else lib.tplc_pointer_chase4)
-        cuda_lib.check(chase(
-            nxt.data_ptr(), int(start), CHASE_STEPS, sink.data_ptr(),
-            cuda_lib.stream_of(nxt)), "pointer_chase")
-        b.record()
-        b.synchronize()
-        if k:   # the first run warms the code
-            times.append(a.elapsed_time(b) * 1e6 / CHASE_STEPS)
-    return statistics.median(times)
-
-
-def host_us(torch, fn, reps: int = HOST_REPS * 10) -> float:
-    """The host's microseconds a call of fn(): `reps` calls issued with
-    no wait between them, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) * 1e6 / reps
-
-
-def scan_entry(torch, cuda_lib, x, is_max: bool, reverse: bool):
-    """A call of the scan's C entry alone on x, its output and scratch
-    allocated once (scratch sized for any tree: the first design counted
-    it in elements of x, the second in bytes)."""
-    lib = cuda_lib.library()
-    y = torch.empty_like(x)
-    scratch = torch.empty(8 * lib.tplc_running_scan_scratch(x.shape[0]),
-                          dtype=torch.uint8, device=x.device)
-    stream = cuda_lib.stream_of(x)
-    return lambda: cuda_lib.check(lib.tplc_running_scan(
-        x.data_ptr(), y.data_ptr(), scratch.data_ptr(), x.shape[0],
-        x.element_size(), int(is_max), int(reverse), stream), "scan")
-
-
 def rle2_arrays(enc: dict, dec: dict) -> list:
     """The four arrays a block's RLE2 scans (`rle2_encode`'s three,
     `rle2_decode`'s one: kept by `stage_calls` as enc and dec) -> [(the
@@ -1035,15 +904,13 @@ def rle2_arrays(enc: dict, dec: dict) -> list:
                      for a, kw in dec[k]]
 
 
-def stage_checks(torch, cuda_lib, here: str, enc: dict, dec: dict,
-                 suffix: str):
+def stage_checks(torch, cuda_lib, enc: dict, dec: dict, suffix: str):
     """`check_kernels` entries of the scans on the four arrays a block's
     RLE2 scans (`rle2_arrays`) and of the walk on the block's real
-    arguments, whose chain is S loads at the faster of the 8- and 4-byte
-    pointer chases; then the walk at every lanes a warp (`walk_sweep`),
-    the scans at every tile (`scan_tiles`) and each wrapper's device
-    time and CUDA launches a call -> (the entries for the kernels line:
-    the first max and min of the encode and the walk; every entry)."""
+    arguments; then the walk at every lanes a warp
+    (`walk_at_every_lanes`) and each wrapper's device time and CUDA
+    launches a call -> (the entries for the kernels line: the first max
+    and min of the encode and the walk; every entry)."""
     from tpulc_torch.codecs.bwt import ibwt_kernels as ik
     from tpulc_torch.primitives import scan_kernels as sk
 
@@ -1063,26 +930,17 @@ def stage_checks(torch, cuda_lib, here: str, enc: dict, dec: dict,
             ops=x.shape[0], library=partial(lib_fn, xl, 0)))
     walk = [v for k, v in dec.items() if k[1] == "anchored_walk"][0]
     T, last, anchors, n, S, cap = walk[0][0]
-    ns8 = chase_ns(torch, cuda_lib, cap)
-    ns4 = chase_ns(torch, cuda_lib, cap, width=4)
-    ns = min(ns8, ns4)
     checks.append(dict(
         name="anchored_walk" + suffix, src=IBWT_SRC,
         replaces=STAGE_REPLACES["anchored_walk"], kern=ik.anchored_walk,
         plain=ik.anchored_walk_plain, args=(T, last, anchors, n, S, cap),
         shape=f"{-(-n // S)} lanes x {S} steps, n {n}, cap {cap}",
-        bytes=33 * n, ops=WALK_OPS * n, plain_reps=1,
-        chain_ms=S * ns * 1e-6,
-        chain_note=f"{S} dependent loads x {ns:.1f} ns, the faster of "
-                   f"one-thread pointer chases over {cap} entries of 8 "
-                   f"bytes ({ns8:.1f} ns) and of 4 ({ns4:.1f} ns)"))
+        bytes=33 * n, ops=WALK_OPS * n, plain_reps=1))
     entries = check_kernels(torch, checks)
     args = (T, last, anchors, n, S, cap)
     print(json.dumps({
-        f"anchored_walk_lanes_per_warp{suffix}": walk_sweep(
+        f"anchored_walk_lanes_per_warp{suffix}": walk_at_every_lanes(
             torch, cuda_lib, args),
-        f"scan_tiles{suffix}": scan_tiles(torch, cuda_lib,
-                                          sweep(here, "scan"), arrays),
         f"launches_a_call{suffix}": {
             "running_max": launch_split(torch, partial(
                 sk.running_max, arrays[0][1]), counts=True),
@@ -1096,7 +954,7 @@ def stage_checks(torch, cuda_lib, here: str, enc: dict, dec: dict,
     return line, entries
 
 
-def walk_sweep(torch, cuda_lib, args) -> dict:
+def walk_at_every_lanes(torch, cuda_lib, args) -> dict:
     """The walk's C entry at every lanes a warp (the memset and the count
     launch, the same at every choice, included), each output equal to
     the wrapper's, with device ms; the kernel's own pick; the wrapper's
@@ -1127,40 +985,6 @@ def walk_sweep(torch, cuda_lib, args) -> dict:
         res["device_ms"][lpw] = device_ms(torch, run)
     res["wrapper_device_ms"] = device_ms(torch, lambda: ik.anchored_walk(
         *args))
-    return res
-
-
-def scan_tiles(torch, cuda_lib, scan_lib, arrays) -> dict:
-    """The scans at every tile of scan.cu's comparison build
-    (`-DTPLC_SCAN_SWEEP`: SCAN_TILES elements a tile), each output equal
-    to the wrapper's: device ms by array and tile, and the wrapper's
-    pick; {} without that build."""
-    from tpulc_torch.primitives import scan_kernels as sk
-
-    if scan_lib is None:
-        return {}
-    lib, main = scan_lib[0], cuda_lib.library()
-    res = {}
-    for name, x, rev, site in arrays:
-        want = getattr(sk, name)(x, rev)
-        row = {"pick": main.tplc_running_scan_tile(x.shape[0])}
-        scratch = torch.empty(main.tplc_running_scan_scratch(x.shape[0]),
-                              dtype=torch.uint8, device=x.device)
-        for tile in SCAN_TILES:
-            y = torch.empty_like(x)
-
-            def run(tile=tile, y=y):
-                cuda_lib.check(lib.tplc_running_scan_sweep(
-                    x.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-                    x.shape[0], x.element_size(), int(name == "running_max"),
-                    int(rev), tile, cuda_lib.stream_of(x)), name)
-
-            run()
-            torch.cuda.synchronize()
-            require(torch.equal(y, want),
-                    f"{name} at a tile of {tile} differs from the wrapper's")
-            row[tile] = device_ms(torch, run)
-        res[f"{name}_{site}"] = row
     return res
 
 
@@ -1214,18 +1038,6 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--walks", action="store_true",
-                    help="one turn of the huffman walks' comparison")
-    ap.add_argument("--mtf", action="store_true",
-                    help="one turn of K1's, the start tables' and the "
-                         "reverse-rANS emission's comparison")
-    ap.add_argument("--abc", action="store_true",
-                    help="one turn of the adaptive coder's walks' comparison")
-    ap.add_argument("--rans", action="store_true",
-                    help="one turn of coder 1's walks' comparison")
-    ap.add_argument("--ibwt", action="store_true",
-                    help="one turn of the anchored walk's and the running "
-                         "scans' comparison")
     ap.add_argument("--e1", action="store_true",
                     help="phase 9 alone (bsc -e1 on both cells)")
     ap.add_argument("--st", action="store_true",
@@ -1241,9 +1053,6 @@ def main() -> int:
     ap.add_argument("--huff", action="store_true",
                     help="phases 5 and 6 alone (the huffman walks and the "
                          "100 MB huffman round trip)")
-    ap.add_argument("--root", default=None,
-                    help="with --walks, --mtf, --abc, --rans or --ibwt: "
-                         "the checkout whose tpulc_torch runs")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1251,11 +1060,6 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
-    if opts.walks or opts.mtf or opts.abc or opts.rans or opts.ibwt:
-        turn = (walks_turn if opts.walks else mtf_turn if opts.mtf
-                else abc_turn if opts.abc else rans_turn if opts.rans
-                else ibwt_turn)
-        return turn(torch, here, os.path.abspath(opts.root or here))
     sys.path.insert(0, here)
     from tpulc_torch import cuda_lib
     from tpulc_torch.codecs.bwt import driver
@@ -1272,14 +1076,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind}", flush=True)
 
-    # 2. build (with abc.cu's comparison builds where phase 10 runs and
-    # rans_ctx.cu's where phase 9 does)
+    # 2. build
     t0 = time.perf_counter()
-    if not (opts.e1 or opts.lz or opts.dist or opts.prim or opts.huff):
-        sweep_start(here, cuda_lib, "abc")
-    if not (opts.st or opts.lz or opts.dist or opts.prim or opts.huff):
-        sweep_start(here, cuda_lib, "rans_ctx")
-        sweep_start(here, cuda_lib, "scan")
     cuda_lib.library()
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
           f"{' '.join(cuda_lib.NVCC_FLAGS)})", flush=True)
@@ -1352,8 +1150,7 @@ def main() -> int:
                                  dk.huffman_walk_plain(*walk))}}), flush=True)
     # the scans on the four arrays a bz block's RLE2 scans, the walk on
     # its real last column and anchors
-    stage_line, stage_all = stage_checks(torch, cuda_lib, here, enc, dec,
-                                         "")
+    stage_line, stage_all = stage_checks(torch, cuda_lib, enc, dec, "")
     print(json.dumps({"bwt_stage_kernels_bz": stage_all}), flush=True)
     kernels += stage_line
     del enc, dec, one
@@ -1454,942 +1251,12 @@ def main() -> int:
     return 0
 
 
-def walks_turn(torch, here: str, root: str) -> int:
-    """One turn of the huffman walks' parent/change comparison, with the
-    tpulc_torch package under `root`: device ms (`device_ms`) and sha256
-    of the output of K3 unpacked on the bz block of phase 3, and of K3
-    packed, K7 and K8 on the 100 MB group of phase 5; the decode-only
-    GB/s of every decoder (`decode_only_s`)."""
-    smi, build_s = load_tree(root)
-    from tpulc_torch.codecs.bwt import driver
-    from tpulc_torch.codecs.huffman import decode as hdec
-    from tpulc_torch.codecs.huffman import decode_kernels as dk
-    from tpulc_torch.codecs.huffman import driver as hdrv
-    from tpulc_torch.pipeline.container import Container
-
-    dev = torch.device("cuda")
-    data = corpus(here)
-    payload = Container.from_bytes(driver.compress(
-        data[:BLOCK], block_size=BLOCK, device="cuda")).payloads[0]
-    _, walk, _, _ = driver.walk_args(payload, driver._cap_for(BLOCK), dev)
-    comp = hdrv.compress(corpus(here, HUFF_SIZE), block_size=HUFF_BLOCK,
-                         device="cuda")
-    words, tbits, lens, offs, _, chunk = hdrv._parse_aligned_group(
-        Container.from_bytes(comp).payloads, HUFF_BLOCK)
-    group = hdrv._to_device(words, tbits, lens, offs, dev)
-    wargs, _ = hdec.walk_args(*group, chunk, HUFF_MAX_LEN)
-    fargs, _ = hdec.flat_args(*group, chunk, HUFF_MAX_LEN)
-    out = {"root": root, "card": smi, "build_s": build_s, "device_ms": {},
-           "sha256": {}}
-    for name, fn in (("k3_unpacked_bz", partial(dk.huffman_walk, *walk)),
-                     ("k3_packed", partial(dk.huffman_walk, *wargs,
-                                           packed=True)),
-                     ("k7", partial(dk.huffman_walk_v1, *wargs)),
-                     ("k8", partial(dk.huffman_walk_flat, *fargs))):
-        got = fn().contiguous().cpu().numpy()
-        out["sha256"][name] = hashlib.sha256(got.tobytes()).hexdigest()
-        out["device_ms"][name] = device_ms(torch, fn)
-    secs = decode_only_s(torch, hdrv, group, chunk, HUFF_MAX_LEN)
-    out["decode_only_GBps"] = {k: HUFF_SIZE / 1e9 / v
-                               for k, v in secs.items()}
-    print(smi)
-    print(json.dumps({"walks": out}), flush=True)
-    return 0
-
-
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-
-
-def load_tree(root: str, fresh: str = "",
-              before_build=None) -> tuple[str, float]:
-    """Put the tpulc_torch package under `root` first on the path and
-    build its kernels, the library of csrc/{fresh}.cu anew (so that
-    ptxas reports its registers), after before_build(cuda_lib) ->
-    (the card's line, build seconds)."""
-    sys.path.insert(0, root)
-    from tpulc_torch import cuda_lib
-
-    require(os.path.abspath(cuda_lib.__file__).startswith(root + os.sep),
-            f"tpulc_torch was not imported from {root}")
-    build = os.path.join(root, "tpulc_torch", "_build")
-    if fresh and os.path.isdir(build):
-        for f in os.listdir(build):
-            if f.startswith(f"lib{fresh}_"):
-                os.unlink(os.path.join(build, f))
-    t0 = time.perf_counter()
-    if before_build is not None:
-        before_build(cuda_lib)
-    cuda_lib.library()
-    return card(), time.perf_counter() - t0
-
-
-def mtf_turn(torch, here: str, root: str) -> int:
-    """One turn of the forward MTF's and the emission's parent/change
-    comparison, with the tpulc_torch package under `root`: device ms
-    (`device_ms`) of K1, of the start tables and of the pair as that
-    tree's `mtf_encode` calls them (K1 with its tile maxima and the start
-    tables from them, where the tree has them), the sha256 of the tables
-    and the host's microseconds a start-table call (`host_us`), on the bz
-    block of phase 3, bzip2's last block, the bsc -e2 block of pg1661 x
-    6 at 4 MiB and the first soup blocks at 8 and 25 MiB, with the
-    comparison builds where the tree has them (`start_builds`); the
-    reverse-rANS emission on K5's output for pg1661 x 6's 4 MiB bsc -e2
-    block and the soup's first blocks at 4, 8, 16 and 25 MiB
-    (`emission_turn`); then the compress MB/s
-    of bz on pg1661 x 6 and of bsc -e2 on pg1661 x 6 at 4 MiB and on the
-    100 MB soup at 25 MiB (host clock, synchronised, median of 3 after a
-    warm call)."""
-    import inspect
-
-    smi, build_s = load_tree(root, before_build=lambda cl: [
-        sweep_start(root, cl, stem) for stem in ("grc_rans", "mtf")])
-    from tpulc_torch.codecs.bsclike import driver as bsc
-    from tpulc_torch.codecs.bwt import driver
-    from tpulc_torch.primitives import mtf_kernels as mk
-    from tpulc_torch.primitives.mtf import mtf_decode
-
-    dev = torch.device("cuda")
-    fused = "partials" in inspect.signature(mk.mtf_recency).parameters
-    pg6, big = corpus(here), soup(SOUP_SIZE)
-
-    def bsc_syms(data, block):
-        ranks, _ = block_ranks(torch, bsc, data, block, dev)
-        return mtf_decode(ranks.to(torch.uint8)).to(torch.int32).reshape(
-            -1, 128).contiguous()
-
-    def bzip2_syms():
-        # the last block's symbols, as bzip2's compress hands them to K1
-        from tpulc_torch.pipeline.registry import get_codec
-        from tpulc_torch.primitives import mtf as mtf_mod
-
-        _, calls = spying([(mtf_mod, "mtf_encode_lockstep")], partial(
-            get_codec("bzip2").compress, pg6, level=BZIP2_LEVEL,
-            device="cuda"))
-        return calls["mtf_encode_lockstep"][1]
-
-    shapes = (("bz", lambda: bz_block_syms(torch, driver, pg6, dev)),
-              ("bzip2", bzip2_syms),
-              ("bsc_pg", lambda: bsc_syms(pg6, BSC_BLOCK)),
-              ("soup_8MiB", lambda: bsc_syms(big, 8 << 20)),
-              ("soup", lambda: bsc_syms(big, SOUP_BLOCK)))
-    builds = sweep(root, "mtf")
-    out = {"root": root, "card": smi, "build_s": build_s,
-           "k1_tile_maxima": fused, "device_ms": {}, "sha256": {},
-           "host_us": {}, "compress_MBps": {}, "start_builds": {}}
-    for label, make in shapes:
-        d = make()
-        if fused:
-            k1 = partial(mk.mtf_recency, d, partials=True)
-            rec, part, tile = k1()
-            tables = partial(mk.mtf_start_tables, rec, 128, tile=tile,
-                             part=part)
-
-            def pair(d=d):
-                r, p, t = mk.mtf_recency(d, partials=True)
-                return mk.mtf_start_tables(r, 128, tile=t, part=p)
-        else:
-            k1 = partial(mk.mtf_recency, d)
-            tables = partial(mk.mtf_start_tables, k1(), 128)
-
-            def pair(d=d):
-                return mk.mtf_start_tables(mk.mtf_recency(d), 128)
-        got = pair().cpu().numpy()
-        out["sha256"][label] = hashlib.sha256(got.tobytes()).hexdigest()
-        for name, fn in (("k1", k1), ("start_tables", tables),
-                         ("pair", pair)):
-            out["device_ms"][f"{name}_{label}"] = device_ms(torch, fn)
-        out["host_us"][f"start_tables_{label}"] = host_us(torch, tables)
-        if builds is not None:
-            out["start_builds"][label] = start_builds(
-                torch, builds[0], mk, d, torch.from_numpy(got).to(dev))
-        del d
-    out["emission"] = emission_turn(torch, root, bsc, pg6, big)
-    for label, data, fn in (
-            ("bz_pg1661x6", pg6, partial(driver.compress, pg6,
-                                         block_size=BLOCK)),
-            ("bsc_e2_pg1661x6", pg6, partial(bsc.compress, pg6,
-                                             block_size=BSC_BLOCK, coder=2)),
-            ("bsc_e2_soup100MB", big, partial(bsc.compress, big,
-                                              block_size=SOUP_BLOCK,
-                                              coder=2))):
-        synced(torch, lambda: fn(device="cuda"))
-        secs = statistics.median(synced(torch, lambda: fn(device="cuda"))[1]
-                                 for _ in range(3))
-        out["compress_MBps"][label] = len(data) / 1e6 / secs
-    print(smi)
-    print(json.dumps({"mtf": out}), flush=True)
-    return 0
-
-
-def start_builds(torch, lib, mk, d, want) -> dict:
-    """The start tables' comparison builds (-DTPLC_MTF_SWEEP) on K1's
-    output for `d`: at every tile, every split (1, 2, 4 or 8 warps a
-    tile), each equal to `want`; device ms of each C call on buffers
-    allocated once and of K1 with its maxima at each tile; the wrapper's
-    tile."""
-    from tpulc_torch import cuda_lib
-
-    nchunks = d.shape[0]
-    res = {"pick": cuda_lib.library().tplc_mtf_start_tile(nchunks, 0)}
-    out_t = torch.empty_like(want)
-    for tile in START_TILES:
-        k1 = partial(mk.mtf_recency, d, partials=True, tile=tile)
-        rec, part, _ = k1()
-        res[f"k1_t{tile}"] = device_ms(torch, k1)
-        ntiles = -(-nchunks // tile)
-        scratch = torch.empty(max(1, mk._start_scratch_words(ntiles, False)),
-                              dtype=torch.int32, device=rec.device)
-        for split in (1, 2, 4, 8):
-            def call(split=split):
-                cuda_lib.check(lib.tplc_mtf_start_tables_sweep(
-                    rec.data_ptr(), out_t.data_ptr(), part.data_ptr(),
-                    scratch.data_ptr(), nchunks, 128, tile, split,
-                    cuda_lib.stream_of(rec)), "mtf_start_tables_sweep")
-
-            out_t.fill_(-1)
-            call()
-            require(torch.equal(out_t, want),
-                    f"start tables at tile {tile}, split {split} differ")
-            res[f"t{tile}_s{split}"] = device_ms(torch, call)
-    return res
-
-
-def emission_turn(torch, root: str, bsc, pg6: bytes, big: bytes) -> dict:
-    """The reverse-rANS emission of the tree under `root` on K5's output
-    for the first block of pg1661 x 6 at 4 MiB and of the soup at 4, 8,
-    16 and 25 MiB (1,024, 4,096, 8,192, 16,384 and 25,600 lanes), as the
-    bsc -e2 path builds them (`grc_grid`): device ms, ms (host time
-    included), the host's microseconds a call, ms of K5 alone and of K5 then the
-    emission (host time included, as `grc_encode` queues them), the
-    sha256 of words, counts and states, the longest lane's events, ns an
-    event of that lane, the chain (`emission_chain`) and, where the
-    tree's grc_rans.cu has them, its comparison builds
-    (`emission_builds`)."""
-    from tpulc_torch import cuda_lib
-    from tpulc_torch.codecs.bsclike import grc_kernels as gk
-
-    dev = torch.device("cuda")
-    builds = sweep(root, "grc_rans")
-    out = {}
-    for label, data, block in (("pg1661x6_4MiB", pg6, BSC_BLOCK),
-                               ("soup_4MiB", big, 4 << 20),
-                               ("soup_8MiB", big, 8 << 20),
-                               ("soup_16MiB", big, 16 << 20),
-                               ("soup_25MiB", big, SOUP_BLOCK)):
-        gmb, init, cinit, nsteps, _, _ = grc_grid(torch, bsc, data, block,
-                                                  dev)
-        probs = gk.grc_walk_probs(gmb, init, cinit, nsteps)
-        fn = partial(gk.grc_reverse_rans, gmb, probs, nsteps)
-        got = fn()
-        chain = emission_chain(gmb, nsteps)
-        longest = chain // EMIT_CHAIN
-
-        def k5_then(gmb=gmb, init=init, cinit=cinit, nsteps=nsteps):
-            # as grc_encode calls them: the emission queued behind K5
-            p = gk.grc_walk_probs(gmb, init, cinit, nsteps)
-            return gk.grc_reverse_rans(gmb, p, nsteps)
-
-        row = {"shape": "x".join(map(str, gmb.shape)), "nsteps": nsteps,
-               "sha256": outputs_sha256([g.cpu() for g in got]),
-               "device_ms": device_ms(torch, fn), "ms": time_ms(torch, fn),
-               "host_us": host_us(torch, fn, reps=50),
-               "k5_and_emission_ms": time_ms(torch, k5_then),
-               "k5_ms": time_ms(torch, partial(gk.grc_walk_probs, gmb, init,
-                                               cinit, nsteps)),
-               "longest_lane_events": longest,
-               "chain_ms": chain_ms(chain) if chain else 0.0}
-        row["ns_per_event_longest"] = row["device_ms"] * 1e6 / max(1,
-                                                                  longest)
-        if builds is not None:
-            row["builds"] = emission_builds(torch, cuda_lib, builds[0], gmb,
-                                            probs, nsteps, got)
-        out[label] = row
-        del gmb, probs, got
-    return out
-
-
-def emission_builds(torch, cuda_lib, lib, gmb, probs, nsteps,
-                    want) -> dict:
-    """The emission's comparison builds (-DTPLC_GRC_RANS_SWEEP): both
-    designs (route 0, the shared-memory ring; 1, register batches after
-    a memset), each equal to `want` (the wrapper's outputs), device ms
-    of the C call alone on buffers allocated once; and the route the
-    wrapper's C entry picks."""
-    W, L = gmb.shape
-    dev = gmb.device
-    words = torch.empty((L, W + 2), dtype=torch.int32, device=dev)
-    counts = torch.empty(L, dtype=torch.int64, device=dev)
-    states = torch.empty(L, dtype=torch.int64, device=dev)
-    out = {"pick": cuda_lib.library().tplc_grc_reverse_rans_route(L)}
-    for route in (0, 1):
-        def call(route=route):
-            cuda_lib.check(lib.tplc_grc_reverse_rans_sweep(
-                gmb.data_ptr(), probs.data_ptr(), words.data_ptr(),
-                counts.data_ptr(), states.data_ptr(), W, L,
-                max(0, min(nsteps, W)), route, cuda_lib.stream_of(gmb)),
-                "grc_reverse_rans_sweep")
-
-        words.fill_(-1)
-        call()
-        require(all(torch.equal(a, b) for a, b in zip(
-            (words, counts, states), want)),
-            f"the emission's route {route} differs")
-        out[f"route{route}"] = device_ms(torch, call)
-    return out
-
-
-def ibwt_turn(torch, here: str, root: str) -> int:
-    """One turn of the anchored walk's and the running scans'
-    parent/change comparison, with the tpulc_torch package under `root`,
-    on the first 900,000 B bz block of pg1661 x 6, on pg1661 x 6 as one
-    4 MiB bsc -e1 block, and on the first 25 MiB block of the soup under
-    bsc -e1 (the blocks phases 3 and 9 hold the kernels on, and the one
-    between them): device ms (`device_ms`), ms (`time_ms`: the call
-    between two events, host time included, median of HOST_REPS), the
-    host's microseconds a call (`host_us`; for the scans also of the C
-    entry alone on the same array) and the sha256 of the output of
-    `running_max` / `running_min` on the four arrays that block's RLE2
-    scans (`rle2_arrays`), of `rotsort.bwt_decode_anchored` (bz) or
-    `masked.bwt_decode_masked_anchored` (soup) on its last column and
-    anchors (the LF map and the walk), and of the walk's wrapper alone
-    on that tree's LF map; the pointer chase's ns a load over the walk's
-    table of 8-byte entries, and of 4-byte ones where the tree has that
-    chase; where the tree has them, the walk at every lanes a warp
-    (`walk_sweep`) and the scans at every tile (`scan_tiles`)."""
-    smi, build_s = load_tree(root, before_build=lambda cl: sweep_start(
-        root, cl, "scan"))
-    from tpulc_torch import cuda_lib
-    from tpulc_torch.codecs.bwt import driver, masked, rotsort
-    from tpulc_torch.codecs.bwt import ibwt_kernels as ik
-    from tpulc_torch.pipeline.registry import get_codec
-    from tpulc_torch.primitives import scan_kernels as sk
-
-    four = hasattr(cuda_lib.library(), "tplc_pointer_chase4")
-    bsc = get_codec("bsc")
-    out = {"root": root, "card": smi, "build_s": build_s, "device_ms": {},
-           "ms": {}, "host_us": {}, "sha256": {}, "chase_ns": {}}
-    keep_enc = {(RLE_MOD, "running_max"): 2, (RLE_MOD, "running_min"): 1}
-    rot = ("tpulc_torch.codecs.bwt.rotsort", "anchored_walk")
-    msk = ("tpulc_torch.codecs.bwt.masked", "anchored_walk")
-    cells = (("bz", partial(driver.compress, corpus(here)[:BLOCK],
-                            block_size=BLOCK, device="cuda"),
-              partial(driver.decompress, device="cuda"), rot),
-             ("pg", partial(bsc.compress, corpus(here), block_size=BSC_BLOCK,
-                            device="cuda"),
-              partial(bsc.decompress, device="cuda"), msk),
-             ("soup", partial(bsc.compress, soup(SOUP_SIZE)[:SOUP_BLOCK],
-                              block_size=SOUP_BLOCK, device="cuda"),
-              partial(bsc.decompress, device="cuda"), msk))
-    for label, compress, decompress, site in cells:
-        comp, _, enc = stage_calls(compress, keep_enc)
-        _, _, dec = stage_calls(lambda: decompress(comp), {
-            (RLE_MOD, "running_max"): 1, site: 1})
-        arrays = rle2_arrays(enc, dec)
-        _, last, anchors, n, S, cap = dec[site][0][0]
-        if site == rot:
-            T = rotsort._lf_map(last)
-            inverse = partial(rotsort.bwt_decode_anchored, last, anchors, S)
-        else:
-            T = masked._lf_map(last, n)
-            inverse = partial(masked.bwt_decode_masked_anchored, last, n,
-                              anchors, S)
-        args = (T, last, anchors, n, S, cap)
-        fns = [(f"{name}_{where}_{label}", partial(getattr(sk, name), x, rev))
-               for name, x, rev, where in arrays]
-        fns += [(f"inverse_{label}", inverse),
-                (f"walk_{label}", partial(ik.anchored_walk, *args))]
-        for key, fn in fns:
-            got = fn().contiguous().cpu().numpy()
-            out["sha256"][key] = hashlib.sha256(got.tobytes()).hexdigest()
-            out["device_ms"][key] = device_ms(torch, fn)
-            out["ms"][key] = time_ms(torch, fn, reps=HOST_REPS)
-            out["host_us"][key] = host_us(torch, fn)
-        name, x, rev, where = arrays[0]
-        out["host_us"][f"{name}_{where}_{label}_c_entry"] = host_us(
-            torch, scan_entry(torch, cuda_lib, x, name == "running_max",
-                              rev))
-        out["chase_ns"][f"8_{label}"] = chase_ns(torch, cuda_lib, cap)
-        if four:
-            out["chase_ns"][f"4_{label}"] = chase_ns(torch, cuda_lib, cap,
-                                                     width=4)
-            out[f"walk_lanes_per_warp_{label}"] = walk_sweep(
-                torch, cuda_lib, args)
-        out[f"scan_tiles_{label}"] = scan_tiles(torch, cuda_lib,
-                                                sweep(root, "scan"), arrays)
-        del comp, enc, dec, arrays, fns
-    print(smi)
-    print(json.dumps({"ibwt": out}), flush=True)
-    return 0
-
-
-class _Stop(Exception):
-    pass
-
-
-def first_args(module, name: str, fn) -> tuple:
-    """The positional arguments of the first call of module.name while
-    fn() runs; fn stops there."""
-    orig, calls = getattr(module, name), []
-
-    def spy(*args):
-        calls.append(args)
-        raise _Stop
-
-    setattr(module, name, spy)
-    try:
-        fn()
-    except _Stop:
-        pass
-    finally:
-        setattr(module, name, orig)
-    return calls[0]
-
-
-def abc_resident(lanes: int, smem: int, regs: int) -> int:
-    """Blocks of `lanes` threads, `smem` bytes of shared memory and
-    `regs` registers a thread that one H100 SM holds: 228 KB of shared
-    memory (1 KB reserved a block), 65,536 registers (256 a warp at a
-    time), 64 warps, 32 blocks."""
-    warps = -(-lanes // 32)
-    by_regs = resident_warps(regs) // warps if regs else 64 // warps
-    return max(1, min(32, 233_472 // (smem + 1024), by_regs, 64 // warps))
-
-
-# (checkout root, source stem) -> [nvcc process, temporary .so, .so] of
-# its comparison library, then (ctypes library, {kernel: registers}) once
-# built, or None
-_SWEEP: dict = {}
-# source stem -> (the define that adds its comparison builds, {entry
-# point: argument types as "p" (a pointer or the stream) and "i"})
-SWEEPS = {
-    "abc": ("TPLC_ABC_SWEEP", {"tplc_abc_encode_sweep": "p" * 8 + "iiii" + "p",
-                               "tplc_abc_decode_sweep": "p" * 7 + "i" * 7
-                               + "p"}),
-    "rans_ctx": ("TPLC_RANS_SWEEP", {
-        "tplc_rans_encode_sweep": "p" * 7 + "i" * 6 + "pp",
-        "tplc_rans_decode_sweep": "p" * 7 + "i" * 7 + "pp"}),
-    "scan": ("TPLC_SCAN_SWEEP", {
-        "tplc_running_scan_sweep": "ppp" + "i" * 5 + "p"}),
-    "grc_rans": ("TPLC_GRC_RANS_SWEEP", {
-        "tplc_grc_reverse_rans_sweep": "p" * 5 + "i" * 4 + "p"}),
-    "mtf": ("TPLC_MTF_SWEEP", {
-        "tplc_mtf_start_tables_sweep": "p" * 4 + "i" * 4 + "p"}),
-}
-
-
-def sweep_start(root: str, cuda_lib, stem: str = "abc",
-                fresh: bool = False) -> None:
-    """Start nvcc on the checkout's csrc/{stem}.cu with its comparison
-    define (`SWEEPS`) into its _build/ (anew when `fresh`, so that ptxas
-    reports the registers), where the source has it; `sweep` waits for
-    it and `sweep_stop` ends it."""
-    key = (root, stem)
-    if key in _SWEEP:
-        return
-    define = SWEEPS[stem][0]
-    src = os.path.join(root, "tpulc_torch", "csrc", f"{stem}.cu")
-    with open(src, "rb") as f:
-        text = f.read()
-    if define.encode() not in text:
-        _SWEEP[key] = None
-        return
-    flags = [*cuda_lib.NVCC_FLAGS, f"-D{define}"]
-    build = os.path.join(root, "tpulc_torch", "_build")
-    so = os.path.join(build, f"lib{stem}sweep_" + hashlib.sha256(
-        " ".join(flags).encode() + text).hexdigest()[:16] + ".so")
-    if fresh and os.path.exists(so):
-        os.unlink(so)
-    os.makedirs(build, exist_ok=True)
-    tmp = so + f".{os.getpid()}.tmp"
-    proc = None if os.path.exists(so) else subprocess.Popen(
-        [cuda_lib._nvcc(), *flags, "-o", tmp, src], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-    _SWEEP[key] = [proc, tmp, so]
-
-
-def sweep(root: str, stem: str = "abc"):
-    """(the comparison library, {kernel: registers}) of the checkout's
-    csrc/{stem}.cu, or None where it has no comparison builds."""
-    import ctypes
-
-    entry = _SWEEP.get((root, stem))
-    if entry is None or len(entry) == 2:
-        return entry
-    proc, tmp, so = entry
-    log = ""
-    if proc is not None:
-        log, _ = proc.communicate()
-        require(proc.returncode == 0,
-                f"nvcc -D{SWEEPS[stem][0]} failed:\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    for name, kinds in SWEEPS[stem][1].items():
-        getattr(lib, name).argtypes = [
-            ctypes.c_void_p if k == "p" else ctypes.c_int for k in kinds]
-    _SWEEP[(root, stem)] = (lib, ptxas_registers(log))
-    return _SWEEP[(root, stem)]
-
-
-def sweep_stop() -> None:
-    """End any comparison build still running."""
-    for entry in _SWEEP.values():
-        if entry is not None and len(entry) == 3 and entry[0] is not None:
-            if entry[0].poll() is None:
-                entry[0].kill()
-            entry[0].wait()
-            if os.path.exists(entry[1]):
-                os.unlink(entry[1])
-
-
-def abc_builds(torch, ak, cuda_lib, enc: tuple, dec: tuple,
-               sweep) -> dict:
-    """The adaptive coder's walks at every build: with `sweep` (the
-    comparison library, `sweep`), encode at 32, 64 and 128 lanes a
-    block, decode at 32, 64 and 128 with the two-word queue and at 32
-    with 16-byte word chunks; without (a tree that has none), the
-    wrappers.  Each output equals the wrapper's.  Per build: device ms, ns a step of the
-    deepest lane, registers (ptxas), shared memory and waves; `wrapper`
-    names the builds the wrappers take."""
-    dev = enc[0].device
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    (grid, nbits, inits, lcap) = enc
-    (words, states, lane_cls, nsym, dinits, dlcap, nsteps, chunk) = dec
-    (W, L), (Ld, Wc) = grid.shape, words.shape
-    steps = {"encode": int(nbits.max()), "decode": nsteps}
-    out = {"sms": sms, "steps": steps, "wrapper": {
-        "encode": cuda_lib.library().tplc_abc_encode_lanes(L) if sweep
-        else 32,
-        "decode": 32}, "builds": []}
-    ref = {"encode": ak.abc_encode_walk(*enc),
-           "decode": (ak.abc_decode_walk(*dec),)}
-    if sweep is None:   # one build a walk, 32 lanes, static shared memory
-        builds = [("encode", 32, "", partial(ak.abc_encode_walk, *enc),
-                   117 * 32 * 4, ()),
-                  ("decode", 32, "", lambda: (ak.abc_decode_walk(*dec),),
-                   117 * 32 * 4, ())]
-        regs = ptxas_registers(cuda_lib.build_log.get("abc.cu", ""))
-    else:
-        lib, regs = sweep
-        rcp, fsm = ak._table("rcp", dev), ak._table("fsm", dev)
-
-        def encode(lanes):
-            probs = torch.empty((W + 64, L), dtype=torch.int16, device=dev)
-            w = torch.empty((L, W + 2), dtype=torch.int16, device=dev)
-            c = torch.empty(L, dtype=torch.int64, device=dev)
-            x = torch.empty(L, dtype=torch.int64, device=dev)
-            cuda_lib.check(lib.tplc_abc_encode_sweep(
-                grid.data_ptr(), nbits.data_ptr(), inits.data_ptr(),
-                rcp.data_ptr(), probs.data_ptr(), w.data_ptr(),
-                c.data_ptr(), x.data_ptr(), W, L, lcap, lanes,
-                cuda_lib.stream_of(grid)), "tplc_abc_encode_sweep")
-            return w, c, x
-
-        def decode(lanes, chunks):
-            o = torch.zeros((Ld, chunk), dtype=torch.int32, device=dev)
-            cuda_lib.check(lib.tplc_abc_decode_sweep(
-                words.data_ptr(), states.data_ptr(), lane_cls.data_ptr(),
-                nsym.data_ptr(), dinits.data_ptr(), fsm.data_ptr(),
-                o.data_ptr(), Wc, Ld, dlcap, chunk, (nsteps + 3) // 4 * 4,
-                lanes, chunks, cuda_lib.stream_of(words)),
-                "tplc_abc_decode_sweep")
-            return (o,)
-
-        builds = [("encode", n, "", partial(encode, n),
-                   max(118 * n + 256, 4097) * 4 + 4 * n, (f"ILi{n}E",))
-                  for n in (32, 64, 128)]
-        builds += [("decode", n, f"word {kind}",
-                    partial(decode, n, int(kind == "chunks")),
-                    117 * n * 4 + 1024 * 16,
-                    (f"ILi{n}E", "WordChunks" if kind == "chunks"
-                     else "WordQueue"))
-                   for n, kind in ((32, "queue"), (64, "queue"),
-                                   (128, "queue"), (32, "chunks"))]
-    for tag, lanes, variant, fn, smem, names in builds:
-        got = fn()
-        require(all(torch.equal(g, w) for g, w in zip(got, ref[tag])),
-                f"abc {tag} at {lanes} lanes ({variant}) differs")
-        del got
-        ms = device_ms(torch, fn)
-        r = next((v for k, v in regs.items() if f"abc_{tag}_kernel" in k
-                  and all(x in k for x in names)), 0)
-        blocks = -(-(L if tag == "encode" else Ld) // lanes)
-        out["builds"].append({
-            "walk": tag, "lanes": lanes, "variant": variant,
-            "device_ms": ms, "ns_per_step": ms * 1e6 / max(steps[tag], 1),
-            "registers": r, "smem": smem, "waves": -(-blocks // (
-                sms * abc_resident(lanes, smem, r)))})
-    return out
-
-
-def sass_loops(path: str, kernel: str) -> list:
-    """The loops of each function of the shared library at `path` whose
-    mangled name holds `kernel`, from `cuobjdump -sass`: for each
-    backward branch with 50 or more instructions between its target and
-    itself, [function, instructions, stall cycles], the stall cycles
-    summed from each instruction's control bits (the fewest cycles the
-    scheduler waits after it; a wait on a load comes on top)."""
-    import re
-    import shutil
-
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", path], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    loops, fn, body = [], None, []
-    ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);\s*/\* (0x[0-9a-f]+)")
-    ctl = re.compile(r"^\s*/\* (0x[0-9a-f]+) \*/")
-    lines = text.splitlines() + ["Function : end"]
-    for i, line in enumerate(lines):
-        if "Function : " in line:
-            for a, t, _ in body if fn and kernel in fn else ():
-                m = re.search(r"BRA (?:.*?)0x([0-9a-f]+)", t)
-                if m and int(m.group(1), 16) < a:
-                    run = [st for b, _, st in body
-                           if int(m.group(1), 16) <= b <= a]
-                    if len(run) >= 50:
-                        name = re.search(r"(\w+?)_kernel(?:ILi(\d+)E)?", fn)
-                        loops.append([f"{name.group(1).split('_')[-1]}"
-                                      f"<{name.group(2) or 32}>", len(run),
-                                      sum(max(st, 1) for st in run)])
-            fn, body = line.split("Function : ")[1].strip(), []
-            continue
-        m = ins.search(line)
-        nxt = ctl.match(lines[i + 1]) if m else None
-        if nxt:
-            hi = int(nxt.group(1), 16)
-            body.append((int(m.group(1), 16), m.group(2), (hi >> 41) & 15))
-    return loops
-
-
-def abc_turn(torch, here: str, root: str) -> int:
-    """One turn of the adaptive coder's walks' parent/change comparison,
-    with the tpulc_torch package under `root`: at each of ABC_SHAPES, the
-    arguments that tree's `-e2` compress gives its encode walk and its
-    decompress its decode walk (stopped there: the hybrid's host walk
-    takes a minute), then each walk's `ms`, `device_ms`, output sha256,
-    deepest-lane steps, chain bound (`abc_encode_chain`, ABC_DEC_CHAIN)
-    and every build (`abc_builds`), and the device ms of the encode
-    allocations of the parent's wrapper alone (`probs` and a zero-filled
-    `words`); then the compiled loops of the walks (`sass_loops`)."""
-    smi, build_s = load_tree(root, fresh="abc", before_build=partial(
-        sweep_start, root, stem="abc", fresh=True))
-    from tpulc_torch import cuda_lib
-    from tpulc_torch.codecs.bsclike import abc_kernels as ak
-    from tpulc_torch.codecs.bsclike import rans_adaptive as ra
-    from tpulc_torch.pipeline.registry import get_codec
-
-    bsc = get_codec("bsc")
-    dev = torch.device("cuda")
-    inputs = {"pg": corpus(here), "soup": soup(ST_SOUP_SIZE)}
-    cells = {c[0]: c for c in ST_CELLS}
-    out = {"root": root, "card": smi, "build_s": build_s,
-           "sm_clock_hz": sm_clock_hz(), "shapes": {}}
-    for label in ABC_SHAPES:
-        _, src, block, sorter, coder, size, _, want_sha = cells[label]
-        comp = []
-        enc = captured(ra, "abc_encode_walk", lambda: comp.append(
-            bsc.compress(inputs[src], block_size=block, sorter=sorter,
-                         coder=coder, device="cuda")))
-        require(hashlib.sha256(comp[0]).hexdigest() == want_sha,
-                f"{label}: container differs from tpulc's")
-        dec = first_args(ra, "abc_decode_walk",
-                         lambda: bsc.decompress(comp[0], device="cuda"))
-        W, L = enc[0].shape
-        ops = abc_encode_chain(torch, enc[0], enc[1])
-        row = {"encode_shape": f"{W}x{L}",
-               "decode_shape": "x".join(map(str, dec[0].shape)),
-               "encode_chain_ops": ops, "encode_chain_ms": chain_ms(ops),
-               "decode_chain_ops": dec[6] * ABC_DEC_CHAIN,
-               "decode_chain_ms": chain_ms(dec[6] * ABC_DEC_CHAIN)}
-        for tag, fn in (("encode", partial(ak.abc_encode_walk, *enc)),
-                        ("decode", partial(ak.abc_decode_walk, *dec))):
-            got = fn()
-            got = got if isinstance(got, tuple) else (got,)
-            row[f"{tag}_sha256"] = outputs_sha256(g.cpu() for g in got)
-            del got
-            row[f"{tag}_ms"] = time_ms(torch, fn)
-            row[f"{tag}_device_ms"] = device_ms(torch, fn)
-        row["parent_allocations_device_ms"] = device_ms(torch, lambda: (
-            torch.empty((W, L), dtype=torch.int16, device=dev),
-            torch.zeros((L, W + 2), dtype=torch.int16, device=dev)))
-        row["builds"] = abc_builds(torch, ak, cuda_lib, enc, dec,
-                                   sweep(root, "abc"))
-        del enc, dec, comp
-        out["shapes"][label] = row
-        print(json.dumps({label: row}), flush=True)
-    # the compiled loops of the wrappers' library: a decode turn is 8
-    # steps (1 in a tree without the comparison library), an encode loop
-    # 2 batches of kBatch steps
-    build = os.path.join(root, "tpulc_torch", "_build")
-    out["sass_loops"] = [loop for f in sorted(os.listdir(build))
-                         if f.startswith("libabc_")
-                         for loop in sass_loops(os.path.join(build, f),
-                                                "abc_")]
-    print(smi)
-    print(json.dumps({"abc": out}), flush=True)
-    return 0
-
-
-def lane_cut(nsym, nlanes: int):
-    """The first lanes of each block of `nlanes` up to the last working
-    one (nsym > 0) of any block -> (lane indices, lanes kept a block)."""
-    import torch
-
-    L = nsym.shape[0]
-    lanes = torch.arange(L, device=nsym.device)
-    work = lanes[nsym > 0] % nlanes
-    keep = int(work.max()) + 1 if work.numel() else 1
-    blocks = -(-L // nlanes)
-    sel = (torch.arange(blocks, device=nsym.device)[:, None] * nlanes
-           + torch.arange(keep, device=nsym.device)[None, :]).reshape(-1)
-    return sel[sel < L], keep
-
-
-def rans_smem(walk: str, lanes: int, C: int, S: int) -> int:
-    """Shared memory of a coder-1 walk's block (csrc/rans_ctx.cu): the
-    staged entries of one block's NCTX contexts (8 B each), each lane's
-    count, and, encode, each lane's words (C + 2 of 2 B), decode, the
-    slot buckets (512 a context: a 4 B mask and a 2 B count)."""
-    if walk == "encode":
-        return 8 * 32 * S + 2 * lanes * (C + 2) + 4 * lanes
-    return 8 * 32 * S + 6 * 32 * 512 + 4 * (lanes + 32)
-
-
-def rans_builds(torch, rans, cuda_lib, enc: tuple, dec: tuple,
-                sweep_lib) -> dict:
-    """Coder 1's walks at every build of the comparison library
-    (`-DTPLC_RANS_SWEEP`): encode at 32, 64 and 128 lanes a block with
-    register batches of 16 and 32 steps; decode at 32 to 512 lanes a
-    block from the staged tables, and at 32 and 128 from one fused
-    8-byte global entry a (context, slot).  Each output equals the
-    wrapper's.  Per build: device ms, ns a step of the deepest lane,
-    registers (ptxas), shared memory and waves."""
-    dev = enc[0].device
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    idx, nsym, fc, nlanes = enc
-    words, states, fctx, dnsym, lut, dfc, dnl, chunk = (*dec, rans.CHUNK)[:8]
-    (C, L), Ld = idx.shape, words.shape[0]
-    R = lut.numel() // rans.PROB_SCALE
-    S, Sd = fc.numel() // (-(-L // nlanes) * rans.NCTX), dfc.numel() // R
-    lib, regs = sweep_lib
-    rcp = rans._rcp(dev)
-    ref = {"encode": rans.rans_encode_walk(*enc),
-           "decode": (rans.rans_decode_walk(*dec),)}
-    # the fused comparison table: (symbol | f << 16, slot - cum) a slot
-    s = lut.view(R, rans.PROB_SCALE).to(torch.int64)
-    e = dfc.view(R, Sd).to(torch.int64).gather(1, s)
-    slot = torch.arange(rans.PROB_SCALE, device=dev)
-    fused = torch.stack([s | (e >> rans.PROB_BITS) << 16,
-                         slot - (e & (rans.PROB_SCALE - 1))], -1).to(
-        torch.int32).contiguous()
-    del s, e
-
-    def encode(lanes, batch, prof=None):
-        w = torch.empty((L, C + 2), dtype=torch.int16, device=dev)
-        c = torch.empty(L, dtype=torch.int64, device=dev)
-        x = torch.empty(L, dtype=torch.int64, device=dev)
-        cuda_lib.check(lib.tplc_rans_encode_sweep(
-            idx.data_ptr(), nsym.data_ptr(), fc.data_ptr(), rcp.data_ptr(),
-            w.data_ptr(), c.data_ptr(), x.data_ptr(), C, L, S, nlanes,
-            lanes, batch, prof, cuda_lib.stream_of(idx)),
-            "tplc_rans_encode_sweep")
-        return w, c, x
-
-    def decode(lanes, kind, prof=None):
-        o = torch.empty((Ld, chunk), dtype=torch.int32, device=dev)
-        cuda_lib.check(lib.tplc_rans_decode_sweep(
-            words.data_ptr(), states.data_ptr(), fctx.data_ptr(),
-            dnsym.data_ptr(), dfc.data_ptr(),
-            fused.data_ptr() if kind == "fused" else None, o.data_ptr(),
-            chunk, Ld, Sd, R, dnl, lanes, int(kind == "one"), prof,
-            cuda_lib.stream_of(words)), "tplc_rans_decode_sweep")
-        return (o,)
-
-    def phases(fn, blocks):
-        """Each working block's phase clocks (SM cycles, clock64):
-        stage (start to tables staged), walk (to the last lane's end),
-        write (encode: the rows written) -> [median, max] of each."""
-        prof = torch.zeros((blocks, 4), dtype=torch.int64, device=dev)
-        fn(prof=prof.data_ptr())
-        p = prof.cpu()
-        p = p[p[:, 2] != 0]
-        if not p.shape[0]:
-            return {}
-        spans = {"stage": p[:, 1] - p[:, 0], "walk": p[:, 2] - p[:, 1]}
-        if bool((p[:, 3] != 0).all()):
-            spans["write"] = p[:, 3] - p[:, 2]
-        return {"blocks": int(p.shape[0]), **{
-            k: [float(v.double().median()), int(v.max())]
-            for k, v in spans.items()}}
-
-    steps = {"encode": int(nsym.max()), "decode": int(dnsym.max())}
-    out = {"sms": sms, "steps": steps, "wrapper": {
-        "encode": cuda_lib.library().tplc_rans_encode_lanes(L, nlanes, C, S),
-        "decode": cuda_lib.library().tplc_rans_decode_lanes(Ld, dnl, Sd)},
-        "builds": []}
-    builds = [("encode", n, f"batch {b}", partial(encode, n, b),
-               rans_smem("encode", n, C, S), (f"ILi{n}ELi{b}E",),
-               -(-L // nlanes) * -(-nlanes // n))
-              for n in (32, 64, 128) for b in (16, 32)]
-    builds += [("decode", n, kind, partial(decode, n, kind),
-                rans_smem("decode", n, chunk, Sd),
-                ("rans_decode_kernel", f"ILi{n}E",
-                 "WordOne" if kind == "one" else "WordChunks"),
-                -(-Ld // dnl) * -(-dnl // n))
-               for n, kind in ((32, "one"), (64, "one"), (128, "one"),
-                               (256, "one"), (512, "one"), (32, "chunks"),
-                               (512, "chunks"))]
-    builds += [("decode", n, "fused", partial(decode, n, "fused"), 0,
-                ("fused", f"ILi{n}E"), -(-Ld // n)) for n in (32, 128)]
-    for tag, lanes, variant, fn, smem, names, blocks in builds:
-        got = fn()
-        require(all(torch.equal(g, w) for g, w in zip(got, ref[tag])),
-                f"rans {tag} at {lanes} lanes ({variant}) differs")
-        del got
-        ms = device_ms(torch, fn)
-        r = next((v for k, v in regs.items() if f"rans_{tag}" in k
-                  and all(x in k for x in names)), 0)
-        out["builds"].append({
-            "walk": tag, "lanes": lanes, "variant": variant,
-            "device_ms": ms, "ns_per_step": ms * 1e6 / max(steps[tag], 1),
-            "registers": r, "smem": smem, "waves": -(-blocks // (
-                sms * abc_resident(lanes, smem, r))),
-            "phase_cycles": ({} if variant == "fused"
-                             else phases(fn, blocks))})
-    return out
-
-
-def rans_turn(torch, here: str, root: str) -> int:
-    """One turn of coder 1's walks' parent/change comparison, with the
-    tpulc_torch package under `root`: on pg1661 x 6 at 4 MiB and on the
-    100 MB soup at 25 MiB, the arguments that tree's `-e1` compress gives
-    its encode walk and its decompress its decode walk (stopped there),
-    then each walk's `ms`, `device_ms` and output sha256, its working
-    lanes, deepest lane's steps and ns a step, registers and waves, the
-    chain bound (RANS_ENC_CHAIN, RANS_DEC_CHAIN a step of the deepest
-    lane), the device ms of the same call with every lane's nsym set to
-    0 (`no_walk`: what the rows' stores cost alone) and on the working
-    lanes alone (`lane_cut`), a zero-filled int32[L, C] (the decode
-    output's write floor), the parent wrapper's zero-filled `words`
-    alone, and every build of the comparison library where the tree has
-    one (`rans_builds`); then the compiled loops of the walks
-    (`sass_loops`)."""
-    smi, build_s = load_tree(root, fresh="rans_ctx", before_build=partial(
-        sweep_start, root, stem="rans_ctx", fresh=True))
-    from tpulc_torch import cuda_lib
-    from tpulc_torch.codecs.bsclike import rans
-    from tpulc_torch.pipeline.registry import get_codec
-
-    bsc = get_codec("bsc")
-    dev = torch.device("cuda")
-    lib = cuda_lib.library()
-    new = hasattr(lib, "tplc_rans_encode_lanes")
-    log = cuda_lib.build_log.get("rans_ctx.cu", "")
-    regs = ptxas_registers(log)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    out = {"root": root, "card": smi, "build_s": build_s,
-           "sm_clock_hz": sm_clock_hz(), "registers": regs,
-           "spills": [ln.strip() for ln in log.splitlines()
-                      if "spill" in ln and " 0 bytes spill stores, 0 bytes"
-                      not in ln], "shapes": {}}
-    for label, data, block, want_sha in (
-            ("pg1661x6", corpus(here), BSC_BLOCK, BSC_E1_SHA256),
-            ("soup100MB", soup(SOUP_SIZE), SOUP_BLOCK, SOUP_E1_SHA256)):
-        comp = []
-        enc = captured(rans, "rans_encode_walk", lambda: comp.append(
-            bsc.compress(data, block_size=block, device="cuda")))
-        require(hashlib.sha256(comp[0]).hexdigest() == want_sha,
-                f"{label}: container differs from tpulc's")
-        dec = first_args(rans, "rans_decode_walk",
-                         lambda: bsc.decompress(comp[0], device="cuda"))
-        del comp
-        idx, nsym = enc[0], enc[1]
-        (C, L), Ld, dnl = idx.shape, dec[0].shape[0], dec[6]
-        dchunk = dec[7] if len(dec) > 7 else rans.CHUNK
-        R = dec[4].numel() // rans.PROB_SCALE
-        S = (enc[2].numel() // (-(-L // enc[3]) * rans.NCTX) if new
-             else 0)
-        Sd = dec[5].numel() // R
-        row = {"encode_shape": f"{C}x{L}", "decode_shape": f"{Ld}x{dchunk}"}
-        for tag, fn, n, lanes_of in (
-                ("encode", rans.rans_encode_walk, nsym,
-                 lambda: lib.tplc_rans_encode_lanes(L, enc[3], C, S)),
-                ("decode", rans.rans_decode_walk, dec[3],
-                 lambda: lib.tplc_rans_decode_lanes(Ld, dnl, Sd))):
-            args = enc if tag == "encode" else dec
-            deep = int(n.max())
-            got = fn(*args)
-            got = got if isinstance(got, tuple) else (got,)
-            row[f"{tag}_sha256"] = outputs_sha256(g.cpu() for g in got)
-            row[f"{tag}_ms"] = time_ms(torch, partial(fn, *args))
-            dms = device_ms(torch, partial(fn, *args))
-            lanes = lanes_of() if new else 32
-            nl = enc[3] if tag == "encode" and new else dnl
-            Ll = L if tag == "encode" else Ld
-            smem = (rans_smem(tag, lanes, C if tag == "encode" else dchunk,
-                              S if tag == "encode" else Sd) if new else 0)
-            r = next((v for k, v in regs.items() if f"rans_{tag}" in k
-                      and (not new or f"ILi{lanes}E" in k)), 0)
-            blocks = (-(-Ll // nl) * -(-nl // lanes) if new
-                      else -(-Ll // lanes))
-            chain_ops = deep * (RANS_ENC_CHAIN if tag == "encode"
-                                else RANS_DEC_CHAIN)
-            # the same call with no lane walking, and on the working
-            # lanes alone (each block's first `keep`)
-            zero = list(args)
-            zero[1 if tag == "encode" else 3] = torch.zeros_like(n)
-            if tag == "encode":
-                sel = (torch.nonzero(n > 0).reshape(-1) if not new
-                       else lane_cut(n, enc[3])[0])
-                keep = None if not new else lane_cut(n, enc[3])[1]
-                cut = (idx[:, sel].contiguous(), n[sel].contiguous(),
-                       *args[2:3], *((keep,) if new else ()))
-            else:
-                sel, keep = lane_cut(n, dnl)
-                cut = (*(a[sel].contiguous() for a in args[:4]), *args[4:6],
-                       keep, *args[7:])
-            cgot = fn(*cut)
-            cgot = cgot if isinstance(cgot, tuple) else (cgot,)
-            require(all(torch.equal(c, g[sel]) for c, g in zip(cgot, got)),
-                    f"{label}: {tag} on the working lanes differs")
-            del got, cgot
-            row[tag] = {
-                "device_ms": dms, "working_lanes": int((n > 0).sum()),
-                "lanes": Ll, "valid_steps": int(n.sum()),
-                "deepest_steps": deep,
-                "ns_per_step": dms * 1e6 / max(deep, 1),
-                "lanes_a_block": lanes, "registers": r, "smem": smem,
-                "waves": -(-blocks // (sms * abc_resident(lanes, smem, r))),
-                "chain_ops": chain_ops, "chain_ms": chain_ms(chain_ops),
-                "no_walk_device_ms": device_ms(
-                    torch, partial(fn, *zero)),
-                "working_lanes_only": {"lanes": int(sel.numel()),
-                                       "device_ms": device_ms(
-                                           torch, partial(fn, *cut))}}
-        row["encode"]["parent_words_fill_device_ms"] = device_ms(
-            torch, lambda: torch.zeros((L, C + 2), dtype=torch.int16,
-                                       device=dev))
-        row["decode"]["out_fill_device_ms"] = device_ms(
-            torch, lambda: torch.zeros((Ld, dchunk), dtype=torch.int32,
-                                       device=dev))
-        sw = sweep(root, "rans_ctx")
-        if sw is not None:
-            row["builds"] = rans_builds(torch, rans, cuda_lib, enc, dec, sw)
-        del enc, dec
-        out["shapes"][label] = row
-        print(json.dumps({label: row}), flush=True)
-    build = os.path.join(root, "tpulc_torch", "_build")
-    out["sass_loops"] = [loop for f in sorted(os.listdir(build))
-                         if f.startswith("librans_ctx_")
-                         for loop in sass_loops(os.path.join(build, f),
-                                                "rans_")]
-    print(smi)
-    print(json.dumps({"rans": out}), flush=True)
-    return 0
 
 
 def huffman_phases(torch, here: str, dev, kernels: list) -> None:
@@ -2743,12 +1610,19 @@ def bsc_phases(torch, here: str, dev, kernels: list) -> None:
                  + 4 * lanes * grc.GCHUNK,
                  ops=K6_OPS * events, plain_reps=1),
         ])
+        # K5 and K6 at the other lanes a block the wrappers take
+        for nl in (32, 64):
+            require(torch.equal(gk.grc_walk_probs(gmb, init, cinit, nsteps,
+                                                  lanes=nl), probs)
+                    and torch.equal(gk.grc_decode_walk(*k6, lanes=nl),
+                                    gk.grc_decode_walk(*k6)),
+                    f"{label}: K5 or K6 at {nl} lanes differs")
+        for e in entries:
+            e["ns_per_step"] = e["ms"] * 1e6 / max(nsteps, 1)
         print(json.dumps({f"grc_kernels_{label}": {
             "lanes": L, "grid_width": W, "nsteps": nsteps,
             "events": events, "words": nwords,
-            "entries": entries,
-            "block_lanes": lanes_sweep(torch, gk, gmb, init, cinit, nsteps,
-                                       k6, entries)}}), flush=True)
+            "entries": entries}}), flush=True)
         del gmb, probs, k6
     kernels += entries   # the full-width (soup) shape
     kernels += mtf_entries
@@ -2924,9 +1798,8 @@ def bsc_e1_phase(torch, here: str, kernels: list) -> None:
     get_codec("bsc") with tpulc's defaults, counted as in phase 4, on
     pg1661 x 6 at 4 MiB and on 100 MB of word soup at 25 MiB; first the
     coder-1 walks against their plain versions on the arguments each
-    cell's path gives them, and every build of the comparison library
-    (`rans_builds`) equal to the wrappers.  Appends the walks at both
-    shapes to `kernels`."""
+    cell's path gives them.  Appends the walks at both shapes to
+    `kernels`."""
     from tpulc_torch import cuda_lib
     from tpulc_torch.codecs.bsclike import rans
     from tpulc_torch.pipeline.container import Container
@@ -2968,16 +1841,12 @@ def bsc_e1_phase(torch, here: str, kernels: list) -> None:
             rans, "rans_decode_walk", lambda: decompress(comp[0])), keep_dec)
         entries = check_kernels(torch, rans_checks(rans, enc, dec, suffix))
         if suffix:
-            stage_line, stage_all = stage_checks(torch, cuda_lib, here,
-                                                 s_enc, s_dec, suffix)
+            stage_line, stage_all = stage_checks(torch, cuda_lib, s_enc,
+                                                 s_dec, suffix)
             print(json.dumps({f"bwt_stage_kernels_{label}": stage_all}),
                   flush=True)
             entries += stage_line
-        del s_enc, s_dec
-        builds = rans_builds(torch, rans, cuda_lib, enc, dec,
-                             sweep(here, "rans_ctx"))
-        print(json.dumps({f"{label}_rans_builds": builds}), flush=True)
-        del enc, dec, comp
+        del s_enc, s_dec, enc, dec, comp
         torch.cuda.reset_peak_memory_stats()
         ((comp, back), dt, counts), calls, _ = stage_calls(
             lambda: counted(torch, path, round_trip))
@@ -3003,7 +1872,7 @@ def bsc_e1_phase(torch, here: str, kernels: list) -> None:
         for e in entries:
             e["launches"] = counts[e["name"][: len(e["name"]) - len(suffix)]]
         kernels += entries
-        res = {"walks": entries, "builds": builds,
+        res = {"walks": entries,
                "input_bytes": len(data), "block_size": block,
                "blocks": nblocks, "container_bytes": len(comp),
                "ratio": ratio, "sha256": sha,
@@ -3091,14 +1960,11 @@ def st_phase(torch, here: str, kernels: list) -> None:
     start tables and K2 once a compress block, K4 twice a decompress
     block, each coder walk once a call, the host walk once a hybrid
     block.  The adaptive coder's walks are held against their plain
-    versions on the arguments each `-e2` cell's run gave them, and at
-    every build of the comparison library (`abc_builds`), and K1, the
-    start tables,
-    K2 and K4 at st8w's soup shape (409,600 chunks).
+    versions on the arguments each `-e2` cell's run gave them, and K1,
+    the start tables, K2 and K4 at st8w's soup shape (409,600 chunks).
     The hybrid soup cell decodes once, under the profiler (its host
     walk takes a minute); the others run warm repeats.  Appends every
     entry to `kernels`."""
-    from tpulc_torch import cuda_lib
     from tpulc_torch.codecs.bsclike import abc_kernels as ak
     from tpulc_torch.codecs.bsclike import rans
     from tpulc_torch.codecs.bsclike import rans_adaptive as ra
@@ -3192,11 +2058,6 @@ def st_phase(torch, here: str, kernels: list) -> None:
             entries = check_kernels(torch, abc_checks(
                 torch, ak, calls["abc_encode_walk"], calls["abc_decode_walk"],
                 "@" + label))
-            res["abc_builds"] = abc_builds(
-                torch, ak, cuda_lib, calls["abc_encode_walk"],
-                calls["abc_decode_walk"], sweep(here, "abc"))
-            print(json.dumps({f"{label}_abc_builds": res["abc_builds"]}),
-                  flush=True)
         if label == "soup25_st8w_e2":
             table0, d = calls["mtf_encode_lockstep"]
             ranks = mk.mtf_encode_lockstep(table0, d)[0].reshape(-1)
@@ -4038,42 +2899,6 @@ def mtf_soup_entries(torch, ranks, suffix: str = "@soup",
     return entries
 
 
-def lanes_sweep(torch, gk, gmb, init, cinit, nsteps, k6, entries) -> dict:
-    """K5 and K6 at 32, 64 and MAX_LANES (the default) lanes a block:
-    each output equal to the default's; ms, waves (blocks over rounds of
-    the SMs times the blocks that an SM's shared memory holds), and ns a
-    step overall and a wave."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    L = gmb.shape[1]
-    ref5 = gk.grc_walk_probs(gmb, init, cinit, nsteps)
-    ref6 = gk.grc_decode_walk(*k6)
-    out = {"default": gk.MAX_LANES, "sms": sms}
-    for nl in (32, 64, gk.MAX_LANES):
-        waves = -(-(-(-L // nl)) // (sms * resident_blocks(nl)))
-        row = {"waves": waves}
-        for tag, fn, ref, steps in (
-                ("k5", partial(gk.grc_walk_probs, gmb, init, cinit, nsteps,
-                               lanes=nl), ref5, nsteps),
-                ("k6", partial(gk.grc_decode_walk, *k6, lanes=nl), ref6,
-                 k6[5])):
-            require(torch.equal(fn(), ref), f"{tag} at {nl} lanes differs")
-            ms = time_ms(torch, fn)
-            row[f"{tag}_ms"] = ms
-            row[f"{tag}_ns_per_step"] = ms * 1e6 / max(steps, 1)
-            row[f"{tag}_ns_per_step_wave"] = ms * 1e6 / max(steps, 1) / waves
-        out[nl] = row
-    for e in entries:
-        e["ns_per_step"] = e["ms"] * 1e6 / max(nsteps, 1)
-    return out
-
-
-def resident_blocks(nl: int) -> int:
-    """K5/K6 blocks of nl lanes that one H100 SM holds by shared memory:
-    228 KB (233,472 B) an SM, each block its counters and init table
-    (grc_model.cuh: 2,442 B a lane plus 2,442) plus 1 KB reserved."""
-    return 233_472 // (2 * 1221 * (nl + 1) + 1024)
-
-
 def traced(torch, fn, keep: list | None = None,
            on_device: bool = True, forbid: tuple = ()) -> dict:
     """One run of fn under torch.profiler: host wall, device-busy time
@@ -4140,8 +2965,4 @@ def path_profile(torch, compress, decompress, forbid: tuple = ()) -> dict:
 
 
 if __name__ == "__main__":
-    try:
-        code = main()
-    finally:
-        sweep_stop()
-    sys.exit(code)
+    sys.exit(main())

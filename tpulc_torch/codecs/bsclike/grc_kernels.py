@@ -71,7 +71,7 @@ from tpulc_torch.codecs.bsclike.grc import (
 M32 = 0xFFFFFFFF
 # lanes a K5/K6 block holds by default, the most that fit: each lane's
 # NM uint16 counters plus one init table in sm_90's 227 KB (232,448 B)
-# of opt-in shared memory.  chip_smoke.py measures 32, 64 and 94.
+# of opt-in shared memory.  chip_smoke.py checks 32 and 64 against it.
 MAX_LANES = (232_448 - 2 * NM) // (2 * NM)     # 94
 
 

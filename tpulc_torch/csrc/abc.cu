@@ -81,17 +81,15 @@
 // memory as int32 [117][lanes] (no bank conflicts whatever the models).
 // The library holds the builds the wrappers take: encode at 32 lanes
 // while one wave of blocks of 32 holds every lane, else at 64
-// (tplc_abc_encode_lanes), decode at 32.  Built with -DTPLC_ABC_SWEEP
-// it also holds the builds they were chosen against (encode at 128
-// lanes, decode at 64 and 128, and decode reading its words in 16-byte
-// chunks), for chip_smoke.py's comparison only.  Reached on an H100
-// (device ms at 1,024 / 25,600 / 51,200 lanes, chip_smoke.py --abc's
-// change turns; PERF.md section 6, PR 14): encode 0.5395 / 0.7946 /
-// 1.0874 (a direct loop, the parent's turn: 1.7089 / 2.5013 / 3.9423),
-// decode 0.4535 / 0.5546 / 0.7004 (1.4198 / 1.5170 / 1.5702).  A step
-// is still ~55 issued instructions (decode) and ~65 over both passes
-// (encode), so the card spends ~130 and ~155 cycles on it, where the
-// function's chain needs ~24 and ~26.
+// (tplc_abc_encode_lanes), decode at 32.  They won against encode at
+// 128 lanes, decode at 64 and 128, and decode reading its words in
+// 16-byte chunks.  Reached on an H100 (device ms at 1,024 / 25,600 /
+// 51,200 lanes; PERF.md section 6): encode 0.5395 / 0.7946 / 1.0874 (a
+// direct loop, the first design: 1.7089 / 2.5013 / 3.9423), decode
+// 0.4535 / 0.5546 / 0.7004 (1.4198 / 1.5170 / 1.5702).  A step is still
+// ~55 issued instructions (decode) and ~65 over both passes (encode),
+// so the card spends ~130 and ~155 cycles on it, where the function's
+// chain needs ~24 and ~26.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -408,7 +406,7 @@ struct WordQueue {
 // at p, the successors' moves at next, its output row o), one bit a
 // step.  A move as the kernel holds it: fsm_table's move, and the byte
 // offset of its state's model row in a lane's column in bits 16-31.
-template <int kLanes, class Words>
+template <int kLanes>
 struct DecodeLane {
   static constexpr int kRowShift = kLanes == 32 ? 7 : (kLanes == 64 ? 8 : 9);
   char* p;
@@ -420,7 +418,7 @@ struct DecodeLane {
   uint2 T;             // the current state's moves
   int m0, m1, P0, P1;  // both successors' row offsets and values
   uint4 T01;           // and moves, read a step ahead
-  Words in;
+  WordQueue in;
   uint32_t v1;
   int sym_i;
 
@@ -465,7 +463,7 @@ struct DecodeLane {
   }
 };
 
-template <int kLanes, class Words>
+template <int kLanes>
 __global__ void __launch_bounds__(kLanes)
 abc_decode_kernel(const uint16_t* __restrict__ words,
                   const long long* __restrict__ states,
@@ -475,7 +473,7 @@ abc_decode_kernel(const uint16_t* __restrict__ words,
                   const uint2* __restrict__ fsm_tab,
                   int32_t* __restrict__ out, int Wc, int L, int lcap,
                   int chunk, int steps) {
-  using Lane = DecodeLane<kLanes, Words>;
+  using Lane = DecodeLane<kLanes>;
   extern __shared__ int32_t smem[];
   uint4* next = reinterpret_cast<uint4*>(smem + kModels * kLanes);
   const int lt = threadIdx.x;
@@ -544,7 +542,7 @@ int launch_encode(const void* grid, const void* nbits, const void* inits,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kLanes, class Words>
+template <int kLanes>
 int launch_decode(const void* words, const void* states,
                   const void* lane_cls, const void* nsym, const void* inits,
                   const void* fsm, void* out, int Wc, int L, int lcap,
@@ -553,11 +551,11 @@ int launch_decode(const void* words, const void* states,
   if (L <= 0) return static_cast<int>(cudaGetLastError());
   const size_t smem = decode_smem<kLanes>();
   cudaError_t err = cudaFuncSetAttribute(
-      abc_decode_kernel<kLanes, Words>,
+      abc_decode_kernel<kLanes>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  abc_decode_kernel<kLanes, Words><<<(L + kLanes - 1) / kLanes, kLanes,
-                                     smem, stream>>>(
+  abc_decode_kernel<kLanes><<<(L + kLanes - 1) / kLanes, kLanes, smem,
+                              stream>>>(
       static_cast<const uint16_t*>(words),
       static_cast<const long long*>(states),
       static_cast<const int32_t*>(lane_cls),
@@ -566,48 +564,6 @@ int launch_decode(const void* words, const void* states,
       lcap, chunk, steps);
   return static_cast<int>(cudaGetLastError());
 }
-
-#ifdef TPLC_ABC_SWEEP
-// A lane's word stream in 16-byte chunks, one ahead in registers (as
-// grc_decode.cu's Stream): a refill takes a word from the chunk, and
-// one refill in 8 moves to the next chunk and reads the one after.
-struct WordChunks {
-  const uint4* base;   // the 16-byte chunk holding the row's first word
-  int nchunks, j, s;   // chunks holding a word of the row; cur's index;
-  int rpos, wc;        // the next word's slot in cur, and its column
-  uint32_t last;       // word Wc - 1, what a read past the row returns
-  uint4 cur, nxt;
-
-  __device__ __forceinline__ void open(const uint16_t* row, int Wc) {
-    const uintptr_t a = reinterpret_cast<uintptr_t>(row);
-    const uintptr_t end = a + 2 * static_cast<uintptr_t>(Wc);
-    base = reinterpret_cast<const uint4*>(a & ~static_cast<uintptr_t>(15));
-    nchunks = static_cast<int>(((end + 15) >> 4) - (a >> 4));
-    s = static_cast<int>((a & 15) >> 1);
-    j = 0;
-    rpos = 0;
-    wc = Wc;
-    last = row[Wc - 1];
-    cur = __ldg(base);
-    nxt = nchunks > 1 ? __ldg(base + 1) : cur;
-  }
-  __device__ __forceinline__ uint32_t peek() const {
-    const uint32_t v = s < 4 ? (s < 2 ? cur.x : cur.y)
-                             : (s < 6 ? cur.z : cur.w);
-    const uint32_t w = (s & 1) ? v >> 16 : v & 0xFFFFu;
-    return rpos >= wc - 1 ? last : w;
-  }
-  __device__ __forceinline__ void advance(bool take) {
-    s += take && rpos < wc - 1;
-    rpos += take;
-    if (s == 8) {
-      s = 0;
-      cur = nxt;
-      if (++j + 1 < nchunks) nxt = __ldg(base + j + 1);
-    }
-  }
-};
-#endif
 
 }  // namespace
 
@@ -650,57 +606,7 @@ extern "C" int tplc_abc_decode(const void* words, const void* states,
                                const void* inits, const void* fsm, void* out,
                                int Wc, int L, int lcap, int chunk, int steps,
                                void* stream) {
-  return launch_decode<32, WordQueue>(
-      words, states, lane_cls, nsym, inits, fsm, out, Wc, L, lcap, chunk,
-      steps, static_cast<cudaStream_t>(stream));
+  return launch_decode<32>(words, states, lane_cls, nsym, inits, fsm, out,
+                           Wc, L, lcap, chunk, steps,
+                           static_cast<cudaStream_t>(stream));
 }
-
-#ifdef TPLC_ABC_SWEEP
-// chip_smoke.py's comparison builds, never on the wrappers' path:
-// encode at 32, 64 or 128 lanes a block; decode at 32, 64 or 128 with
-// the word queue (chunks 0) or at 32 with 16-byte word chunks (chunks
-// 1).  Anything else is refused.
-extern "C" int tplc_abc_encode_sweep(const void* grid, const void* nbits,
-                                     const void* inits, const void* rcp,
-                                     void* probs, void* words, void* counts,
-                                     void* states, int W, int L, int lcap,
-                                     int lanes, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lanes == 32)
-    return launch_encode<32>(grid, nbits, inits, rcp, probs, words, counts,
-                             states, W, L, lcap, s);
-  if (lanes == 64)
-    return launch_encode<64>(grid, nbits, inits, rcp, probs, words, counts,
-                             states, W, L, lcap, s);
-  if (lanes == 128)
-    return launch_encode<128>(grid, nbits, inits, rcp, probs, words, counts,
-                              states, W, L, lcap, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int tplc_abc_decode_sweep(const void* words, const void* states,
-                                     const void* lane_cls, const void* nsym,
-                                     const void* inits, const void* fsm,
-                                     void* out, int Wc, int L, int lcap,
-                                     int chunk, int steps, int lanes,
-                                     int chunks, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (chunks == 0 && lanes == 32)
-    return launch_decode<32, WordQueue>(words, states, lane_cls, nsym, inits,
-                                        fsm, out, Wc, L, lcap, chunk, steps,
-                                        s);
-  if (chunks == 0 && lanes == 64)
-    return launch_decode<64, WordQueue>(words, states, lane_cls, nsym, inits,
-                                        fsm, out, Wc, L, lcap, chunk, steps,
-                                        s);
-  if (chunks == 0 && lanes == 128)
-    return launch_decode<128, WordQueue>(words, states, lane_cls, nsym,
-                                         inits, fsm, out, Wc, L, lcap, chunk,
-                                         steps, s);
-  if (chunks == 1 && lanes == 32)
-    return launch_decode<32, WordChunks>(words, states, lane_cls, nsym,
-                                         inits, fsm, out, Wc, L, lcap, chunk,
-                                         steps, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-#endif

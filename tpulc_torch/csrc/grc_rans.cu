@@ -392,11 +392,11 @@ cudaError_t launch(int route, const void* gmb, const void* probs,
 // each block's ~49 KB of shared memory leaves room for 4 an SM), else
 // 1, registers (a negative cudaError if the card does not answer).  On
 // an H100 (132 SMs; bsc -e2 blocks, whose transform bucket gives
-// L = bucket / 1,024), device ms ring against registers: 1,024 lanes
-// 0.417-0.423 against 0.713; 4,096 0.431-0.435 against 0.783-0.788;
-// 8,192 0.434-0.439 against 0.775-0.780; 16,384 0.816-0.817 against
-// 0.870-0.871; 25,600 (two waves of the ring) 1.075-1.080 against
-// 1.015-1.020.
+// L = bucket / 1,024), device ms ring against registers (PERF.md
+// section 6): 1,024 lanes 0.417-0.423 against 0.713; 4,096 0.431-0.435
+// against 0.783-0.788; 8,192 0.434-0.439 against 0.775-0.780; 16,384
+// 0.816-0.817 against 0.870-0.871; 25,600 (two waves of the ring)
+// 1.075-1.080 against 1.015-1.020.
 extern "C" int tplc_grc_reverse_rans_route(int L) {
   const int sms = sm_count();
   if (sms < 0) return -static_cast<int>(cudaGetLastError());
@@ -415,20 +415,3 @@ extern "C" int tplc_grc_reverse_rans(const void* gmb, const void* probs,
                                  W, L, nsteps < 0 ? 0 : nsteps,
                                  static_cast<cudaStream_t>(stream)));
 }
-
-#ifdef TPLC_GRC_RANS_SWEEP
-// chip_smoke.py's comparison builds, never on the wrapper's path: either
-// design at any L (route 0, the ring; 1, registers).
-extern "C" int tplc_grc_reverse_rans_sweep(const void* gmb, const void* probs,
-                                           void* words, void* counts,
-                                           void* states, int W, int L,
-                                           int nsteps, int route,
-                                           void* stream) {
-  if ((route != 0 && route != 1) || W < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (L <= 0) return static_cast<int>(cudaGetLastError());
-  return static_cast<int>(launch(route, gmb, probs, words, counts, states,
-                                 W, L, nsteps < 0 ? 0 : nsteps,
-                                 static_cast<cudaStream_t>(stream)));
-}
-#endif

@@ -32,8 +32,8 @@
 //     and a step reads one byte of it and adds the base of that length
 //     from the thread's shared column to the window's top bits.  At
 //     786,432 chunks of 128 this took 0.2048 / 0.2072 ms on the device
-//     against 0.2641 / 0.2641 for K3's L compares, in turns on an H100
-//     (chip_smoke.py), so the compares remain only where the table does
+//     against 0.2641 / 0.2641 for K3's L compares on an H100 (PERF.md
+//     section 6), so the compares remain only where the table does
 //     not fit or the tile's tables differ.
 
 #include "huffman_walk.cuh"

@@ -58,19 +58,13 @@
 //   for the slowest of its lanes' loads, so a warp carries the fewest
 //   lanes (a power of two, 2 to 32) that still fit every lane's warp in
 //   kWalkWarpsPerSm warps an SM; the other threads of the warp exit
-//   after the block has built C.  chip_smoke.py's `walk_sweep` measured
-//   every choice at both shapes on an H100: at bz (1,758 lanes, the
+//   after the block has built C.  Every choice measured at both shapes
+//   on an H100 (PERF.md section 6): at bz (1,758 lanes, the
 //   table in L2) 2 lanes a warp beat 1 by ~16 % (a step's ~55 issued
 //   instructions, not its load, set the pace of 13 one-lane warps an
 //   SM), and at a 25 MiB block (25,596 lanes) 8 was best, as in the
 //   first design.  At pg1661 x 6's 4 MiB bsc block (581 lanes, 4 warps
 //   an SM) 1 beats the pick of 2 by ~2 %, not worth a second rule.
-//
-// `pointer_chase_kernel` and `pointer_chase4_kernel` are the
-// measurements that price one step: one thread follows `steps`
-// dependent loads of a table of 8-byte (the first design's entry) or
-// 4-byte entries (chip_smoke.py gives each a random cycle of the walk's
-// table size).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -248,27 +242,6 @@ __global__ void __launch_bounds__(kWalkThreads)
   }
 }
 
-__global__ void pointer_chase_kernel(const uint64_t* __restrict__ table,
-                                     int start, int steps,
-                                     uint64_t* __restrict__ sink) {
-  uint32_t p = static_cast<uint32_t>(start);
-  uint64_t acc = 0;
-  for (int t = 0; t < steps; ++t) {
-    const uint64_t e = __ldg(table + p);
-    p = static_cast<uint32_t>(e);
-    acc += e >> 32;
-  }
-  *sink = acc + p;
-}
-
-__global__ void pointer_chase4_kernel(const uint32_t* __restrict__ table,
-                                      int start, int steps,
-                                      uint64_t* __restrict__ sink) {
-  uint32_t p = static_cast<uint32_t>(start);
-  for (int t = 0; t < steps; ++t) p = __ldg(table + p);
-  *sink = p;
-}
-
 }  // namespace
 
 // The lanes a warp the walk picks for nlanes lanes on the current card
@@ -324,26 +297,5 @@ extern "C" int tplc_anchored_walk(const void* T, const void* last,
       anchored_walk_kernel<<<grid, kWalkThreads, 0, s>>>(
           t, c, static_cast<const int32_t*>(anchors), o, n, S, nlanes, lpw);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// one thread, `steps` dependent loads of table (8-byte entries whose low
-// 32 bits are the next index) from `start`; sink: one int64
-extern "C" int tplc_pointer_chase(const void* table, int start, int steps,
-                                  void* sink, void* stream) {
-  if (steps < 0) return static_cast<int>(cudaErrorInvalidValue);
-  pointer_chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(table), start, steps,
-      static_cast<uint64_t*>(sink));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the same over 4-byte entries (each the next index), the walk's own
-extern "C" int tplc_pointer_chase4(const void* table, int start, int steps,
-                                   void* sink, void* stream) {
-  if (steps < 0) return static_cast<int>(cudaErrorInvalidValue);
-  pointer_chase4_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(table), start, steps,
-      static_cast<uint64_t*>(sink));
   return static_cast<int>(cudaGetLastError());
 }

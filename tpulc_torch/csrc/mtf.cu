@@ -924,7 +924,7 @@ extern "C" int tplc_mtf_encode_lockstep(const void* table0, const void* syms,
 }
 
 // The start tables' chunks a tile for nchunks chunks: `tile` if it is one
-// of kStartTiles (a hook for tests and chip_smoke.py's sweep), the
+// of kStartTiles (a hook for tests and chip_smoke.py), the
 // shape's pick (start_tile) if 0, else -1 (also when the card does not
 // answer).  The caller sizes K1's tile
 // maxima and the scratch of tplc_mtf_start_tables by it.
@@ -996,25 +996,6 @@ extern "C" int tplc_mtf_start_tables(const void* rec, void* out,
                       static_cast<int32_t*>(out), scratch, nchunks, C, tile,
                       split, static_cast<cudaStream_t>(stream));
 }
-
-#ifdef TPLC_MTF_SWEEP
-// chip_smoke.py's comparison builds, never on the wrapper's path: the
-// start tables at any split (1, 2, 4 or 8 warps a tile), with the
-// wrapper's arguments otherwise.
-extern "C" int tplc_mtf_start_tables_sweep(const void* rec, void* out,
-                                           const void* part, void* scratch,
-                                           int nchunks, int C, int tile,
-                                           int split, void* stream) {
-  if (!start_args_ok(nchunks, C, tile) ||
-      (split != 1 && split != 2 && split != 4 && split != 8))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (nchunks == 0) return static_cast<int>(cudaGetLastError());
-  return start_tables(static_cast<const int32_t*>(rec),
-                      static_cast<const int32_t*>(part),
-                      static_cast<int32_t*>(out), scratch, nchunks, C, tile,
-                      split, static_cast<cudaStream_t>(stream));
-}
-#endif
 
 // table0 == nullptr starts every chunk from the identity; syms or
 // table_out == nullptr skips that output.  lanes = lanes a chunk (32, 16

@@ -72,18 +72,16 @@
 // Lanes a block (tplc_rans_encode_lanes, tplc_rans_decode_lanes): the
 // largest of 128 / 512 down to 32 that still gives every SM a block;
 // encode's register batches are 16 steps at 32 and 64 lanes, 32 at
-// 128.  Built with -DTPLC_RANS_SWEEP the library also holds the builds
-// they were chosen against (encode at 32, 64 and 128 lanes with batches
-// of 16 and 32; decode at 32-512 lanes, with 16-byte word chunks, and
+// 128.  They won against encode at 32, 64 and 128 lanes with batches of
+// 16 and 32, and decode at 32-512 lanes, with 16-byte word chunks, and
 // reading one fused 8-byte global entry a context and slot in place of
-// the staged tables), with per-block phase clocks, for chip_smoke.py's
-// comparison only.  Reached on an H100 (device ms at pg1661 x 6 / the
-// 100 MB soup, chip_smoke.py --rans's change turns; the first kernels'
-// in brackets; PERF.md section 6): encode 0.0309 / 0.1740 (0.1327
-// / 0.3460), decode 0.0680 / 0.2853 (0.1967 / 1.2639).  A decode step
-// still costs ~220 cycles at one warp an SM (two dependent shared-
-// memory reads, a popc and ~10 dependent integer operations), and 512
-// lanes an SM walk at ~50 cycles a warp-step; an encode step ~95.
+// the staged tables.  Reached on an H100 (device ms at pg1661 x 6 / the
+// 100 MB soup; the first kernels' in brackets; PERF.md section 6):
+// encode 0.0309 / 0.1740 (0.1327 / 0.3460), decode 0.0680 / 0.2853
+// (0.1967 / 1.2639).  A decode step still costs ~220 cycles at one warp
+// an SM (two dependent shared-memory reads, a popc and ~10 dependent
+// integer operations), and 512 lanes an SM walk at ~50 cycles a
+// warp-step; an encode step ~95.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,13 +162,6 @@ size_t encode_smem(int lanes, int C, int S) {
          (C + 2) + sizeof(int) * lanes;
 }
 
-// The cycle counter, for the comparison builds' phase clocks.
-__device__ __forceinline__ long long stamp(long long* prof, int i) {
-  const long long t = clock64();
-  if (prof != nullptr && threadIdx.x == 0) prof[4 * blockIdx.x + i] = t;
-  return t;
-}
-
 // idx of steps j0, j0 - 1, ..., j0 - kBatch + 1 from p (the lane's
 // column at j0), -1 below step 0.
 template <int kBatch>
@@ -225,7 +216,7 @@ rans_encode_kernel(const int32_t* __restrict__ idx,
                    uint16_t* __restrict__ words,
                    long long* __restrict__ counts,
                    long long* __restrict__ states, int C, int L, int S,
-                   int nlanes, long long* prof) {
+                   int nlanes) {
   constexpr int kThreads = encode_threads<kLanes>();
   extern __shared__ uint2 smem[];
   const int span = kNctx * S;
@@ -238,7 +229,6 @@ rans_encode_kernel(const int32_t* __restrict__ idx,
   const long long l = at.first + lt;
   const int n = live ? min(max(nsym[l], 0), C) : 0;
   const int W = C + 2;
-  stamp(prof, 0);
 
   if (!__syncthreads_or(n > 0)) {
     if (live) {
@@ -269,7 +259,6 @@ rans_encode_kernel(const int32_t* __restrict__ idx,
     }
   }
   __syncthreads();
-  stamp(prof, 1);
 
   uint32_t x = kRansL;
   int pos = W;   // words land last emitted first, from the row's end
@@ -296,7 +285,6 @@ rans_encode_kernel(const int32_t* __restrict__ idx,
   }
   if (lt < kLanes) tails[lt] = count;
   __syncthreads();
-  stamp(prof, 2);
   // every row once, its words moved to the front and zeros after: the
   // rows' 4-byte pairs in order, 8 a thread in flight (row r = pair i /
   // (W / 2) as a multiply-high, exact for i < 2^32 / W)
@@ -321,10 +309,6 @@ rans_encode_kernel(const int32_t* __restrict__ idx,
 #pragma unroll
     for (int u = 0; u < 8; ++u)
       if (i0 + u * kThreads < total) dst[i0 + u * kThreads] = v[u];
-  }
-  if (prof != nullptr) {
-    __syncthreads();
-    stamp(prof, 3);
   }
 }
 
@@ -463,59 +447,9 @@ struct WordOne {
   }
 };
 
-#ifdef TPLC_RANS_SWEEP
-// The comparison builds' word stream in 16-byte chunks: the current
-// chunk and the next in registers, the next word picked out ahead of
-// its use.  A refill takes one word of the chunk; one refill in 8
-// moves to the next chunk and reads the one after (~40 steps ahead:
-// the read is never waited on, and L1 need not hold the row).  A read
-// past the row takes word C + 1.
-struct WordChunks {
-  const uint4* base;   // the chunk holding the row's first word
-  int j, jlast;        // cur's chunk; the last chunk holding a word of it
-  int s, left;         // the next word's slot in cur; words before C + 1
-  uint32_t wn, lastw;
-  uint4 cur, nxt;
-
-  static __device__ __forceinline__ uint32_t pick(const uint4& c, int s) {
-    const uint32_t v = (s & 4) ? ((s & 2) ? c.w : c.z)
-                               : ((s & 2) ? c.y : c.x);
-    return (s & 1) ? v >> 16 : v & 0xFFFFu;
-  }
-  __device__ __forceinline__ void open(const uint16_t* row, int C) {
-    const uintptr_t a = reinterpret_cast<uintptr_t>(row);
-    const uintptr_t end = a + 2 * static_cast<uintptr_t>(C + 2);
-    base = opaque(
-        reinterpret_cast<const uint4*>(a & ~static_cast<uintptr_t>(15)));
-    jlast = static_cast<int>(((end - 1) >> 4) - (a >> 4));
-    s = static_cast<int>((a & 15) >> 1);
-    j = 0;
-    left = C + 1;
-    lastw = row[C + 1];
-    cur = __ldg(base);
-    nxt = __ldg(base + min(1, jlast));
-    wn = pick(cur, s);
-  }
-  __device__ __forceinline__ uint32_t peek() const { return wn; }
-  __device__ __forceinline__ void advance(bool take) {
-    if (take) {
-      --left;
-      if (++s == 8) {
-        s = 0;
-        cur = nxt;
-        ++j;
-        nxt = __ldg(base + min(j + 1, jlast));
-      }
-      wn = left > 0 ? pick(cur, s) : lastw;
-    }
-  }
-};
-#endif
-
 // A lane of the decode walk in registers.
-template <class Words>
 struct DecodeLane {
-  Words in;
+  WordOne in;
   uint32_t x;
   int k;               // the context, 0..31 within the bsc block
 
@@ -542,30 +476,14 @@ struct DecodeLane {
     k = (static_cast<int>(en.y >> 23) + min(k >> 2, 3)) & (kNctx - 1);
     return static_cast<int>((en.y >> 14) & (kMaxSyms - 1));
   }
-
-#ifdef TPLC_RANS_SWEEP
-  // One step from the fused global table of the bsc block (fz: its
-  // 32 contexts' entries (s | f << 16, slot - cum), 2^14 a context).
-  __device__ __forceinline__ int step_fused(const uint2* fz) {
-    const uint32_t slot = x & (kScale - 1);
-    const uint2 en = __ldg(fz + (static_cast<size_t>(k) << kProbBits) + slot);
-    x = (en.x >> 16) * (x >> kProbBits) + en.y;
-    const bool need = x < kRansL;
-    x = need ? (x << 16) | in.peek() : x;
-    in.advance(need);
-    const int s = static_cast<int>(en.x & 0xFFFFu);
-    k = ctx_class(s) * 4 + min(k >> 2, 3);
-    return s;
-  }
-#endif
 };
 
 // Lane l's walk into its row o: groups of 8 symbols while all 8 are
 // valid, then one predicated group, then the row's zeros.  step(d) ->
 // the next symbol.
-template <class Lane, class Step>
-__device__ __forceinline__ void walk_lane(Lane& d, int4* o, int n, int C,
-                                          Step step) {
+template <class Step>
+__device__ __forceinline__ void walk_lane(DecodeLane& d, int4* o, int n,
+                                          int C, Step step) {
   int j = 0;
   for (; j + 8 <= n; j += 8) {
     int s[8];
@@ -601,14 +519,14 @@ __device__ __forceinline__ void zero_rows(const Place& at, const int* nsh,
   }
 }
 
-template <int kLanes, class Words>
+template <int kLanes>
 __global__ void __launch_bounds__(decode_threads<kLanes>())
 rans_decode_kernel(const uint16_t* __restrict__ words,
                    const long long* __restrict__ states,
                    const long long* __restrict__ fctx,
                    const int32_t* __restrict__ nsym,
                    const int32_t* __restrict__ fc, int32_t* __restrict__ out,
-                   int C, int L, int S, int R, int nlanes, long long* prof) {
+                   int C, int L, int S, int R, int nlanes) {
   constexpr int kThreads = decode_threads<kLanes>();
   extern __shared__ uint2 smem[];
   DecodeTables tab(smem, S, kLanes);
@@ -617,7 +535,6 @@ rans_decode_kernel(const uint16_t* __restrict__ words,
   const int lt = threadIdx.x;
   const long long l = at.first + lt;
   const int n = lt < at.rows ? min(max(nsym[l], 0), C) : 0;
-  stamp(prof, 0);
   if (lt < kLanes) nsh[lt] = n;
   tab.clear<kThreads>();
   const int walking = __syncthreads_count(n > 0);
@@ -628,9 +545,8 @@ rans_decode_kernel(const uint16_t* __restrict__ words,
   }
   if (walking < at.rows) zero_rows<kThreads>(at, nsh, out, C);
   tab.build<kThreads>(fc, S, R, at.b);
-  stamp(prof, 1);
   if (n > 0) {
-    DecodeLane<Words> d;
+    DecodeLane d;
     d.open(words + l * (C + 2), C, static_cast<uint32_t>(states[l]),
            static_cast<int>((fctx[l] - static_cast<long long>(at.b) * kNctx)
                             & (kNctx - 1)));
@@ -638,42 +554,11 @@ rans_decode_kernel(const uint16_t* __restrict__ words,
     const uint16_t* first = tab.first;
     const uint2* ent1 = tab.ent - 1;
     walk_lane(d, reinterpret_cast<int4*>(out + l * C), n, C,
-              [&](DecodeLane<Words>& dl) {
+              [&](DecodeLane& dl) {
                 return dl.step(mask, first, ent1);
               });
   }
-  if (prof != nullptr) {
-    __syncthreads();
-    stamp(prof, 2);
-  }
 }
-
-#ifdef TPLC_RANS_SWEEP
-// The comparison build: no staging, one 8-byte global read a step from
-// the fused table fz (R contexts x 2^14 slots of (s | f << 16, slot -
-// cum)).
-template <int kLanes>
-__global__ void __launch_bounds__(kLanes)
-rans_decode_fused_kernel(const uint16_t* __restrict__ words,
-                         const long long* __restrict__ states,
-                         const long long* __restrict__ fctx,
-                         const int32_t* __restrict__ nsym,
-                         const uint2* __restrict__ fz,
-                         int32_t* __restrict__ out, int C, int L,
-                         int nlanes) {
-  const long long l = static_cast<long long>(blockIdx.x) * kLanes +
-                      threadIdx.x;
-  if (l >= L) return;
-  const int n = min(max(nsym[l], 0), C);
-  const long long b = l / nlanes;
-  DecodeLane<WordOne> d;
-  d.open(words + l * (C + 2), C, static_cast<uint32_t>(states[l]),
-         static_cast<int>((fctx[l] - b * kNctx) & (kNctx - 1)));
-  const uint2* fzb = fz + (static_cast<size_t>(b) * kNctx << kProbBits);
-  walk_lane(d, reinterpret_cast<int4*>(out + l * C), n, C,
-            [&](DecodeLane<WordOne>& dl) { return dl.step_fused(fzb); });
-}
-#endif
 
 // ------------------------------------------------------------ launches
 
@@ -684,8 +569,7 @@ int grid_of(int L, int nlanes, int lanes) {
 template <int kLanes, int kBatch>
 int launch_encode(const void* idx, const void* nsym, const void* fc,
                   const void* rcp, void* words, void* counts, void* states,
-                  int C, int L, int S, int nlanes, cudaStream_t stream,
-                  long long* prof = nullptr) {
+                  int C, int L, int S, int nlanes, cudaStream_t stream) {
   if (L <= 0) return static_cast<int>(cudaGetLastError());
   const size_t smem = encode_smem(kLanes, C, S);
   cudaError_t err = cudaFuncSetAttribute(
@@ -698,29 +582,27 @@ int launch_encode(const void* idx, const void* nsym, const void* fc,
       static_cast<const int32_t*>(idx), static_cast<const int32_t*>(nsym),
       static_cast<const int32_t*>(fc), static_cast<const uint32_t*>(rcp),
       static_cast<uint16_t*>(words), static_cast<long long*>(counts),
-      static_cast<long long*>(states), C, L, S, nlanes, prof);
+      static_cast<long long*>(states), C, L, S, nlanes);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kLanes, class Words = WordOne>
+template <int kLanes>
 int launch_decode(const void* words, const void* states, const void* fctx,
                   const void* nsym, const void* fc, void* out, int C, int L,
-                  int S, int R, int nlanes, cudaStream_t stream,
-                  long long* prof = nullptr) {
+                  int S, int R, int nlanes, cudaStream_t stream) {
   if (L <= 0) return static_cast<int>(cudaGetLastError());
   const size_t smem = decode_smem(kLanes, S);
   cudaError_t err = cudaFuncSetAttribute(
-      rans_decode_kernel<kLanes, Words>,
+      rans_decode_kernel<kLanes>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  rans_decode_kernel<kLanes, Words><<<grid_of(L, nlanes, kLanes),
-                                      decode_threads<kLanes>(), smem,
-                                      stream>>>(
+  rans_decode_kernel<kLanes><<<grid_of(L, nlanes, kLanes),
+                               decode_threads<kLanes>(), smem, stream>>>(
       static_cast<const uint16_t*>(words),
       static_cast<const long long*>(states),
       static_cast<const long long*>(fctx), static_cast<const int32_t*>(nsym),
       static_cast<const int32_t*>(fc), static_cast<int32_t*>(out), C, L, S,
-      R, nlanes, prof);
+      R, nlanes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -814,68 +696,3 @@ extern "C" int tplc_rans_decode(const void* words, const void* states,
   }
 }
 
-#ifdef TPLC_RANS_SWEEP
-// chip_smoke.py's comparison builds, never on the wrappers' path:
-// encode at 32, 64 or 128 lanes a block with batches of 16 or 32;
-// decode at 32, 64, 128, 256 or 512 lanes from the staged tables, with
-// 2-byte word reads (one, the wrapper's) or 16-byte word chunks, or,
-// with a fused table fz, at 32 or 128 lanes reading it.  Anything else
-// is refused.  With prof, thread 0 of each block writes clock64() at
-// its phases (int64[blocks, 4]: start, tables staged, walked, encode's
-// rows written).
-extern "C" int tplc_rans_encode_sweep(const void* idx, const void* nsym,
-                                      const void* fc, const void* rcp,
-                                      void* words, void* counts,
-                                      void* states, int C, int L, int S,
-                                      int nlanes, int lanes, int batch,
-                                      void* prof, void* stream) {
-  if (!shapes_ok(C, S, nlanes)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TPLC_ENC(N, K)                                                      \
-  if (lanes == N && batch == K)                                             \
-    return launch_encode<N, K>(idx, nsym, fc, rcp, words, counts, states, C, \
-                               L, S, nlanes, s,                             \
-                               static_cast<long long*>(prof));
-  TPLC_ENC(32, 16) TPLC_ENC(32, 32) TPLC_ENC(64, 16) TPLC_ENC(64, 32)
-  TPLC_ENC(128, 16) TPLC_ENC(128, 32)
-#undef TPLC_ENC
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int tplc_rans_decode_sweep(const void* words, const void* states,
-                                      const void* fctx, const void* nsym,
-                                      const void* fc, const void* fz,
-                                      void* out, int C, int L, int S, int R,
-                                      int nlanes, int lanes, int one,
-                                      void* prof, void* stream) {
-  if (!shapes_ok(C, S, nlanes)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fz != nullptr) {
-    if (L <= 0) return static_cast<int>(cudaGetLastError());
-#define TPLC_FUSED(N)                                                       \
-  if (lanes == N) {                                                         \
-    rans_decode_fused_kernel<N><<<(L + N - 1) / N, N, 0, s>>>(              \
-        static_cast<const uint16_t*>(words),                                \
-        static_cast<const long long*>(states),                              \
-        static_cast<const long long*>(fctx),                                \
-        static_cast<const int32_t*>(nsym), static_cast<const uint2*>(fz),   \
-        static_cast<int32_t*>(out), C, L, nlanes);                          \
-    return static_cast<int>(cudaGetLastError());                            \
-  }
-    TPLC_FUSED(32) TPLC_FUSED(128)
-#undef TPLC_FUSED
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-#define TPLC_DEC(N)                                                         \
-  if (lanes == N && !one)                                                   \
-    return launch_decode<N, WordChunks>(words, states, fctx, nsym, fc, out, \
-                                        C, L, S, R, nlanes, s,              \
-                                        static_cast<long long*>(prof));     \
-  if (lanes == N)                                                           \
-    return launch_decode<N>(words, states, fctx, nsym, fc, out, C, L, S, R, \
-                            nlanes, s, static_cast<long long*>(prof));
-  TPLC_DEC(32) TPLC_DEC(64) TPLC_DEC(128) TPLC_DEC(256) TPLC_DEC(512)
-#undef TPLC_DEC
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-#endif

@@ -58,15 +58,15 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // elements a tile: the larger of these where it still gives kTilesPerSm
-// tiles an SM, else the smaller.  chip_smoke.py's sweep on an H100,
-// int64, device ms over four turns: 2,048 best at a bz block's 900,096
+// tiles an SM, else the smaller.  On an H100, int64, device ms over four
+// runs (PERF.md section 6): 2,048 best at a bz block's 900,096
 // elements (440 tiles), 0.0107-0.0120 against 0.0127-0.0144 at 4,096
 // and 0.0131-0.0150 at 8,192; level with 4,096 (two turns) on the
 // arrays of pg1661 x 6's one 4 MiB bsc block, 594,046 B after LZP
 // (0.0124-0.0129 against 0.0120-0.0139); 8,192 best
 // at a 25 MiB block's 26,214,400, 0.1912-0.1960 against 0.1975-0.2029
-// at 4,096 and 0.2207-0.2275 at 2,048.  4,096 (and 16,384) won at no
-// shape a path gives, so only the comparison build has them.
+// at 4,096 and 0.2207-0.2275 at 2,048.  4,096 and 16,384 won at no
+// shape a path gives.
 constexpr int kTiles[] = {2048, 8192};
 constexpr int kTilesPerSm = 4;
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -361,8 +361,7 @@ int dispatch(const void* x, void* y, void* scratch, int n, int elem_bytes,
   return static_cast<int>(e);
 }
 
-// the scan at `tile` elements a tile: one of kTiles, or (in the
-// comparison build) 4,096 or 16,384
+// the scan at `tile` elements a tile, one of kTiles
 int scan_at(int tile, const void* x, void* y, void* scratch, int n,
             int elem_bytes, int is_max, int reverse, void* stream) {
   switch (tile) {
@@ -372,14 +371,6 @@ int scan_at(int tile, const void* x, void* y, void* scratch, int n,
     case kTiles[1]:
       return dispatch<kTiles[1]>(x, y, scratch, n, elem_bytes, is_max,
                                  reverse, stream);
-#ifdef TPLC_SCAN_SWEEP
-    case 4096:
-      return dispatch<4096>(x, y, scratch, n, elem_bytes, is_max, reverse,
-                            stream);
-    case 16384:
-      return dispatch<16384>(x, y, scratch, n, elem_bytes, is_max, reverse,
-                             stream);
-#endif
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -418,14 +409,3 @@ extern "C" int tplc_running_scan(const void* x, void* y, void* scratch, int n,
                   : scan_at(tile, x, y, scratch, n, elem_bytes, is_max,
                             reverse, stream);
 }
-
-#ifdef TPLC_SCAN_SWEEP
-// chip_smoke.py's comparison builds, never on the wrappers' path: the
-// same scan at a tile of 2,048, 4,096, 8,192 or 16,384 elements (scratch
-// of tplc_running_scan_scratch(n) bytes).
-extern "C" int tplc_running_scan_sweep(const void* x, void* y, void* scratch,
-                                       int n, int elem_bytes, int is_max,
-                                       int reverse, int tile, void* stream) {
-  return scan_at(tile, x, y, scratch, n, elem_bytes, is_max, reverse, stream);
-}
-#endif

@@ -198,7 +198,7 @@ def mtf_start_tables(rec_rel: torch.Tensor, chunk: int, tile: int = 0,
     so nchunks * chunk must stay under 2^31.  The kernel also needs
     chunk <= 4,096 (its step mask; the C entry point refuses more).
     `tile` forces the kernel's chunks a tile (8, 16, 32 or 64: a hook
-    for tests and `chip_smoke.py`'s sweep, unused on the CPU); 0 lets
+    for tests and `chip_smoke.py`, unused on the CPU); 0 lets
     the C entry point pick from the shape and the card.  It changes no
     output.  `part`: K1's tile maxima of these rows at `tile` (from
     `mtf_recency(..., partials=True)`, which also gives the tile), read
