@@ -4,6 +4,11 @@ a copy of `tpulc/gold/csrc/lzp.c` (same wire format, same bytes).
 `lzp.c` is built at first use by `gold/build.py` (`cc`, into
 `tpulc_torch/_build/`); without a C compiler the first call raises:
 there is no fallback.  Importing this module builds nothing.
+
+While the stage timer is on, each encode adds its counters to the
+timer's totals (`COUNTERS`): its steps, its predicted steps (the
+context table had an entry), the steps it compared (their fingerprints
+agreed) and its matches.
 """
 
 from __future__ import annotations
@@ -14,9 +19,11 @@ import os
 import numpy as np
 
 from tpulc_torch.gold.build import load
+from tpulc_torch.utils import timing
 
 DEFAULT_HASH_BITS = 18
 DEFAULT_MIN_LEN = 32
+COUNTERS = ("#lzp_steps", "#lzp_predicted", "#lzp_checked", "#lzp_matches")
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "lzp.c")
 
@@ -28,11 +35,13 @@ def _load() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = load(_SRC)
-    for name in ("lzp_gold_encode", "lzp_gold_decode"):
+    args = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long,
+            ctypes.c_int, ctypes.c_int]
+    for name, extra in (("lzp_gold_encode", [ctypes.c_void_p]),
+                        ("lzp_gold_decode", [])):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_long
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
-                       ctypes.c_long, ctypes.c_int, ctypes.c_int]
+        fn.argtypes = args + extra
     _lib = lib
     return lib
 
@@ -50,8 +59,12 @@ def lzp_encode(data: bytes | np.ndarray, hash_bits: int = DEFAULT_HASH_BITS,
     if arr.size < 64:
         return None
     out = np.zeros(arr.size, np.uint8)  # only actual shrinkage is kept
-    n = _load().lzp_gold_encode(arr.ctypes.data, arr.size, out.ctypes.data,
-                                arr.size, hash_bits, min_len)
+    counts = np.zeros(len(COUNTERS), np.int64) if timing.counting() else None
+    n = _load().lzp_gold_encode(
+        arr.ctypes.data, arr.size, out.ctypes.data, arr.size, hash_bits,
+        min_len, None if counts is None else counts.ctypes.data)
+    if counts is not None:
+        timing.add_totals(COUNTERS, counts.tolist())
     if n < 0 or n >= arr.size:
         return None
     return out[:n].tobytes()

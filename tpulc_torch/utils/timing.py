@@ -40,7 +40,8 @@ The totals the benchmark reads go into `stages` under names no span
 takes: `#waits` and `#wait_s` (the waits of every call), and `#entry_s`
 (the seconds of each call's root span outside every span of `STAGES`
 and the timer's own syncs: uploads, payloads, parsing, checksums and
-the container).
+the container).  A stage's own counters go there too, through
+`add_totals` (the LZP encoder's `#lzp_*`), while `counting()`.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ import gc
 import json
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -167,6 +169,7 @@ _TIMER: StageTimer | None = None
 _TRACE = _Trace()
 _NULL = contextlib.nullcontext()
 _SITES: dict = {}   # (file, line) -> the site's key in `StageTimer.sites`
+_TOTALS_LOCK = threading.Lock()  # add_totals runs in LZP's worker threads
 
 
 def enable() -> StageTimer:
@@ -203,6 +206,22 @@ def next_block(index: int) -> None:
     if _TIMER is None and not _profiler._is_profiler_enabled:
         return
     _TRACE.next_block = index
+
+
+def counting() -> bool:
+    """Whether a stage's counters are kept: the timer is on."""
+    return _TIMER is not None
+
+
+def add_totals(names, values) -> None:
+    """Add each of `values` to the timer's total `names[i]` (a name that
+    starts with `#`), from any thread; nothing while the timer is off."""
+    timer = _TIMER
+    if timer is None:
+        return
+    with _TOTALS_LOCK:
+        for name, v in zip(names, values):
+            timer._add(name, v, 0)
 
 
 def wait(fn, *args, syncs: int = 1, nbytes: int | None = None):
