@@ -3,14 +3,17 @@ nest under each call's root with their call and block ids, the coarse
 stages keep their names and are the only spans that synchronise, the
 timer off records nothing, the profiler's `stage:` ranges are the
 record, the waits of an input are fixed, and the benchmark's traced
-run reads the six metrics the tracer feeds (and, in the huffman cell,
-the four of the huffman stages)."""
+run reads the six metrics the tracer feeds (and, in the huffman and
+culzss cells, those of their stages); culzss's waits are pinned site by
+site and its counters agree with the containers it writes."""
 
 import json
 import os
+import struct
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -28,11 +31,13 @@ CODECS = {
     "bz": {"block_size": 65536},
     "bsc": {"block_size": 65536, "coder": 1, "filter_mode": "none"},
     "huffman": {"block_size": 1024},       # 176 blocks: 2 groups
+    "culzss": {"block_size": 65536},       # 44 packets: 1 group
 }
 # the span of a block (huffman: of a group, indexed by its first block)
 # and the block indices a round trip of DATA gives it
 BLOCK_SPANS = {"bz": ("bz.block", [0, 1, 2]), "bsc": ("bsc.block", [0, 1, 2]),
-               "huffman": ("huffman.group", [0, 128])}
+               "huffman": ("huffman.group", [0, 128]),
+               "culzss": ("culzss.group", [0])}
 TODAY = {
     "bz": {"bz.transform", "bz.tables", "bz.entropy", "bz.pull", "bz.walk",
            "bz.inverse"},
@@ -40,9 +45,14 @@ TODAY = {
             "bsc.inverse", "bsc.lzp.decode"},
     "huffman": {"huffman.encode", "huffman.pull", "huffman.parse",
                 "huffman.decode"},
+    "culzss": {"culzss.grid", "culzss.candidates", "culzss.doubling",
+               "culzss.parse", "culzss.pack", "culzss.pull",
+               "culzss.container", "culzss.payloads", "culzss.records",
+               "culzss.rounds", "culzss.out", "culzss.verify"},
 }
 # the waits of DATA's round trip, (compress, decompress)
-WAITS = {"bz": (35, 21), "bsc": (40, 13), "huffman": (8, 10)}
+WAITS = {"bz": (35, 21), "bsc": (40, 13), "huffman": (8, 10),
+         "culzss": (4, 19)}
 
 
 def round_trip(name, timer_on=True):
@@ -239,6 +249,151 @@ def test_waits_of_an_input_are_fixed(name):
     assert tuple(sum(d.values()) for d in counts[0]) == WAITS[name]
 
 
+# culzss's waits of DATA's round trip, site by site: (file, the line's
+# text) -> waits; a multi-line call is keyed by the line it starts on
+CULZSS_SITES = {
+    "compress": {
+        ("culzss_driver.py", "packets = timing.upload(grid, dev)"): 1,
+        ("culzss_driver.py",
+         "bodies = timing.wait(torch.Tensor.cpu, timing.wait("): 2,
+        ("culzss_driver.py",
+         "meta = timing.wait(torch.Tensor.cpu, torch.stack("): 1,
+    },
+    "decompress": {
+        ("culzss_driver.py", "psz = timing.upload(psizes, dev)"): 1,
+        ("culzss_driver.py", "timing.wait(torch.Tensor.__setitem__, pbuf,"): 1,
+        ("culzss_driver.py",
+         "timing.upload(np.concatenate([x[2] for x in parts]),"): 1,
+        ("culzss.py",
+         "ones = timing.upload(torch.tensor(_POPCOUNT), dev)[f]"): 1,
+        ("culzss.py", "if timing.wait(bool, zero_len.any()):"): 1,
+        ("culzss.py", "if timing.wait(torch.equal, nxt, src, nbytes=1):"): 7,
+        ("culzss_driver.py", "want_t = timing.upload(want, dev)"): 1,
+        ("culzss_driver.py", "raw_t = timing.upload(raw, dev)"): 1,
+        ("culzss_driver.py", "timing.wait(torch.Tensor.__setitem__, last,"): 1,
+        ("culzss_driver.py", "timing.upload(ends, dev), True, nbytes=1)"): 1,
+        ("culzss_driver.py", "if timing.wait(bool, bad.any()):"): 1,
+        ("culzss_driver.py",
+         "got = timing.wait(torch.Tensor.cpu, timing.wait("): 2,
+    },
+}
+
+
+def _site_text(site: str):
+    path, line = site.rsplit(":", 1)
+    with open(os.path.join(timing._PACKAGE, path)) as f:
+        text = f.read().splitlines()[int(line) - 1].strip()
+    return os.path.basename(path), text
+
+
+def test_culzss_waits_are_pinned_site_by_site():
+    codec = get_codec("culzss")
+    for direction in ("compress", "decompress"):
+        timer = timing.enable()
+        try:
+            if direction == "compress":
+                c = codec.compress(DATA, device="cpu", **CODECS["culzss"])
+            else:
+                assert codec.decompress(c, device="cpu") == DATA
+        finally:
+            timing.disable()
+        got = {}
+        for site, row in timer.sites.items():
+            key = _site_text(site)
+            got[key] = got.get(key, 0) + row[0]
+        assert got == CULZSS_SITES[direction]
+
+
+def _packets(container: bytes):
+    """-> (raw flags, each coded packet's tokens and matches), read from
+    the container's size tables and a serial walk of each packet."""
+    (n,) = struct.unpack_from("<I", container, 20)
+    sizes = struct.unpack_from(f"<{n}I", container, 32)
+    off, raw, counts = 32 + 8 * n, [], []
+    for size in sizes:
+        (P,) = struct.unpack_from("<I", container, off)
+        entries = struct.unpack_from(f"<{P}H", container, off + 4)
+        p = off + 4 + 2 * P
+        for e in entries:
+            raw.append(bool(e & 0x8000))
+            body = container[p: p + (e & 0x7FFF)]
+            p += e & 0x7FFF
+            if raw[-1]:
+                continue
+            i = k = toks = matches = flag = 0
+            while i < len(body):
+                if k % 8 == 0:
+                    flag, i = body[i], i + 1
+                lit = flag >> (k % 8) & 1
+                i += 1 if lit else 2
+                toks, matches, k = toks + 1, matches + (not lit), k + 1
+            counts.append((toks, matches))
+        off += size
+    return raw, counts
+
+
+def test_culzss_counters_equal_what_the_codec_wrote(monkeypatch):
+    from tpulc_torch.codecs.lzss import culzss
+
+    # 16 packets a group: 2 encode and 2 decode groups, each a span
+    monkeypatch.setattr(culzss, "ENCODE_GROUP", 16)
+    monkeypatch.setattr(culzss, "DECODE_GROUP", 16)
+    rng = np.random.default_rng(5)
+    data = DATA[:100_000] + rng.integers(0, 256, 20_000, np.uint8).tobytes()
+    codec = get_codec("culzss")
+    before = culzss.culzss_decode_block.rounds
+    timer = timing.enable()
+    try:
+        c = codec.compress(data, device="cpu", **CODECS["culzss"])
+        assert codec.decompress(c, device="cpu") == data
+    finally:
+        timing.disable()
+    raw, counts = _packets(c)
+    assert 0 < sum(raw) < len(raw)
+    st = timer.stages
+    assert st["#culzss_packets"] == len(raw) == 30
+    assert st["#culzss_raw_packets"] == sum(raw)
+    assert st["#culzss_tokens"] == sum(t for t, _ in counts)
+    assert st["#culzss_matches"] == sum(m for _, m in counts) > 0
+    assert st["#culzss_rounds"] == culzss.culzss_decode_block.rounds \
+        - before > 0
+    roots = [s for s in records(timer) if s.parent < 0]
+    assert [s.name for s in roots] == ["culzss.compress", "culzss.decompress"]
+    # one call id a call, every span of it under its root
+    assert roots[0].call != roots[1].call
+    assert {s.call for s in timer.spans} == {r.call for r in roots}
+    for root in roots:
+        mine = [s for s in timer.spans if s.call == root.call]
+        groups = [s for s in mine if s.name == "culzss.group"]
+        assert [g.block for g in groups] == [0, 16]
+        assert all(timer.spans[g.parent] is root for g in groups)
+        for s in mine:
+            up = s
+            while up.parent >= 0:
+                up = timer.spans[up.parent]
+            assert up is root
+
+
+def test_culzss_with_the_timer_off_keeps_no_total(monkeypatch):
+    from tpulc_torch.codecs.lzss import culzss
+
+    kept = []
+    monkeypatch.setattr(timing, "add_totals", lambda *a: kept.append(a))
+    stacked = []
+    real_stack = torch.stack
+    monkeypatch.setattr(torch, "stack",
+                        lambda *a, **k: stacked.append(1) or real_stack(*a,
+                                                                        **k))
+    before = culzss.culzss_decode_block.rounds
+    codec = get_codec("culzss")
+    c = codec.compress(DATA, device="cpu", **CODECS["culzss"])
+    assert codec.decompress(c, device="cpu") == DATA
+    assert not timing.counting() and kept == [] and stacked == []
+    assert culzss.culzss_decode_block.rounds - before == \
+        CULZSS_SITES["decompress"][
+            ("culzss.py", "if timing.wait(torch.equal, nxt, src, nbytes=1):")]
+
+
 SMALL = {
     "bz.words-25m": {"compress": {"block_size": 65_536},
                      "traffic": {"size": 100_000, "objects": 2}},
@@ -246,13 +401,19 @@ SMALL = {
                          "traffic": {"size": 50_000, "objects": 2}},
     "huffman-1m.words-100m": {"compress": {"block_size": 65_536},
                               "traffic": {"size": 200_000, "objects": 2}},
+    "culzss-1m.words-100m": {"compress": {"block_size": 65_536},
+                             "traffic": {"size": 100_000, "objects": 2}},
 }
 NEW_METRICS = [f"{m}.{d}" for m in ("host_waits_per_MB", "host_wait_s_per_GB",
                                     "entry_s_per_GB")
                for d in ("compress", "decompress")]
 CELL_METRICS = {"huffman-1m.words-100m": [
     "huffman_encode_s_per_GB.compress", "huffman_parse_s_per_GB.decompress",
-    "huffman_decode_s_per_GB.decompress", "huffman_pull_s_per_GB.decompress"]}
+    "huffman_decode_s_per_GB.decompress", "huffman_pull_s_per_GB.decompress"],
+    "culzss-1m.words-100m": [
+    "culzss_match_s_per_GB.compress", "culzss_parse_s_per_GB.compress",
+    "culzss_host_s_per_GB.compress", "culzss_decode_s_per_GB.decompress",
+    "culzss_host_s_per_GB.decompress"]}
 
 
 TRACED_RUN = """

@@ -23,7 +23,8 @@ from portbench.traffic import generate
 from tpulc_torch.pipeline.registry import get_codec
 from tpulc_torch.utils import timing
 
-CELLS = ("bz.words-25m", "bsc-e1.words-25m", "huffman-1m.words-100m")
+CELLS = ("bz.words-25m", "bsc-e1.words-25m", "huffman-1m.words-100m",
+         "culzss-1m.words-100m")
 SEED = 2**31 + 2021
 TIMER_SYNC = "(the timer's own synchronisation)"
 OUTSIDE = "(outside the port)"

@@ -28,8 +28,11 @@ compacted by a cumsum scatter (tpulc sorts them), their [G, 8] token
 grid is read at once, records land at output positions from two prefix
 sums, and the copy sources resolve by pointer doubling to a fixpoint
 (at most 13 rounds, one host check a round, counted in
-`culzss_decode_block.rounds`).  A zero-length match, where tpulc lets
-two records race for one slot, raises ValueError.
+`culzss_decode_block.rounds` and, while the timer is on, in the total
+`#culzss_rounds`).  A zero-length match, where tpulc lets two records
+race for one slot, raises ValueError.  Each group of packets, encoded
+or decoded, is a `culzss.group` span whose block index is its first
+packet.
 """
 
 from __future__ import annotations
@@ -128,8 +131,11 @@ def culzss_encode_block(block: torch.Tensor):
     CAP_OUT], sizes int64[P], ntokens int64[P]), P = N / PCKT, encoded
     `ENCODE_GROUP` packets at a time on the block's device."""
     packets = block.reshape(-1, PCKT)
-    parts = [_encode_group(packets[g: g + ENCODE_GROUP])
-             for g in range(0, packets.shape[0], ENCODE_GROUP)]
+    parts = []
+    for g in range(0, packets.shape[0], ENCODE_GROUP):
+        timing.next_block(g)
+        with timing.stage("culzss.group"):
+            parts.append(_encode_group(packets[g: g + ENCODE_GROUP]))
     return tuple(torch.cat(x) for x in zip(*parts))
 
 
@@ -145,7 +151,7 @@ def _decode_records(pbuf: torch.Tensor, psizes: torch.Tensor):
     dev = pbuf.device
     idx = torch.arange(capb, device=dev)
     f = pbuf.to(torch.int64)
-    ones = torch.tensor(_POPCOUNT, device=dev)[f]
+    ones = timing.upload(torch.tensor(_POPCOUNT), dev)[f]
     live = idx < psizes[:, None]
     # group-start chain: a group spans >= 9 bytes, so the orbit has at
     # most capb // 9 + 1 entries; positions past psize are dead ends
@@ -188,7 +194,7 @@ def _decode_group(pbuf: torch.Tensor, psizes: torch.Tensor):
     with timing.stage("culzss.records"):
         rec, start, outl, zero_len = _decode_records(
             pbuf, psizes.to(torch.int64))
-        if bool(zero_len.any()):
+        if timing.wait(bool, zero_len.any()):
             raise ValueError("corrupt culzss packet: a zero-length match")
         P = pbuf.shape[0]
         dev = pbuf.device
@@ -213,13 +219,17 @@ def _decode_group(pbuf: torch.Tensor, psizes: torch.Tensor):
             torch.arange(WIN, device=dev).expand(P, WIN),
             torch.where(~is_lit & valid, q, idx + WIN)], dim=1)
     with timing.stage("culzss.rounds"):
+        rounds = 0
         for _ in range(_ROUNDS):
             nxt = torch.gather(src, 1, src)
-            culzss_decode_block.rounds += 1
-            if torch.equal(nxt, src):
+            rounds += 1
+            if timing.wait(torch.equal, nxt, src, nbytes=1):
                 break
             src = nxt
         out = torch.gather(val, 1, src)[:, WIN:]
+    culzss_decode_block.rounds += rounds
+    if timing.counting():
+        timing.add_totals(("#culzss_rounds",), (rounds,))
     return out, outl
 
 
@@ -229,8 +239,11 @@ def culzss_decode_block(pbuf: torch.Tensor, psizes: torch.Tensor):
     read as spaces, as in tpulc.  Raises ValueError on a zero-length
     match."""
     G = DECODE_GROUP
-    parts = [_decode_group(pbuf[g: g + G], psizes[g: g + G])
-             for g in range(0, pbuf.shape[0], G)]
+    parts = []
+    for g in range(0, pbuf.shape[0], G):
+        timing.next_block(g)
+        with timing.stage("culzss.group"):
+            parts.append(_decode_group(pbuf[g: g + G], psizes[g: g + G]))
     if not parts:
         return (torch.zeros((0, PCKT), dtype=torch.uint8, device=pbuf.device),
                 torch.zeros(0, dtype=torch.int64, device=pbuf.device))

@@ -16,6 +16,20 @@ also pads the packet count to a power of two, an XLA compile-cache
 device whose extra packets are thrown away, which the port does not
 copy.  The packets' bodies are compacted on the device and pulled once.
 
+Spans (`utils/timing.py`): the roots `culzss.compress` and
+`culzss.decompress`; `culzss.group` a group of packets (`culzss.py`;
+block index: its first packet); the coarse stages `culzss.grid`,
+`culzss.pull` and `culzss.container` here and `culzss.candidates`,
+`culzss.doubling`, `culzss.parse` and `culzss.pack` in an encode
+group; `culzss.payloads`, `culzss.out` and `culzss.verify` here and
+`culzss.records` and `culzss.rounds` in a decode group.  Every blocking
+read of the card goes through `timing.wait` or `timing.upload`.  While
+the timer is on, compress adds `#culzss_packets`,
+`#culzss_raw_packets`, and the tokens and matches of the packets it
+stores coded (`#culzss_tokens`, `#culzss_matches`) to its totals, and
+decompress the pointer-doubling rounds of its groups
+(`#culzss_rounds`).
+
 Where tpulc `assert`s the codec id (dropped by `python -O`) and lets a
 packet that decodes to the wrong length pass to the adler32 check, the
 port raises ValueError: a wrong codec id, a size table or bodies that
@@ -55,43 +69,62 @@ def _npackets(nbytes: int) -> int:
 
 def compress(data: bytes | np.ndarray, block_size: int = 1 << 20,
              device: str | torch.device | None = None) -> bytes:
-    dev = resolve(device)
-    arr = _as_array(data)
-    n = arr.shape[0]
-    starts = range(0, max(n, 1), block_size)
-    counts = [_npackets(min(n - s, block_size)) for s in starts]
-    with timing.stage("culzss.grid"):
-        grid = np.zeros(sum(counts) * PCKT, np.uint8)
-        o = 0
-        for s, c in zip(starts, counts):
-            chunk = arr[s: s + block_size]
-            grid[o: o + chunk.shape[0]] = chunk
-            o += c * PCKT
-        packets = torch.from_numpy(grid).to(dev)
-    out, sizes, _ = culzss_encode_block(packets)
-    with timing.stage("culzss.pull"):
-        raw = sizes >= PCKT          # incompressible packet: store raw
-        blen = torch.where(raw, PCKT, sizes)
-        out[:, :PCKT] = torch.where(raw[:, None], packets.reshape(-1, PCKT),
-                                    out[:, :PCKT])
-        keep = torch.arange(CAP_OUT, device=dev)[None, :] < blen[:, None]
-        bodies = out[keep].cpu().numpy()
-        sizes = sizes.cpu().numpy()
-    with timing.stage("culzss.container"):
-        table = np.where(sizes >= PCKT, RAW_FLAG | PCKT, sizes).astype("<u2")
-        ends = np.cumsum(np.minimum(sizes, PCKT))
-        payloads = []
-        p = 0
-        for c in counts:
-            b0 = int(ends[p - 1]) if p else 0
-            payloads.append(struct.pack("<I", c) + table[p: p + c].tobytes()
-                            + bodies[b0: int(ends[p + c - 1])].tobytes())
-            p += c
-        return Container(
-            codec_id=CODEC_LZSS_CULZSS, flags=0, orig_len=n,
-            block_size=block_size, comp_sizes=[len(x) for x in payloads],
-            payloads=payloads, data_adler=adler32_np(arr),
-        ).to_bytes()
+    with timing.stage("culzss.compress"):
+        dev = resolve(device)
+        arr = _as_array(data)
+        n = arr.shape[0]
+        starts = range(0, max(n, 1), block_size)
+        counts = [_npackets(min(n - s, block_size)) for s in starts]
+        with timing.stage("culzss.grid"):
+            grid = np.zeros(sum(counts) * PCKT, np.uint8)
+            o = 0
+            for s, c in zip(starts, counts):
+                chunk = arr[s: s + block_size]
+                grid[o: o + chunk.shape[0]] = chunk
+                o += c * PCKT
+            packets = timing.upload(grid, dev)
+        out, sizes, ntokens = culzss_encode_block(packets)
+        counting = timing.counting()
+        with timing.stage("culzss.pull"):
+            raw = sizes >= PCKT      # incompressible packet: store raw
+            blen = torch.where(raw, PCKT, sizes)
+            out[:, :PCKT] = torch.where(raw[:, None],
+                                        packets.reshape(-1, PCKT),
+                                        out[:, :PCKT])
+            keep = torch.arange(CAP_OUT, device=dev)[None, :] < blen[:, None]
+            bodies = timing.wait(torch.Tensor.cpu, timing.wait(
+                torch.Tensor.__getitem__, out, keep, nbytes=8)).numpy()
+            # the token counts ride along with the sizes only while the
+            # timer counts
+            meta = timing.wait(torch.Tensor.cpu, torch.stack(
+                [sizes, ntokens]) if counting else sizes[None]).numpy()
+            sizes = meta[0]
+        if counting:
+            coded = sizes < PCKT
+            toks = meta[1][coded]
+            timing.add_totals(
+                ("#culzss_packets", "#culzss_raw_packets", "#culzss_tokens",
+                 "#culzss_matches"),
+                (sizes.shape[0], int((~coded).sum()), int(toks.sum()),
+                 int((sizes[coded] - toks - ((toks + 7) >> 3)).sum())))
+        with timing.stage("culzss.container"):
+            table = np.where(sizes >= PCKT, RAW_FLAG | PCKT,
+                             sizes).astype("<u2")
+            ends = np.cumsum(np.minimum(sizes, PCKT))
+            payloads = []
+            p = 0
+            for c in counts:
+                b0 = int(ends[p - 1]) if p else 0
+                payloads.append(struct.pack("<I", c)
+                                + table[p: p + c].tobytes()
+                                + bodies[b0: int(ends[p + c - 1])].tobytes())
+                p += c
+            return Container(
+                codec_id=CODEC_LZSS_CULZSS, flags=0, orig_len=n,
+                block_size=block_size,
+                comp_sizes=[len(x) for x in payloads], payloads=payloads,
+                data_adler=adler32_np(arr),
+            ).to_bytes()
 
 
 def _parse(payload: bytes, raw_size: int):
@@ -126,42 +159,53 @@ def _parse(payload: bytes, raw_size: int):
 
 def decompress(buf: bytes,
                device: str | torch.device | None = None) -> bytes:
-    dev = resolve(device)
-    c = Container.from_bytes(buf)
-    if c.codec_id != CODEC_LZSS_CULZSS:
-        raise ValueError(f"not a culzss container (codec id {c.codec_id})")
-    with timing.stage("culzss.payloads"):
-        parts = [_parse(p, info.raw_size)
-                 for p, info in zip(c.payloads, c.block_infos())]
-        psizes = np.concatenate([x[0] for x in parts])
-        raw = np.concatenate([x[1] for x in parts])
-        # bytes each packet must give: PCKT, but its tail for a block's last
-        want = np.full(psizes.shape[0], PCKT, np.int64)
-        ends = np.cumsum([x[0].shape[0] for x in parts]) - 1
-        want[ends] = [info.raw_size - (x[0].shape[0] - 1) * PCKT
-                      for x, info in zip(parts, c.block_infos())]
-        psz = torch.from_numpy(psizes).to(dev)
-        pbuf = torch.zeros((psizes.shape[0], CAP_OUT), dtype=torch.uint8,
-                           device=dev)
-        pbuf[torch.arange(CAP_OUT, device=dev)[None, :] < psz[:, None]] = \
-            torch.from_numpy(np.concatenate([x[2] for x in parts])).to(dev)
-    out, outl = culzss_decode_block(pbuf, psz)
-    with timing.stage("culzss.out"):
-        want_t = torch.from_numpy(want).to(dev)
-        raw_t = torch.from_numpy(raw).to(dev)
-        last = torch.zeros_like(raw_t)
-        last[torch.from_numpy(ends).to(dev)] = True
-        bad = ~raw_t & (outl != PCKT) & ~(last & (outl == want_t))
-        if bool(bad.any()):
-            j = int(torch.nonzero(bad)[0])
-            raise ValueError(f"corrupt culzss packet {j}: decodes to "
-                             f"{int(outl[j])} bytes, not {int(want[j])}")
-        if raw.any():
-            out[raw_t] = torch.from_numpy(
-                np.concatenate([x[3] for x in parts])).to(dev)
-        keep = torch.arange(PCKT, device=dev)[None, :] < want_t[:, None]
-        got = out[keep].cpu().numpy()[: c.orig_len]
-    with timing.stage("culzss.verify"):
-        if not c.verify_data(got):
-            raise ValueError("data checksum mismatch after decompress")
-        return got.tobytes()
+    with timing.stage("culzss.decompress"):
+        dev = resolve(device)
+        c = Container.from_bytes(buf)
+        if c.codec_id != CODEC_LZSS_CULZSS:
+            raise ValueError(
+                f"not a culzss container (codec id {c.codec_id})")
+        with timing.stage("culzss.payloads"):
+            parts = [_parse(p, info.raw_size)
+                     for p, info in zip(c.payloads, c.block_infos())]
+            psizes = np.concatenate([x[0] for x in parts])
+            raw = np.concatenate([x[1] for x in parts])
+            # bytes each packet must give: PCKT, but its tail for a
+            # block's last
+            want = np.full(psizes.shape[0], PCKT, np.int64)
+            ends = np.cumsum([x[0].shape[0] for x in parts]) - 1
+            want[ends] = [info.raw_size - (x[0].shape[0] - 1) * PCKT
+                          for x, info in zip(parts, c.block_infos())]
+            psz = timing.upload(psizes, dev)
+            pbuf = torch.zeros((psizes.shape[0], CAP_OUT), dtype=torch.uint8,
+                               device=dev)
+            timing.wait(torch.Tensor.__setitem__, pbuf,
+                        torch.arange(CAP_OUT, device=dev)[None, :]
+                        < psz[:, None],
+                        timing.upload(np.concatenate([x[2] for x in parts]),
+                                      dev), nbytes=8)
+        out, outl = culzss_decode_block(pbuf, psz)
+        with timing.stage("culzss.out"):
+            want_t = timing.upload(want, dev)
+            raw_t = timing.upload(raw, dev)
+            last = torch.zeros_like(raw_t)
+            # a scalar put: its value is copied to the card, a wait
+            timing.wait(torch.Tensor.__setitem__, last,
+                        timing.upload(ends, dev), True, nbytes=1)
+            bad = ~raw_t & (outl != PCKT) & ~(last & (outl == want_t))
+            if timing.wait(bool, bad.any()):
+                j = int(torch.nonzero(bad)[0])
+                raise ValueError(f"corrupt culzss packet {j}: decodes to "
+                                 f"{int(outl[j])} bytes, not {int(want[j])}")
+            if raw.any():
+                timing.wait(torch.Tensor.__setitem__, out, raw_t,
+                            timing.upload(np.concatenate(
+                                [x[3] for x in parts]), dev), nbytes=8)
+            keep = torch.arange(PCKT, device=dev)[None, :] < want_t[:, None]
+            got = timing.wait(torch.Tensor.cpu, timing.wait(
+                torch.Tensor.__getitem__, out, keep,
+                nbytes=8)).numpy()[: c.orig_len]
+        with timing.stage("culzss.verify"):
+            if not c.verify_data(got):
+                raise ValueError("data checksum mismatch after decompress")
+            return got.tobytes()

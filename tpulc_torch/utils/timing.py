@@ -41,7 +41,8 @@ takes: `#waits` and `#wait_s` (the waits of every call), and `#entry_s`
 (the seconds of each call's root span outside every span of `STAGES`
 and the timer's own syncs: uploads, payloads, parsing, checksums and
 the container).  A stage's own counters go there too, through
-`add_totals` (the LZP encoder's `#lzp_*`), while `counting()`.
+`add_totals` (the LZP encoder's `#lzp_*`, culzss's `#culzss_*`), while
+`counting()`.
 """
 
 from __future__ import annotations
