@@ -123,16 +123,22 @@ Phases (any failure exits non-zero before the last line is printed):
    from warm repeats, peak device memory and a trace of each direction;
    then lzss on bench.py's make_soup(3,569,598) at 1 MiB: tpulc's
    container (629,458 B, ratio 5.671, sha256) and an exact round trip;
-12. culzss at 1 MiB blocks through get_codec, counted as in phase 4 (no
-   hand kernel may launch: every stage is plain torch): on pg1661 x 6
+12. culzss at 1 MiB blocks through get_codec, counted as in phase 4 (the
+   match kernel, csrc/culzss_match.cu, once an encode group and no
+   other hand kernel): on pg1661 x 6
    and on make_soup(3,569,598), tpulc's containers (size, ratio,
-   sha256) and exact round trips, with stage times (grid, candidates,
-   doubling, parse, pack, pull, container; payloads, records, doubling
+   sha256) and exact round trips, with stage times (grid, doubling,
+   parse, pack, pull, container; payloads, records, doubling
    rounds, out, verify), MB/s from warm repeats, peak device memory and
    a trace of
    each direction; the card's container equal to the CPU path's on 150
    KB; 100,000,000 B of the soup (24,415 packets) round-tripped
    exactly, its peak device memory printed beside the packet groups;
+   that compress counted as in phase 4 (the match kernel once in each
+   of its 24 encode groups, nothing else); the match kernel against
+   its plain version on that soup's packet grid, at one group of 1,024
+   packets and at the call's 24 groups of 24,415, a launch a group as
+   the encode makes them;
 13. the distribution layer on the card: the port's dry run (tpulc's
    seven sharded checks) as a user calls it, on one spawned NCCL rank,
    then in an NCCL group of world size 1: the dry run; each sharded
@@ -143,7 +149,8 @@ Phases (any failure exits non-zero before the last line is printed):
    single-process compress_multihost bytes for bz (900,000 B blocks)
    and phase 12's container for culzss.  One card: multi-GPU scaling is
    not measured;
-14. the primitive layer (plain torch, no hand kernel may launch) at the
+14. the primitive layer (plain torch, no hand kernel may launch but the
+   culzss match kernel of the codec that writes the golds' packets) at the
    sizes users run, each timed as the median of 3 warm runs between
    synchronisations, with GB/s of input and peak device memory: the
    doubling and device-DC3 suffix arrays of pg1661 x 6 and of one 25
@@ -303,7 +310,7 @@ DIST_STEPS = (
      ("grc_walk_probs", "grc_reverse_rans", "grc_decode_walk",
       "running_max", "running_min"),
      "a5efec28d836329873b1479ad5a63fad9820ba46bd7aab86f56014cb60b3ee1e"),
-    ("culzss_roundtrip", 4096, (),
+    ("culzss_roundtrip", 4096, ("culzss_match",),
      "e670ea69fef2976b032d4566e2c0480c279450fcc336969488506e236b052867"),
 )
 # tpulc's single-process compress_multihost of pg1661 x 6 as bz at
@@ -2267,27 +2274,33 @@ def hand_kernels() -> dict:
     from tpulc_torch.codecs.bsclike import grc_kernels as gk
     from tpulc_torch.codecs.bsclike import rans
     from tpulc_torch.codecs.huffman import decode_kernels as dk
+    from tpulc_torch.codecs.lzss import culzss
     from tpulc_torch.primitives import mtf_kernels as mk
 
     fns = (mk.mtf_recency, mk.mtf_start_tables, mk.mtf_encode_lockstep,
            mk.mtf_lockstep, dk.huffman_walk, dk.huffman_walk_v1,
            dk.huffman_walk_flat, gk.grc_walk_probs, gk.grc_reverse_rans,
            gk.grc_decode_walk, rans.rans_encode_walk, rans.rans_decode_walk,
-           ak.abc_encode_walk, ak.abc_decode_walk)
+           ak.abc_encode_walk, ak.abc_decode_walk, culzss.culzss_match)
     return {**{f.__name__: f for f in fns}, **stage_wrappers()}
 
 
 def culzss_phase(torch, here: str, kernels: list) -> None:
     """Phase 12: culzss at 1 MiB blocks through get_codec, counted as in
-    phase 4 (no hand kernel may launch: culzss is plain torch).  Each
-    cell of CULZSS_CELLS: tpulc's container (size, ratio, sha256), an
-    exact round trip, stage times, the decode's doubling rounds, peak
-    device memory, MB/s from warm repeats and a trace of each
-    direction; the card's container equal to the CPU path's on 150 KB;
-    then 100,000,000 B of the soup, round-tripped exactly, with its
-    peak device memory beside the packet groups.  `kernels` gains no
-    entry: culzss has no hand kernel."""
+    phase 4 (the match kernel once an encode group, no other hand
+    kernel).  Each cell of CULZSS_CELLS: tpulc's container (size,
+    ratio, sha256), an exact round trip, stage times, the decode's
+    doubling rounds, peak device memory, MB/s from warm repeats and a
+    trace of each direction; the card's container equal to the CPU
+    path's on 150 KB; then 100,000,000 B of the soup, round-tripped
+    exactly, its compress counted, with its peak device memory beside
+    the packet groups; then the match kernel against its plain version
+    on that soup's packets, a group and the call's groups (appended to
+    `kernels`, their launches the counted compress's)."""
+    import numpy as np
+
     from tpulc_torch.codecs.lzss import culzss as core
+    from tpulc_torch.codecs.lzss import culzss_driver as drv
     from tpulc_torch.pipeline.registry import get_codec
     from tpulc_torch.utils import timing
 
@@ -2330,11 +2343,16 @@ def culzss_phase(torch, here: str, kernels: list) -> None:
         require(sha == want_sha, f"culzss {label}: container differs from "
                                  "tpulc's")
         launched = {k: n_c[k] + n_d[k] for k in wrappers if n_c[k] + n_d[k]}
-        require(not launched, f"culzss launched hand kernels: {launched}")
+        packets = sum(drv.block_packets(len(data), CULZSS_BLOCK))
+        groups = -(-packets // core.ENCODE_GROUP)
+        require(launched == {"culzss_match": groups} == {
+            k: v for k, v in n_c.items() if v},
+            f"culzss launched {launched}, not the match kernel once in "
+            f"each of {groups} encode groups")
         res = {"input_bytes": len(data), "block_size": CULZSS_BLOCK,
-               "packets": -(-len(data) // core.PCKT),
+               "packets": packets,
                "container_bytes": len(comp), "ratio": ratio, "sha256": sha,
-               "sha256_equals_tpulc": True, "hand_kernel_launches": 0,
+               "sha256_equals_tpulc": True, "hand_kernel_launches": launched,
                "decode_doubling_rounds": rounds, "first_compress_s": tc,
                "first_decompress_s": td, "stages_first_run": stages,
                "peak_mem_bytes": peak, "encode_group": core.ENCODE_GROUP,
@@ -2348,8 +2366,8 @@ def culzss_phase(torch, here: str, kernels: list) -> None:
     big = soup(CULZSS_BIG)
     timer = timing.enable()
     torch.cuda.reset_peak_memory_stats()
-    comp, tc = synced(torch, partial(culzss.compress, big,
-                                     block_size=CULZSS_BLOCK, device="cuda"))
+    comp, tc, n_c = counted(torch, wrappers, partial(
+        culzss.compress, big, block_size=CULZSS_BLOCK, device="cuda"))
     peak_c = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     core.culzss_decode_block.rounds = 0
@@ -2358,8 +2376,13 @@ def culzss_phase(torch, here: str, kernels: list) -> None:
     stages = timer.report()
     timing.disable()
     require(back == big, "culzss 100 MB soup: round trip is not exact")
-    packets = sum(-(-min(len(big) - s, CULZSS_BLOCK) // core.PCKT)
-                  for s in range(0, len(big), CULZSS_BLOCK))
+    counts = drv.block_packets(len(big), CULZSS_BLOCK)
+    packets = sum(counts)
+    groups = -(-packets // core.ENCODE_GROUP)
+    launched = {k: v for k, v in n_c.items() if v}
+    require(launched == {"culzss_match": groups},
+            f"culzss 100 MB soup: compress launched {launched}, not the "
+            f"match kernel once in each of {groups} encode groups")
     print(json.dumps({"culzss_soup100MB": {
         "input_bytes": len(big), "block_size": CULZSS_BLOCK,
         "packets": packets, "container_bytes": len(comp),
@@ -2371,8 +2394,35 @@ def culzss_phase(torch, here: str, kernels: list) -> None:
         "decode_group_packets": core.DECODE_GROUP,
         "peak_mem_bytes_compress": peak_c, "peak_mem_bytes_decompress": peak_d,
         "decode_doubling_rounds": core.culzss_decode_block.rounds,
+        "hand_kernel_launches_compress": launched,
         "stages": stages, "timing": "first run, host clock, synchronized"}}),
         flush=True)
+    grid = torch.from_numpy(drv.packet_grid(
+        np.frombuffer(big, np.uint8), CULZSS_BLOCK, counts)).cuda().view(
+        -1, core.PCKT)
+    del comp, back, big
+    # the encode's groups, each its own launch
+    parts = tuple(grid[g: g + core.ENCODE_GROUP]
+                  for g in range(0, packets, core.ENCODE_GROUP))
+
+    def by_group(fn):
+        return lambda *ps: tuple(fn(p) for p in ps)
+
+    one = parts[0]
+    kernels += check_kernels(torch, [
+        dict(name="culzss_match", src="tpulc_torch/csrc/culzss_match.cu",
+             replaces="tpulc/codecs/lzss/culzss.py:38-79 `_encode_packet`'s "
+                      "equality rows and doubling (XLA, no pallas_call)",
+             kern=core.culzss_match, plain=core.culzss_match_plain,
+             args=(one,), shape=f"{one.shape[0]}x{core.PCKT}",
+             ops=one.numel() * core.WIN),
+        dict(name="culzss_match", src="tpulc_torch/csrc/culzss_match.cu",
+             replaces="as above", kern=by_group(core.culzss_match),
+             plain=by_group(core.culzss_match_plain), args=parts,
+             shape=f"{packets}x{core.PCKT} as {len(parts)} launches",
+             ops=grid.numel() * core.WIN, plain_reps=1),
+    ])
+    kernels[-2]["launches"] = kernels[-1]["launches"] = n_c["culzss_match"]
 
 
 def dist_phase(torch, here: str, kernels: list) -> None:
@@ -2819,12 +2869,16 @@ def prim_golds(torch, here: str) -> None:
 
 def prim_phase(torch, here: str, kernels: list) -> None:
     """Phase 14: the primitive layer and the golds at the sizes users
-    run (see the module docstring).  No hand kernel may launch: the
+    run (see the module docstring).  No hand kernel may launch but the
+    culzss match kernel of the codec that writes the golds' packets: the
     layer is plain torch, and `kernels` gains no entry."""
     _, dt, launches = counted(torch, hand_kernels(), lambda: (
         prim_suffix(torch, here), prim_parallel(torch),
         prim_aux(torch, here), prim_golds(torch, here)))
-    launched = {k: v for k, v in launches.items() if v}
+    # the golds' culzss packets come from the codec, whose match search
+    # is a hand kernel
+    launched = {k: v for k, v in launches.items()
+                if v and k != "culzss_match"}
     require(not launched, f"the primitive layer launched hand kernels: "
                           f"{launched}")
     prim_rotsort(torch, here)

@@ -196,6 +196,21 @@ def test_containers_equal_tpulc_and_cross_decode(data, block):
     assert tpulc_driver.decompress(ours) == data
 
 
+@pytest.mark.parametrize("n,block", [
+    (0, 1 << 16), (1, 1 << 16), (PCKT, 1 << 16), (PCKT * 3 + 17, 1 << 16),
+    (40_000, 12_288), (2 * 12_288, 12_288), (10_000, 5000),
+])
+def test_packet_grid_pads_each_block_to_whole_packets(n, block):
+    arr = np.frombuffer(_pg(n), np.uint8)
+    chunks = [arr[s: s + block] for s in range(0, max(n, 1), block)]
+    counts = driver.block_packets(n, block)
+    assert counts == [max(-(-len(c) // PCKT), 1) for c in chunks]
+    want = np.concatenate([np.pad(c, (0, k * PCKT - len(c)))
+                           for c, k in zip(chunks, counts)])
+    grid = driver.packet_grid(arr, block, counts)
+    assert grid.dtype == np.uint8 and np.array_equal(grid, want)
+
+
 def test_registry_and_cli_write_tpulc_bytes(tmp_path, capsys):
     assert get_codec("culzss") is driver
     src = tmp_path / "in.txt"

@@ -7,20 +7,25 @@ initialised to spaces; a packet is a flag byte per 8 tokens (LSB first,
 bit set = literal), a literal is 1 byte and a match 2, (length, ring
 offset), copying from the window as it stood before the token.
 
-Encode, a packet a row, in groups of `ENCODE_GROUP` packets so that the
-[packets, 128, columns] equality rows stay a few GB whatever the input:
+Encode, a packet a row, in groups of `ENCODE_GROUP` packets:
 
-  1. the equality rows x[i] == x[i - d] for every distance d in 1..128,
-     one broadcast compare of each packet (after tpulc's 128 leading
-     spaces) against an `unfold` of itself (tpulc: 128 concatenates);
-  2. five int8 doubling steps turn each row into min(run, 32): tpulc's
-     arithmetic, so no match is longer than 32 bytes even though the
-     length byte allows 127 (`MAX_LEN`);
-  3. a match at i is min(run, d, 127), the longest over d with the
-     nearest distance winning ties (`max` returns the first maximum),
-     clamped to the packet's remainder; the greedy parse is the orbit
-     of 0 under i -> i + token length (`orbit_flags_batched`);
-  4. tokens and flag bytes scatter to prefix-summed byte offsets.
+  1. the match search (`culzss_match`): at each byte i and distance d
+     in 1..128, the run of x[i + k] == x[i + k - d] from k = 0 (x after
+     tpulc's 128 leading spaces, zeros past the packet), capped at 32:
+     tpulc's arithmetic (five int8 doubling steps), so no match is
+     longer than 32 bytes even though the length byte allows 127
+     (`MAX_LEN`); the match at i is min(run, d, 127), the longest over
+     d with the nearest distance winning ties.  On the card it is one
+     hand kernel (`csrc/culzss_match.cu`); the plain version
+     (`culzss_match_plain`, the CPU's) builds the equality rows by one
+     broadcast compare of each packet against an `unfold` of itself
+     (tpulc: 128 concatenates), [packets, 128, 4,128] int8 (0.54 GB a
+     group of 1,024), runs the doubling steps and takes `max`, which
+     returns the first maximum;
+  2. the match is clamped to the packet's remainder; the greedy parse
+     is the orbit of 0 under i -> i + token length
+     (`orbit_flags_batched`);
+  3. tokens and flag bytes scatter to prefix-summed byte offsets.
 
 Decode, a packet a row: a flag byte's value alone fixes its group's
 span (17 - popcount), so group starts are an orbit too; they are
@@ -39,6 +44,7 @@ from __future__ import annotations
 
 import torch
 
+from tpulc_torch import cuda_lib
 from tpulc_torch.primitives.parallel import orbit_flags_batched
 from tpulc_torch.utils import timing
 
@@ -54,14 +60,16 @@ _DOUBLINGS = 5                     # tpulc's int8 steps: runs cap at 32
 _SPAN = PCKT + (1 << _DOUBLINGS)
 _GROUPS = PCKT // 8 + 2
 _ROUNDS = 13                       # ceil(log2(PCKT + WIN))
-ENCODE_GROUP = 1024                # packets a pass (~0.54 MB an int8 row set)
+ENCODE_GROUP = 1024                # packets a pass (~0.54 GB an int8 row set)
 DECODE_GROUP = 4096
 
 
-def _runs(packets: torch.Tensor) -> torch.Tensor:
-    """uint8[G, PCKT] -> int8[G, WIN, _SPAN]: row d-1, column c holds
-    min(32, the run of x[c + k] == x[c + k - d] from k = 0) (x after
-    the window's spaces, zeros past the packet)."""
+def culzss_match_plain(packets: torch.Tensor):
+    """uint8[G, PCKT] -> (best_len, best_i), both uint8[G, PCKT]: at
+    each byte, the longest min(run, d, 127) over the distances d and
+    d - 1 of the nearest d that gives it (module docstring, step 1).
+    Row d - 1, column c of the int8 rows L holds min(32, the run of
+    x[c + k] == x[c + k - d] from k = 0)."""
     G = packets.shape[0]
     with timing.stage("culzss.candidates"):
         padded = torch.zeros((G, WIN + _SPAN), dtype=torch.uint8,
@@ -77,7 +85,36 @@ def _runs(packets: torch.Tensor) -> torch.Tensor:
         for _ in range(_DOUBLINGS):
             L[..., :-s] += L[..., s:] * (L[..., :-s] == s)
             s *= 2
-    return L
+        dcol = torch.arange(1, WIN + 1, device=packets.device).clamp(
+            max=MAX_LEN).to(torch.int8)[:, None]
+        best_len, best_i = torch.minimum(L[..., :PCKT], dcol).max(dim=1)
+        del L
+    return best_len.to(torch.uint8), best_i.to(torch.uint8)
+
+
+def culzss_match(packets: torch.Tensor):
+    """Kernel wrapper (see `culzss_match_plain`).  Given a CPU tensor it
+    runs the plain version; given a CUDA tensor it launches
+    `csrc/culzss_match.cu` inside the stage `culzss.doubling` (and adds
+    one to `launches`) or raises: it never falls back."""
+    cuda_lib.check_tensor("packets", packets, torch.uint8, (None, PCKT))
+    dev = cuda_lib.device_of(packets)
+    if dev.type == "cpu":
+        return culzss_match_plain(packets)
+    lib = cuda_lib.library()
+    with timing.stage("culzss.doubling"):
+        best_len = torch.empty_like(packets)
+        best_i = torch.empty_like(packets)
+        with torch.cuda.device(dev):
+            cuda_lib.check(lib.tplc_culzss_match(
+                packets.data_ptr(), best_len.data_ptr(), best_i.data_ptr(),
+                packets.shape[0], cuda_lib.stream_of(packets)),
+                "culzss_match")
+    culzss_match.launches += 1
+    return best_len, best_i
+
+
+culzss_match.launches = 0
 
 
 def _encode_group(packets: torch.Tensor):
@@ -85,12 +122,7 @@ def _encode_group(packets: torch.Tensor):
     ntokens int64[G]): tpulc's `_encode_packet` a row."""
     G = packets.shape[0]
     dev = packets.device
-    L = _runs(packets)
-    with timing.stage("culzss.doubling"):
-        dcol = torch.arange(1, WIN + 1, device=dev).clamp(max=MAX_LEN).to(
-            torch.int8)[:, None]
-        best_len, best_i = torch.minimum(L[..., :PCKT], dcol).max(dim=1)
-        del L
+    best_len, best_i = culzss_match(packets)
     with timing.stage("culzss.parse"):
         i = torch.arange(PCKT, device=dev)
         best_len = torch.minimum(best_len.to(torch.int64), PCKT - i)

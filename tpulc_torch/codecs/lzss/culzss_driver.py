@@ -19,9 +19,9 @@ copy.  The packets' bodies are compacted on the device and pulled once.
 Spans (`utils/timing.py`): the roots `culzss.compress` and
 `culzss.decompress`; `culzss.group` a group of packets (`culzss.py`;
 block index: its first packet); the coarse stages `culzss.grid`,
-`culzss.pull` and `culzss.container` here and `culzss.candidates`,
-`culzss.doubling`, `culzss.parse` and `culzss.pack` in an encode
-group; `culzss.payloads`, `culzss.out` and `culzss.verify` here and
+`culzss.pull` and `culzss.container` here and `culzss.doubling` (the
+match search; on the CPU `culzss.candidates` before it),
+`culzss.parse` and `culzss.pack` in an encode group; `culzss.payloads`, `culzss.out` and `culzss.verify` here and
 `culzss.records` and `culzss.rounds` in a decode group.  Every blocking
 read of the card goes through `timing.wait` or `timing.upload`.  While
 the timer is on, compress adds `#culzss_packets`,
@@ -67,21 +67,35 @@ def _npackets(nbytes: int) -> int:
     return -(-max(nbytes, 1) // PCKT)
 
 
+def block_packets(nbytes: int, block_size: int) -> list[int]:
+    """Packets of each block of `block_size` bytes of an input of
+    `nbytes` (an empty input is one block)."""
+    return [_npackets(min(nbytes - s, block_size))
+            for s in range(0, max(nbytes, 1), block_size)]
+
+
+def packet_grid(arr: np.ndarray, block_size: int,
+                counts: list[int]) -> np.ndarray:
+    """uint8[sum(counts) * PCKT]: arr's blocks back to back, each
+    zero-padded to its `counts` packets (`block_packets`)."""
+    grid = np.zeros(sum(counts) * PCKT, np.uint8)
+    o = 0
+    for s, c in zip(range(0, arr.shape[0], block_size), counts):
+        chunk = arr[s: s + block_size]
+        grid[o: o + chunk.shape[0]] = chunk
+        o += c * PCKT
+    return grid
+
+
 def compress(data: bytes | np.ndarray, block_size: int = 1 << 20,
              device: str | torch.device | None = None) -> bytes:
     with timing.stage("culzss.compress"):
         dev = resolve(device)
         arr = _as_array(data)
         n = arr.shape[0]
-        starts = range(0, max(n, 1), block_size)
-        counts = [_npackets(min(n - s, block_size)) for s in starts]
+        counts = block_packets(n, block_size)
         with timing.stage("culzss.grid"):
-            grid = np.zeros(sum(counts) * PCKT, np.uint8)
-            o = 0
-            for s, c in zip(starts, counts):
-                chunk = arr[s: s + block_size]
-                grid[o: o + chunk.shape[0]] = chunk
-                o += c * PCKT
+            grid = packet_grid(arr, block_size, counts)
             packets = timing.upload(grid, dev)
         out, sizes, ntokens = culzss_encode_block(packets)
         counting = timing.counting()

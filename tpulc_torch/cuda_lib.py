@@ -59,6 +59,7 @@ _SIGNATURES = {
     "tplc_running_scan": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tplc_anchored_walk_lanes": [_I],
     "tplc_anchored_walk": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "tplc_culzss_match": [_P, _P, _P, _I, _P],
 }
 
 _lib: types.SimpleNamespace | None = None
